@@ -1,0 +1,666 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one GPU.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card; without one (or outside a checkout of the repository)
+it exits non-zero and prints no result.  Phases, each of which fails the
+run on error:
+
+  1. build the port's CUDA kernels (``src/repro_torch/csrc/*.cu``);
+  2. hold every kernel against its plain PyTorch version on the card, at
+     the main path's shapes (llama3-8b-262k: H=32, Hkv=8, D=128, bs=128,
+     N=8192, B=2), in bfloat16 and float32, on layer 0's real q/k/v and
+     SharePrefill masks plus synthetic edge rows; time kernel, plain
+     version and a PyTorch library call;
+  3. serve a small ragged batch through the kernels and through the plain
+     versions on the CPU, and compare greedy tokens (near-tie aware);
+  4. serve two full-width llama3-8b-262k requests (prompts of 8192 and 7937
+     tokens, 16 greedy tokens each) through ``ServingEngine`` with
+     SharePrefill prefill and plan-driven sparse decode, with every kernel's
+     launch count reset just before and read just after; then serve them
+     once more under ``torch.profiler`` to see where the device time goes.
+
+Then it prints one JSON line with every kernel's numbers, the card's name
+and power limit, and as its last line
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+Weights are random, from a fixed seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+ARCH = "llama3-8b-262k"
+SEQ = 8192
+PROMPT_LENS = (8192, 7937)
+NEW_TOKENS = 16
+SEED = 0
+
+# published H100 SXM peaks (dense): HBM bytes/s, and FLOP/s per input type
+# (bf16 on the tensor cores, float32 outside them)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# max |kernel − plain| allowed, per output and input dtype.  Both sides
+# accumulate in float32 from the same inputs, so the gap is summation order
+# (float32) plus one rounding of the output to bfloat16 (bf16 ulp at |x|<2
+# is 2^-7; the plain decode also rounds p to bf16 before PV, as the
+# reference's einsum does).  Strips and Ã are float32 in both dtypes.
+TOL = {
+    ("strip", "float32"): 1e-5, ("strip", "bfloat16"): 1e-5,
+    ("out", "float32"): 1e-4, ("out", "bfloat16"): 2e-2,
+    ("a_tilde", "float32"): 1e-4, ("a_tilde", "bfloat16"): 1e-3,
+}
+# near-tie tolerance of the small CUDA-vs-CPU serve comparison (float32)
+TIE_TOL = 1e-3
+
+KERNELS = {
+    "strip": ("src/repro_torch/csrc/strip.cu",
+              "src/repro/kernels/strip.py:111"),
+    "block_sparse_attn": ("src/repro_torch/csrc/block_sparse_attn.cu",
+                          "src/repro/kernels/block_sparse_attn.py:312"),
+    "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
+                    "src/repro/kernels/decode_attn.py:340"),
+}
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def library_ms(fn, reps: int):
+    """``cuda_ms`` of a PyTorch library call used only as a yardstick;
+    None (and the reason printed) when the call cannot run here."""
+    import torch
+    try:
+        return cuda_ms(fn, reps)
+    except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+        print(f"  library call not timed: {exc}".splitlines()[0], flush=True)
+        torch.cuda.empty_cache()
+        return None
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(least ms, what bounds it) for moving ``nbytes`` and doing
+    ``flops`` products in ``dtype`` at the card's published peaks."""
+    name = str(dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOPS[name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check(name: str, err: float, tol: float) -> None:
+    ok = err <= tol
+    print(f"  {name}: max_abs_err {err:.3e} (tol {tol:.0e}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: error {err} above {tol}")
+
+
+def a_tilde_err(a, b) -> float:
+    """Max |Δ| over finite entries; −inf must sit at the same places."""
+    import torch
+    if not bool((torch.isinf(a) == torch.isinf(b)).all()):
+        return float("inf")
+    fin = torch.isfinite(a)
+    return float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+# ---------------------------------------------------------------- phase 2
+
+def layer0_qkv(model, params, tokens):
+    """Layer 0's post-RoPE q (B,H,N,D) and k/v (B,Hkv,N,D), as prefill
+    computes them."""
+    import torch
+    from repro_torch.models import attention, common
+    cfg = model.cfg
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    layer = params["layers"][0]
+    h = common.rmsnorm(layer["ln1"], params["embed"][tokens],
+                       cfg.rms_norm_eps)
+    q, k, v = common.gqa_qkv(layer["attn"], h)
+    q, k = attention.rope_qk(q, k, positions, cfg)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def check_kernels(model, params, tokens, prompt_lens) -> dict:
+    """Phase 2: each kernel against its plain version; returns the kernels'
+    numbers for the JSON line (errors over every case, times at bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.share_attention import (
+        build_share_masks, update_share_state)
+    from repro_torch.kernels import (
+        block_sparse_attention_cuda, block_sparse_attention_plain,
+        compact_block_mask, decode_plan_einsum_sliced, expand_kv,
+        flash_decode_sparse_cuda, strip_scores, strip_scores_cuda,
+        table_block_mask)
+    from repro_torch.kernels.decode_attn import DecodePlan
+    from repro_torch.models.transformer import decode_valid_mask
+
+    cfg = model.cfg
+    spc = cfg.share_prefill
+    bs = spc.block_size
+    dev = tokens.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    q16, k16, v16 = layer0_qkv(model, params, tokens)
+    b, h, n, d = q16.shape
+    hkv = k16.shape[1]
+    g = h // hkv
+    nb = n // bs
+    print(f"shapes: B={b} H={h} Hkv={hkv} N={n} D={d} bs={bs}", flush=True)
+
+    # real masks: layer 0's, from the empty dictionary, and the masks the
+    # same q/k get from the dictionary layer 0 builds (shared heads)
+    sp = model.default_share_prefill()
+    state = sp.init_state(b, n, device=dev)
+    ids = sp.layer_cluster_ids(device=dev)[0]
+    masks, decision = build_share_masks(q16, k16, state, ids, spc)
+    idx, cnt = compact_block_mask(masks)
+    _, a0 = block_sparse_attention_cuda(
+        q16, k16, v16, idx.contiguous(), cnt.contiguous(), block_size=bs,
+        stats_gate=decision.use_dense)
+    state = update_share_state(a0, state, ids, decision, spc)
+    shared, decision = build_share_masks(q16, k16, state, ids, spc)
+    for label, m in (("layer 0", masks), ("with its dictionary", shared)):
+        print(f"real masks, {label}: density "
+              f"{float(m.float().sum() / (b * h * nb * (nb + 1) / 2)):.4f}",
+              flush=True)
+    print(f"with its dictionary: shared heads "
+          f"{int(decision.use_shared.sum())}, dense "
+          f"{int(decision.use_dense.sum())}, vs {int(decision.use_vs.sum())}",
+          flush=True)
+    masks = shared
+    # synthetic rows: an empty row (counts == 0), a sparse random row, and
+    # a stats-gate mix (real gate xor every third head)
+    syn = masks.clone()
+    syn[0, 1, nb // 2] = False
+    syn[1, 2, nb - 1] &= torch.rand(nb, generator=gen, device=dev) < 0.3
+    syn[1, 2, nb - 1, nb - 1] = True
+    gate = decision.use_dense ^ (torch.arange(h, device=dev) % 3 == 0)
+    width_cap = nb // 4
+
+    res = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        print(f"[{dn}]", flush=True)
+
+        # strip
+        e = max_err(strip_scores_cuda(q, k, bs), strip_scores(q, k, bs))
+        check("strip", e, TOL[("strip", dn)])
+        res["strip"]["max_abs_err"] = max(res["strip"]["max_abs_err"], e)
+
+        # block-sparse prefill attention: real tables, synthetic rows, cap
+        cases = [("real masks, real gate", masks, None, decision.use_dense),
+                 ("synthetic rows, gate mix", syn, None, gate),
+                 (f"synthetic rows, W cap {width_cap}", syn, width_cap, gate)]
+        for label, m, width, gt in cases:
+            idx, cnt = compact_block_mask(m, width=width)
+            idx, cnt = idx.contiguous(), cnt.contiguous()
+            o1, a1 = block_sparse_attention_cuda(q, k, v, idx, cnt,
+                                                 block_size=bs, stats_gate=gt)
+            o2, a2 = block_sparse_attention_plain(q, k, v, idx, cnt,
+                                                  block_size=bs,
+                                                  stats_gate=gt)
+            zero_row = bool((o1[0, 1, (nb // 2) * bs:(nb // 2 + 1) * bs]
+                             == 0).all()) if m is syn else True
+            padded = int((cnt < idx.shape[-1]).sum())
+            print(f"  block_sparse_attn [{label}]: W={idx.shape[-1]}, "
+                  f"padded rows {padded}, counts==0 rows "
+                  f"{int((cnt == 0).sum())}, zero row exact {zero_row}",
+                  flush=True)
+            if not zero_row:
+                raise AssertionError("counts == 0 row is not exact zeros")
+            e = max_err(o1, o2)
+            check("  out", e, TOL[("out", dn)])
+            ea = a_tilde_err(a1, a2)
+            check("  a_tilde", ea, TOL[("a_tilde", dn)])
+            res["block_sparse_attn"]["max_abs_err"] = max(
+                res["block_sparse_attn"]["max_abs_err"], e)
+
+        # sparse decode over the grown cache: partly false keep bits, an
+        # empty (counts == 0) slot, ragged valid (the shorter prompt's pad)
+        extra = bs
+        s = n + extra
+        ck = torch.zeros((b, hkv, s, d), dtype=dtype, device=dev)
+        cv = torch.zeros_like(ck)
+        ck[:, :, :n], cv[:, :, :n] = k, v
+        pos = n + 5
+        ck[:, :, n:pos + 1] = torch.randn((b, hkv, pos + 1 - n, d),
+                                          generator=gen, device=dev).to(dtype)
+        cv[:, :, n:pos + 1] = torch.randn((b, hkv, pos + 1 - n, d),
+                                          generator=gen, device=dev).to(dtype)
+        qd = q[:, :, -1].contiguous()
+        nbs = s // bs
+        keep = torch.rand((b, hkv, nbs, g), generator=gen, device=dev) < 0.7
+        keep[..., -1, :] = True
+        union = keep.any(-1)
+        union[1, 3] = False
+        keep &= union[..., None]
+        idx, cnt = compact_block_mask(union)
+        idx, cnt, keep = idx.contiguous(), cnt.contiguous(), keep.contiguous()
+        valid = decode_valid_mask(s, pos, prompt_lens, n).contiguous()
+        od = flash_decode_sparse_cuda(qd, ck, cv, idx, cnt, keep, valid)
+        ref = decode_plan_einsum_sliced(qd, ck, cv,
+                                        DecodePlan(idx, cnt, keep), valid)
+        zeros = bool((od[1, 3 * g:4 * g] == 0).all())
+        print(f"  decode_attn: S={s}, counts==0 slot exact zeros {zeros}",
+              flush=True)
+        if not zeros:
+            raise AssertionError("counts == 0 decode slot is not zeros")
+        e = max_err(od, ref)
+        check("  out", e, TOL[("out", dn)])
+        res["decode_attn"]["max_abs_err"] = max(
+            res["decode_attn"]["max_abs_err"], e)
+
+        if dtype != torch.bfloat16:
+            continue
+        # ---- times at the main path's dtype, with bounds and library calls
+        elt = q.element_size()
+        # strip: q's last bs rows and k in, the f32 strip out; products over
+        # the causally valid (row, key) pairs
+        pairs = bs * (n - bs) + bs * (bs + 1) // 2
+        sb = bound(b * h * bs * d * elt + b * hkv * n * d * elt
+                   + b * h * bs * n * 4, 2.0 * d * b * h * pairs, dtype)
+        res["strip"].update(
+            ms=cuda_ms(lambda: strip_scores_cuda(q, k, bs), 20),
+            plain_ms=cuda_ms(lambda: strip_scores(q, k, bs), 3),
+            bound_ms=sb[0], bound_by=sb[1], library_ms=None)
+
+        # block-sparse: the real layer-0 tables; QK and PV products over
+        # the causally valid entries of every visited block; q, out, the
+        # visited K/V blocks, tables and Ã moved once
+        bidx, bcnt = compact_block_mask(masks)
+        bidx, bcnt = bidx.contiguous(), bcnt.contiguous()
+        dg = decision.use_dense
+        vis = table_block_mask(bidx, bcnt, nb)     # causal rows: all visited
+        tri = torch.tril(torch.ones(bs, bs, device=dev)).sum()
+        per_block = torch.where(
+            torch.eye(nb, dtype=torch.bool, device=dev), tri,
+            torch.tensor(float(bs * bs), device=dev))
+        entries = float((vis.float() * per_block).sum())
+        kv_blocks = float(vis.reshape(b, hkv, g, nb, nb).any(2).any(2).sum())
+        bb = bound(2 * b * h * n * d * elt + 2 * kv_blocks * bs * d * elt
+                   + bidx.numel() * 4 + bcnt.numel() * 4 + b * h * nb * nb * 4,
+                   4.0 * d * entries, dtype)
+        # yardstick: SDPA on K/V expanded to H heads under the token mask
+        # the tables expand to (the output only; no Ã)
+        kx, vx = expand_kv(k, v, h)
+        tok_mask = (vis.repeat_interleave(bs, 2).repeat_interleave(bs, 3)
+                    & torch.ones(n, n, dtype=torch.bool, device=dev).tril())
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, attn_mask=tok_mask), 5)
+        del tok_mask, kx, vx
+        res["block_sparse_attn"].update(
+            ms=cuda_ms(lambda: block_sparse_attention_cuda(
+                q, k, v, bidx, bcnt, block_size=bs, stats_gate=dg), 10),
+            plain_ms=cuda_ms(lambda: block_sparse_attention_plain(
+                q, k, v, bidx, bcnt, block_size=bs, stats_gate=dg), 2),
+            bound_ms=bb[0], bound_by=bb[1], library_ms=lib)
+
+        # decode: the table's blocks of K and V, q, out and the tables
+        # moved once; QK and PV products over the kept, valid keys
+        ntok = valid.reshape(b, 1, nbs, bs).sum(-1)          # (B, 1, NB)
+        listed = table_block_mask(idx, cnt, nbs)             # (B, Hkv, NB)
+        kept_tok = float(((keep & listed[..., None]).float()
+                          * ntok[..., None]).sum())
+        db = bound(2 * b * h * d * elt + 2 * float(cnt.sum()) * bs * d * elt
+                   + idx.numel() * 4 + cnt.numel() * 4 + keep.numel()
+                   + valid.numel(), 4.0 * d * kept_tok, dtype)
+        # yardstick: SDPA on the cache expanded to H heads under the
+        # token mask of keep bits and slot validity
+        ckx, cvx = expand_kv(ck, cv, h)
+        dmask = (keep.movedim(-1, 2).repeat_interleave(bs, -1)
+                 .reshape(b, h, 1, s) & valid[:, None, None, :])
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], ckx, cvx, attn_mask=dmask), 50)
+        res["decode_attn"].update(
+            ms=cuda_ms(lambda: flash_decode_sparse_cuda(
+                qd, ck, cv, idx, cnt, keep, valid), 50),
+            plain_ms=cuda_ms(lambda: decode_plan_einsum_sliced(
+                qd, ck, cv, DecodePlan(idx, cnt, keep), valid), 10),
+            bound_ms=db[0], bound_by=db[1], library_ms=lib)
+        for name, r in res.items():
+            print(f"  {name} bf16: {r['ms']:.3f} ms (plain "
+                  f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+                  f"{r['bound_by']}, library {r['library_ms']})", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------- phases 3-4
+
+class LogitProbe:
+    """The model, as the engine calls it, recording every logit it returns
+    (finiteness and the top-2 margin of each row) on the device."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.device = model, model.cfg, model.device
+        self.logits = []
+
+    def _record(self, logits):
+        self.logits.append(logits.detach().float())
+
+    def prefill(self, *args, **kwargs):
+        result = self.model.prefill(*args, **kwargs)
+        self._record(result.last_logits)
+        return result
+
+    def decode(self, *args, **kwargs):
+        logits, cache = self.model.decode(*args, **kwargs)
+        self._record(logits)
+        return logits, cache
+
+
+def greedy_agree(ref_tokens, ref_logits, tokens, tol: float) -> str:
+    """Greedy streams agree up to their first flip, and a flip is allowed
+    only where the reference's top-2 margin at that step is below ``tol``
+    (after it, the streams condition on different tokens)."""
+    for t, (a, c) in enumerate(zip(ref_tokens, tokens)):
+        if a == c:
+            continue
+        top2 = np.sort(ref_logits[t])[-2:]
+        margin = float(top2[1] - top2[0])
+        if margin >= tol:
+            raise AssertionError(f"token {t}: {c} != {a} at margin "
+                                 f"{margin:.3e} >= {tol}")
+        return f"near-tie flip at token {t} (margin {margin:.2e})"
+    if len(ref_tokens) != len(tokens):
+        raise AssertionError("stream lengths differ")
+    return "identical"
+
+
+def small_serve_agreement() -> None:
+    """Phase 3: a small ragged batch served through the kernels (float32 on
+    the card) and through the plain versions (the CPU) from the same
+    weights; greedy tokens must agree, near-tie aware."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg = dataclasses.replace(get_smoke_config(ARCH), num_heads=8,
+                              num_kv_heads=2)
+    cpu = build_model(cfg, device="cpu")
+    params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (512, 450)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, device=dev)
+        params = params_cpu if dev == "cpu" else _to(params_cpu, dev)
+        probe = LogitProbe(model)
+        eng = ServingEngine(probe, params, model.default_share_prefill(),
+                            EngineConfig(max_batch=2, seq_buckets=(512,),
+                                         decode_sparse=True))
+        reqs = eng.serve([Request(uid=i, prompt=p, max_new_tokens=8)
+                          for i, p in enumerate(prompts)])
+        runs[dev] = ([r.output_tokens for r in reqs],
+                     torch.stack(probe.logits, 1).cpu().numpy(),
+                     reqs[0].pattern_stats)
+    (tok_c, log_c, st_c), (tok_p, log_p, st_p) = runs["cuda"], runs["cpu"]
+    err = float(np.abs(log_c[:, 0] - log_p[:, 0]).max())
+    print(f"small serve: prefill logits max_abs_err {err:.3e}; block "
+          f"density cuda {st_c['block_density']:.4f} cpu "
+          f"{st_p['block_density']:.4f}", flush=True)
+    for i in range(len(prompts)):
+        verdict = greedy_agree(tok_p[i], log_p[i], tok_c[i], TIE_TOL)
+        print(f"  request {i}: cuda {tok_c[i].tolist()} cpu "
+              f"{tok_p[i].tolist()} -> {verdict}", flush=True)
+
+
+def _to(params, dev):
+    if isinstance(params, dict):
+        return {k: _to(v, dev) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_to(v, dev) for v in params]
+    return params.to(dev)
+
+
+def serve_full(model, params, prompts, layers: int) -> dict:
+    """Phase 4: the main path at full width, launch counts reset just
+    before it and read just after."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    probe = LogitProbe(model)
+    eng = ServingEngine(probe, params, model.default_share_prefill(),
+                        EngineConfig(method="share", decode_sparse=True,
+                                     max_batch=2, seq_buckets=(SEQ,)))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    print(f"serve: {len(reqs)} requests in {wall:.3f} s; launches {counts}",
+          flush=True)
+    for r in reqs:
+        m = r.metrics()
+        print(f"  request {r.uid}: prompt {len(r.prompt)} tokens "
+              f"{r.output_tokens.tolist()} prefill_s {m['prefill_s']:.4f} "
+              f"ttft_s {m['ttft_s']:.4f} decode_tokens_per_s "
+              f"{m['decode_tokens_per_s']:.3f}", flush=True)
+    st = reqs[0].pattern_stats
+    print("  pattern stats: " + json.dumps(
+        {k: st[k] for k in ("num_shared", "num_dense", "num_vs",
+                            "block_density", "decode_traffic_fraction",
+                            "decode_blocks_computed", "decode_blocks_total")}),
+        flush=True)
+
+    vocab = model.cfg.vocab_size
+    for r in reqs:
+        toks = r.output_tokens
+        if len(toks) != NEW_TOKENS or toks.min() < 0 or toks.max() >= vocab:
+            raise AssertionError(f"request {r.uid}: tokens {toks} outside "
+                                 f"[0, {vocab}) or not {NEW_TOKENS} of them")
+    shapes_ok = all(x.shape == (len(reqs), vocab) for x in probe.logits)
+    finite = all(bool(torch.isfinite(x).all()) for x in probe.logits)
+    print(f"  logits: {len(probe.logits)} steps, shapes ok {shapes_ok}, "
+          f"all finite {finite}", flush=True)
+    if not (shapes_ok and finite):
+        raise AssertionError("non-finite or misshapen logits")
+    need = {"strip": layers, "block_sparse_attn": layers,
+            "decode_attn": layers * (NEW_TOKENS - 1)}
+    for name, n in need.items():
+        if counts[name] < n:
+            raise AssertionError(f"{name}: {counts[name]} launches on the "
+                                 f"serve, expected >= {n}")
+    return counts
+
+
+def profile_serve(model, params, prompts) -> None:
+    """Where the serve's device time goes: the same two requests (4 new
+    tokens) once more under ``torch.profiler``, device time summed by
+    kernel, with prefill and decode steps marked as spans.  A measurement
+    only: the launch counts were read before it, and where the profiler
+    traces no device time it prints "not measured"."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    class Spans(LogitProbe):
+        def prefill(self, *args, **kwargs):
+            with record_function("serve.prefill"):
+                return super().prefill(*args, **kwargs)
+
+        def decode(self, *args, **kwargs):
+            with record_function("serve.decode_step"):
+                return super().decode(*args, **kwargs)
+
+    eng = ServingEngine(Spans(model), params, model.default_share_prefill(),
+                        EngineConfig(method="share", decode_sparse=True,
+                                     max_batch=2, seq_buckets=(SEQ,)))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=4)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    events = prof.key_averages()
+    dev_us = lambda e: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0))
+    on_device = lambda e: str(e.device_type).endswith("CUDA")
+    # the spans appear on the device timeline too, as ranges around their
+    # kernels: they are not kernels and are reported apart
+    is_span = lambda e: e.key.startswith("serve.")
+    spans = [e for e in events if is_span(e)]
+    kernels = [e for e in events
+               if on_device(e) and dev_us(e) > 0 and not is_span(e)]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if busy_ms == 0:
+        print("profile: no device time traced (not measured)", flush=True)
+        return
+    groups = {"strip": 0.0, "block_sparse_attn": 0.0, "decode_attn": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.key.lower()
+        g = ("strip" if "strip_kernel" in name else
+             "block_sparse_attn" if "bsa_kernel" in name else
+             "decode_attn" if "decode_kernel" in name else
+             "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
+                                               "cutlass", "matmul"))
+             else "other")
+        groups[g] += dev_us(e) / 1e3
+    print(f"profile (4 new tokens): wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f} %)", flush=True)
+    print("  device ms by group: " + json.dumps(
+        {k: round(v, 3) for k, v in groups.items()}), flush=True)
+    # per span: the host time to enqueue it, the device range from its
+    # first kernel's start to its last kernel's end, and the device time of
+    # the torch ops inside it (the port's own kernels, launched through
+    # ctypes, are attributed to no torch op: add them by name)
+    for e in spans:
+        if on_device(e):
+            print(f"  span {e.key}: {e.count} calls, device range "
+                  f"{dev_us(e) / 1e3:.1f} ms", flush=True)
+        else:
+            inner = getattr(e, "device_time_total",
+                            getattr(e, "cuda_time_total", 0.0))
+            print(f"  span {e.key}: {e.count} calls, host "
+                  f"{e.cpu_time_total / 1e3:.1f} ms, torch-op kernels "
+                  f"{inner / 1e3:.1f} ms", flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
+        print(f"  kernel {dev_us(e) / 1e3:9.3f} ms x{e.count:5d} "
+              f"{e.key[:90]}", flush=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import build_model
+    from repro_torch.checkpoint import num_params
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda "
+          f"{torch.version.cuda} device {torch.cuda.get_device_name(0)}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t = time.time()
+    _build.build_all()
+    print(f"build_s {time.time() - t:.2f}", flush=True)
+
+    cfg = get_config(ARCH)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    t = time.time()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    print(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{num_params(params) / 1e9:.3f} B params in bf16, init "
+          f"{time.time() - t:.2f} s", flush=True)
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    toks = np.zeros((len(prompts), SEQ), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tokens = torch.as_tensor(toks, device="cuda")
+    plens = torch.tensor(PROMPT_LENS, device="cuda")
+
+    print("== phase 2: kernels against their plain versions", flush=True)
+    res = check_kernels(model, params, tokens, plens)
+    torch.cuda.empty_cache()
+    print("== phase 3: small serve, kernels against the CPU", flush=True)
+    small_serve_agreement()
+    print("== phase 4: full-width serve", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    counts = serve_full(model, params, prompts, cfg.num_layers)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    profile_serve(model, params, prompts)
+
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        r = res[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": counts[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(nvidia_smi(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        code = main()
+    except Exception as exc:            # any failed phase fails the run
+        import traceback
+        traceback.print_exc()
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        code = 1
+    sys.exit(code)

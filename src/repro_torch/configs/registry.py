@@ -1,0 +1,34 @@
+"""Architecture registry of the port: the dense-family configs served so far.
+
+The other families (MoE, MLA, SSM, hybrid, encoder-decoder, VLM) join the
+registry with the slices that port their models (ROADMAP.md queue A.10).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig, reduced_config
+from repro_torch.configs.granite_3_2b import CONFIG as _granite
+from repro_torch.configs.internlm2_1_8b import CONFIG as _internlm2
+from repro_torch.configs.llama3_8b_262k import CONFIG as _llama3_262k
+from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
+from repro_torch.configs.qwen2_5_7b import CONFIG as _qwen2_5
+
+REGISTRY: Dict[str, ModelConfig] = {
+    "granite-3-2b": _granite,
+    "internlm2-1.8b": _internlm2,
+    "phi3-mini-3.8b": _phi3,
+    "llama3-8b-262k": _llama3_262k,
+    "qwen2.5-7b": _qwen2_5,
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    if name not in REGISTRY:
+        raise KeyError(
+            f"unknown arch {name!r}; available: {sorted(REGISTRY)}")
+    return REGISTRY[name]
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return reduced_config(get_config(name))

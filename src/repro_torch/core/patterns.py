@@ -1,0 +1,68 @@
+"""Block-sparse pattern algebra (port of ``repro/core/patterns.py``).
+
+Patterns are block-granular boolean masks ``(…, NBq, NBkv)`` with True =
+"compute this (q block, kv block) tile"; q blocks index rows, kv blocks
+columns, and "slash" diagonals are indexed by offset ``o = i − j``.  Every
+function takes any leading batch axes.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def num_blocks(seq_len: int, block_size: int) -> int:
+    if seq_len % block_size:
+        raise ValueError(
+            f"seq_len {seq_len} not divisible by block_size {block_size}; "
+            "pad sequences to a block multiple before attention")
+    return seq_len // block_size
+
+
+def causal_block_mask(nb_q: int, nb_kv: Optional[int] = None, *,
+                      device=None) -> torch.Tensor:
+    """Lower-triangular block mask (diagonal blocks included)."""
+    nb_kv = nb_q if nb_kv is None else nb_kv
+    i = torch.arange(nb_q, device=device)[:, None]
+    j = torch.arange(nb_kv, device=device)[None, :]
+    return j <= i + (nb_kv - nb_q)
+
+
+def vertical_block_mask(nb: int, col_active: torch.Tensor) -> torch.Tensor:
+    """Active kv-block columns ``(…, NB)`` → causal ``(…, NB, NB)`` mask."""
+    causal = causal_block_mask(nb, device=col_active.device)
+    return col_active[..., None, :] & causal
+
+
+def slash_block_mask(nb: int, offset_active: torch.Tensor) -> torch.Tensor:
+    """Active block diagonals ``(…, NB)`` (offset o = i − j) → mask."""
+    i = torch.arange(nb, device=offset_active.device)[:, None]
+    j = torch.arange(nb, device=offset_active.device)[None, :]
+    off = i - j
+    valid = off >= 0
+    return offset_active[..., off.clamp(0, nb - 1)] & valid
+
+
+def block_mask_density(mask: torch.Tensor) -> torch.Tensor:
+    """Fraction of *causal* blocks that are computed, per leading index."""
+    nb_q, nb_kv = mask.shape[-2:]
+    causal = causal_block_mask(nb_q, nb_kv, device=mask.device)
+    total = causal.sum()
+    return (mask & causal).sum(dim=(-2, -1)) / total
+
+
+def cumulative_topk_mask(scores: torch.Tensor, gamma: float) -> torch.Tensor:
+    """The minimal set of entries whose mass reaches ``gamma`` (last axis).
+
+    Sort descending, keep the shortest prefix whose cumulative sum reaches
+    γ.  The sort is stable on ``-s``, as the reference's ``jnp.argsort``
+    is, so equal scores keep index order on both sides.
+    """
+    s = scores / torch.clamp(scores.sum(dim=-1, keepdim=True), min=1e-12)
+    order = torch.argsort(-s, dim=-1, stable=True)
+    sorted_s = torch.gather(s, -1, order)
+    csum = torch.cumsum(sorted_s, dim=-1)
+    # keep entries strictly before the threshold crossing, plus the crosser
+    keep_sorted = (csum - sorted_s) < gamma
+    return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)

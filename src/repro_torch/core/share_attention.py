@@ -1,0 +1,173 @@
+"""SharePrefill per-layer orchestration, paper Algorithm 1 (port of the
+batched path of ``repro/core/share_attention.py``).
+
+For a batch and one layer's heads:
+
+  1. strips of the last query block, one kernel launch for the batch, and
+     â per head (Algorithm 3);
+  2. the cluster's pivotal pattern and representative (Algorithm 4);
+  3. the shared / dense / vertical-slash decision per head;
+  4. the selected block masks (causal ∧ extra applied);
+  5. block-sparse attention → output and block-averaged QK logits Ã, one
+     kernel launch for the batch, with heads permuted within their GQA group
+     so heads sharing a pivot are adjacent (the output is unchanged: on the
+     TPU this elided K/V copies, here it keeps shared heads adjacent for a
+     later kernel that reuses K/V tiles), and Ã stats gated to the heads
+     that consume them (the dense-construction heads);
+  6. dense heads build pivots (Algorithm 2) and update each sample's
+     dictionary.
+
+K/V stay un-expanded ``(B, Hkv, N, D)`` throughout.  Each sample carries its
+own dictionary; the reference's per-sample ``vmap`` is a batch axis here.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import SharePrefillConfig
+from repro_torch.core import pattern_dict as pdict
+from repro_torch.core.construct import construct_pivotal_pattern
+from repro_torch.core.determine import (
+    PatternDecision,
+    determine_sparse_pattern,
+    pooled_block_estimate,
+)
+from repro_torch.core.patterns import block_mask_density, causal_block_mask
+from repro_torch.core.vertical_slash import search_vertical_slash_from_strip
+from repro_torch.kernels import batched_sparse_attention_fn, compute_strips
+
+# batched AttentionFn (fn.batched = True): (q (B,H,N,D), k (B,Hkv,N,D),
+# v (B,Hkv,N,Dv), masks (B,H,NB,NB), stats_gate=(B,H)) -> (out, Ã)
+AttentionFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+
+
+class LayerStats(NamedTuple):
+    """Per-layer pattern statistics (0-d tensors)."""
+
+    num_shared: torch.Tensor
+    num_dense: torch.Tensor
+    num_vs: torch.Tensor
+    block_density: torch.Tensor   # computed fraction of causal blocks
+    d_sparse_mean: torch.Tensor
+    d_sim_mean: torch.Tensor
+    max_row_pop: torch.Tensor     # max kept blocks in any (head, q-block) row
+
+
+def init_batched_state(batch: int, num_clusters: int, nb: int, *,
+                       device=None) -> pdict.PivotalState:
+    """Empty dictionaries for a batch: no pivots, uniform representatives."""
+    return pdict.PivotalState(
+        masks=torch.zeros((batch, num_clusters, nb, nb), dtype=torch.bool,
+                          device=device),
+        reps=torch.full((batch, num_clusters, nb), 1.0 / nb,
+                        dtype=torch.float32, device=device),
+        valid=torch.zeros((batch, num_clusters), dtype=torch.bool,
+                          device=device),
+    )
+
+
+def build_share_masks(
+    q: torch.Tensor,                # (B, H, N, D)
+    k: torch.Tensor,                # (B, Hkv, N, D)
+    state: pdict.PivotalState,
+    cluster_ids: torch.Tensor,      # (H,)
+    cfg: SharePrefillConfig,
+) -> Tuple[torch.Tensor, PatternDecision]:
+    """Algorithms 3-5: estimate, decide, and build the per-head causal
+    block masks ``(B, H, NB, NB)``."""
+    bs = cfg.block_size
+    nb = q.shape[2] // bs
+    strips = compute_strips(q, k, block_size=bs)         # (B, H, bs, N)
+    a_hat = pooled_block_estimate(strips, bs)            # (B, H, NB)
+    pivot_masks, pivot_reps, pivot_valid = pdict.lookup(state, cluster_ids)
+    decision = determine_sparse_pattern(
+        a_hat, cluster_ids, pivot_reps, pivot_valid,
+        delta=cfg.delta, tau=cfg.tau)
+    vs_masks = search_vertical_slash_from_strip(strips, cfg.gamma, bs)
+    causal = causal_block_mask(nb, device=q.device)
+    masks = torch.where(decision.use_shared[..., None, None], pivot_masks,
+                        vs_masks)
+    masks = torch.where(decision.use_dense[..., None, None], causal, masks)
+    return masks & causal, decision
+
+
+def update_share_state(a_tilde: torch.Tensor, state: pdict.PivotalState,
+                       cluster_ids: torch.Tensor, decision: PatternDecision,
+                       cfg: SharePrefillConfig) -> pdict.PivotalState:
+    """Algorithm 2: the dense-construction heads build pivots and update the
+    dictionary; other heads' Ã rows are ignored (they may be all −inf when
+    the kernel's stats gate skipped them)."""
+    new_masks, new_reps = construct_pivotal_pattern(a_tilde, cfg.gamma)
+    return pdict.update(state, cluster_ids, new_masks, new_reps,
+                        decision.use_dense)
+
+
+def pattern_sharing_head_perm(decision: PatternDecision,
+                              cluster_ids: torch.Tensor,
+                              group: int) -> torch.Tensor:
+    """``(B, H)`` permutation making heads that share a pivot adjacent
+    within their GQA group (``h // group`` stays invariant).  The sort is
+    stable, so it is the identity when no two heads of a group share one.
+    Position p of the launch runs original head ``perm[b, p]``."""
+    use_shared = decision.use_shared                      # (B, H)
+    b, h = use_shared.shape
+    hkv = h // group
+    ar = torch.arange(h, dtype=torch.int64, device=use_shared.device)
+    key = torch.where(use_shared, cluster_ids.long(), (1 << 30) + ar)
+    order = torch.argsort(key.reshape(b, hkv, group), dim=-1, stable=True)
+    base = (torch.arange(hkv, device=use_shared.device) * group)[:, None]
+    return (base + order).reshape(b, h)
+
+
+def layer_pattern_stats(masks: torch.Tensor,
+                        decision: PatternDecision) -> LayerStats:
+    """LayerStats of a batch: means over samples, ``max_row_pop`` a max."""
+    f32 = lambda x: x.to(torch.float32)
+    count = lambda flag: f32(flag).sum(dim=-1).mean()
+    return LayerStats(
+        num_shared=count(decision.use_shared),
+        num_dense=count(decision.use_dense),
+        num_vs=count(decision.use_vs),
+        block_density=block_mask_density(masks).mean(),
+        d_sparse_mean=decision.d_sparse.mean(),
+        d_sim_mean=decision.d_sim.mean(),
+        max_row_pop=f32(masks).sum(dim=-1).max(),
+    )
+
+
+def _take_heads(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """``x[b, perm[b, p], …]`` for a (B, H, …) tensor."""
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[rows, perm]
+
+
+def batched_share_prefill_attention_layer(
+    q: torch.Tensor,                # (B, H, N, D)
+    k: torch.Tensor,                # (B, Hkv, N, D)
+    v: torch.Tensor,
+    state: pdict.PivotalState,      # leaves with a leading B axis
+    cluster_ids: torch.Tensor,      # (H,)
+    cfg: SharePrefillConfig,
+    attention_fn: Optional[AttentionFn] = None,
+) -> Tuple[torch.Tensor, pdict.PivotalState, LayerStats]:
+    """One layer of SharePrefill over a batch (module docstring).  Only
+    batched attention functions (``fn.batched``) are taken."""
+    if attention_fn is None:
+        attention_fn = batched_sparse_attention_fn(block_size=cfg.block_size)
+    if not getattr(attention_fn, "batched", False):
+        raise ValueError("the port's SharePrefill layer takes a batched "
+                         "attention function (fn.batched = True)")
+    group = q.shape[1] // k.shape[1]
+    masks, decision = build_share_masks(q, k, state, cluster_ids, cfg)
+    gate = decision.use_dense                              # (B, H)
+    perm = pattern_sharing_head_perm(decision, cluster_ids, group)
+    out_p, a_p = attention_fn(
+        _take_heads(q, perm).contiguous(), k, v,
+        _take_heads(masks, perm), stats_gate=_take_heads(gate, perm))
+    inv = torch.argsort(perm, dim=1)
+    out, a_tilde = _take_heads(out_p, inv), _take_heads(a_p, inv)
+    new_state = update_share_state(a_tilde, state, cluster_ids, decision,
+                                   cfg)
+    return out, new_state, layer_pattern_stats(masks, decision)

@@ -1,0 +1,167 @@
+// Batched GQA sparse decode over DecodePlan tables.
+//
+// Replaces the TPU kernel repro/kernels/decode_attn.py::
+// flash_decode_sparse_batched (_batched_kernel).  One query token per
+// sequence: for every (batch b, kv head h) the CTA holds the G query vectors
+// of that kv head's group and walks indices[b, h, :counts[b, h]]; in block
+// j, key t is visible to query head g only if keep_heads[b, h, j, g] and
+// valid[b, j * bs + t].  Online softmax with the TPU kernel's -inf-safe max
+// (a fully masked step leaves the state untouched), and a slot with
+// counts == 0 writes exact zeros (the inert-slot contract).
+//
+// Bound on an H100: bytes.  Each visited block's K and V are read once
+// (2 * bs * D elements) for 4 * G * bs * D flops, far below the card's
+// ~295 flops per byte in bf16; the cache read at the memory rate is the
+// bound.  Design: the plan is built once per batch, so the CTA reads its
+// table row directly (no per-step argsort) and streams K/V in 32-key tiles
+// through shared memory with coalesced loads; warp g computes head g's 32
+// logits and its softmax update, and every thread owns one (or two) output
+// columns of all G heads.  The grid is only B * Hkv CTAs (16 for llama3-8b
+// at B = 2), far too few to saturate the memory system: splitting the table
+// across CTAs (split-K) is later work.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int KT = 32;     // keys per tile (one per lane)
+constexpr int NT = 128;    // threads
+constexpr int GMAX = 8;    // largest GQA group
+constexpr int DMAX = 256;  // largest head dim (two columns per thread)
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
+              const T* __restrict__ cv, const int* __restrict__ indices,
+              const int* __restrict__ counts,
+              const uint8_t* __restrict__ keep,
+              const uint8_t* __restrict__ valid, T* __restrict__ out, int H,
+              int Hkv, int S, int D, int NB, int W, float scale) {
+  extern __shared__ float smem[];
+  const int G = H / Hkv;
+  float* q_s = smem;                    // G x D
+  float* k_s = q_s + G * D;             // KT x (D + 1)
+  float* v_s = k_s + KT * (D + 1);      // KT x D
+  float* p_s = v_s + KT * D;            // G x KT
+  __shared__ float m_s[GMAX], l_s[GMAX], alpha_s[GMAX];
+  __shared__ int keep_s[GMAX];
+
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bs = S / NB;
+  const size_t bk = (size_t)b * Hkv + hk;
+  const T* kb = ck + bk * (size_t)S * D;
+  const T* vb = cv + bk * (size_t)S * D;
+  const uint8_t* vrow = valid + (size_t)b * S;
+
+  for (int i = tid; i < G * D; i += NT)
+    q_s[i] = repro::to_f(q[((size_t)b * H + (size_t)hk * G) * D + i]);
+  if (tid < G) { m_s[tid] = -CUDART_INF_F; l_s[tid] = 0.f; }
+  float acc[GMAX][2];
+#pragma unroll
+  for (int g = 0; g < GMAX; ++g) { acc[g][0] = 0.f; acc[g][1] = 0.f; }
+
+  const int n = counts[bk];
+  for (int w = 0; w < n; ++w) {
+    const int j = indices[bk * W + w];
+    for (int t0 = 0; t0 < bs; t0 += KT) {
+      __syncthreads();                  // previous tile fully consumed
+      if (t0 == 0 && tid < G)
+        keep_s[tid] = keep[(bk * NB + j) * G + tid];
+      for (int i = tid; i < KT * D; i += NT) {
+        int r = i / D, c = i - r * D;
+        size_t off = ((size_t)j * bs + t0 + r) * D + c;
+        k_s[r * (D + 1) + c] = repro::to_f(kb[off]);
+        v_s[r * D + c] = repro::to_f(vb[off]);
+      }
+      __syncthreads();
+      const int key = j * bs + t0 + lane;
+      const bool tok = vrow[key] != 0;
+      for (int g = warp; g < G; g += NT / 32) {
+        float s = 0.f;
+        for (int d = 0; d < D; ++d)
+          s = fmaf(q_s[g * D + d], k_s[lane * (D + 1) + d], s);
+        s *= scale;
+        const bool ok = tok && keep_s[g] != 0;
+        const float mx = repro::group_max<32>(ok ? s : -CUDART_INF_F);
+        const float m_prev = m_s[g];
+        const float m_new = fmaxf(m_prev, mx);
+        const float safe = (m_new == -CUDART_INF_F) ? 0.f : m_new;
+        const float alpha = (m_prev == -CUDART_INF_F) ? 0.f
+                                                      : expf(m_prev - safe);
+        const float p = ok ? expf(s - safe) : 0.f;
+        p_s[g * KT + lane] = p;
+        const float ps = repro::group_sum<32>(p);
+        __syncwarp();
+        if (lane == 0) {
+          l_s[g] = l_s[g] * alpha + ps;
+          m_s[g] = m_new;
+          alpha_s[g] = alpha;
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int d = tid + c * NT;
+        if (d >= D) break;
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          if (g >= G) break;
+          float a = acc[g][c] * alpha_s[g];
+          for (int kk = 0; kk < KT; ++kk)
+            a = fmaf(p_s[g * KT + kk], v_s[kk * D + d], a);
+          acc[g][c] = a;
+        }
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int d = tid + c * NT;
+    if (d >= D) break;
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (g >= G) break;
+      out[((size_t)b * H + (size_t)hk * G + g) * D + d] =
+          repro::from_f<T>(acc[g][c] / fmaxf(l_s[g], 1e-30f));
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* ck, const void* cv, const int* indices,
+           const int* counts, const uint8_t* keep, const uint8_t* valid,
+           void* out, int B, int H, int Hkv, int S, int D, int NB, int W,
+           void* stream) {
+  const int G = H / Hkv;
+  const size_t smem =
+      (size_t)(G * D + KT * (D + 1) + KT * D + G * KT) * sizeof(float);
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(decode_kernel<T>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  dim3 grid(Hkv, B);
+  decode_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)ck, (const T*)cv, indices, counts, keep, valid,
+      (T*)out, H, Hkv, S, D, NB, W, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int repro_decode_attn(const void* q, const void* ck,
+                                 const void* cv, const int* indices,
+                                 const int* counts, const uint8_t* keep,
+                                 const uint8_t* valid, void* out, int dtype,
+                                 int B, int H, int Hkv, int S, int D, int NB,
+                                 int W, void* stream) {
+  if (H % Hkv || H / Hkv > GMAX || D > DMAX || (S / NB) % KT)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == REPRO_BF16)
+    return launch<__nv_bfloat16>(q, ck, cv, indices, counts, keep, valid,
+                                 out, B, H, Hkv, S, D, NB, W, stream);
+  return launch<float>(q, ck, cv, indices, counts, keep, valid, out, B, H,
+                       Hkv, S, D, NB, W, stream);
+}

@@ -1,0 +1,203 @@
+"""Sparse decode over prebuilt :class:`DecodePlan` tables.
+
+One query token per sequence against a contiguous cache ``(B, Hkv, S, D)``.
+The plan (built once per served batch by
+:func:`repro_torch.serving.decode_plan.build_decode_plan`) lists, per
+(batch, kv head), the kv blocks to read; ``keep_heads`` refines the union
+per query head of the GQA group, and ``valid (B, S)`` masks slots that are
+past the decode position or right-pad of a shorter prompt.  A (batch, kv
+head) with ``counts == 0`` outputs exact zeros (the inert-slot contract).
+
+  * :func:`decode_plan_einsum` — plain, full-cache grouped einsum masked by
+    ``keep_heads``; the CPU path for full-width plans (``W == NB``);
+  * :func:`decode_plan_einsum_sliced` — plain, gathers only the table's
+    blocks and honours ``counts``; it walks the table as the kernel does, so
+    it is the kernel's plain version;
+  * :func:`flash_decode_sparse_cuda` — the hand-written kernel
+    ``csrc/decode_attn.cu`` (replaces the TPU kernel
+    ``repro/kernels/decode_attn.py::flash_decode_sparse_batched``);
+  * :func:`flash_decode_sparse_batched` — kernel on CUDA tensors, its plain
+    version on CPU tensors;
+  * :func:`flash_decode_plan` — the dispatcher the model calls.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = float("-inf")
+
+DECODE_IMPLS = ("auto", "kernel", "einsum")
+
+
+class DecodePlan(NamedTuple):
+    """Block tables for sparse decode (layouts as in the reference).
+
+      indices:    (…, B, Hkv, W) int32 — active block ids per (batch, kv
+                  head), ascending, padded by repeating the last kept id;
+      counts:     (…, B, Hkv) int32 — kept entries per table row;
+      keep_heads: (…, B, Hkv, NB, G) bool — per-query-head block keep bits.
+
+    Leaves carry a leading layer axis ``(L, B, …)`` for the whole model, or
+    are one layer's slice ``(B, …)``.
+    """
+
+    indices: torch.Tensor
+    counts: torch.Tensor
+    keep_heads: torch.Tensor
+
+    def layer(self, i: int) -> "DecodePlan":
+        return DecodePlan(self.indices[i], self.counts[i],
+                          self.keep_heads[i])
+
+
+def resolve_decode_impl(impl: str, device: torch.device) -> str:
+    """``auto`` → the kernel on CUDA, the plain einsum on the CPU."""
+    if impl == "auto":
+        return "kernel" if device.type == "cuda" else "einsum"
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown decode impl {impl!r}; "
+                         f"expected one of {DECODE_IMPLS}")
+    return impl
+
+
+def decode_plan_einsum(q, cache_k, cache_v, keep_heads, valid):
+    """Full-cache grouped einsum under the plan's keep bits; (B, H, Dv)."""
+    b, h, d = q.shape
+    _, hkv, s, dv = cache_v.shape
+    g = h // hkv
+    nb = keep_heads.shape[2]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, g, d).float()
+    logits = torch.einsum("bkgd,bksd->bkgs", qg, cache_k.float()) * scale
+    km = keep_heads.transpose(-1, -2).repeat_interleave(s // nb, dim=-1)
+    ok = km & valid[:, None, None, :]               # (B, Hkv, G, S)
+    logits = logits.masked_fill(~ok, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(ok, torch.exp(logits - m), 0.0)
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    pv = (p / denom).to(cache_v.dtype).float()
+    out = torch.einsum("bkgs,bksd->bkgd", pv, cache_v.float())
+    return out.to(q.dtype).reshape(b, h, dv)
+
+
+def decode_plan_einsum_sliced(q, cache_k, cache_v, plan: DecodePlan, valid):
+    """Gather only the plan's W table blocks (ranks ≥ counts masked) and
+    contract those; (B, H, Dv).  The kernel's plain version."""
+    b, h, d = q.shape
+    _, hkv, s, dv = cache_v.shape
+    g = h // hkv
+    nb = plan.keep_heads.shape[2]
+    bs = s // nb
+    idx = plan.indices.long()                          # (B, Hkv, W)
+    w = idx.shape[-1]
+    gidx = idx[..., None, None]
+    kg = torch.gather(cache_k.reshape(b, hkv, nb, bs, d), 2,
+                      gidx.expand(b, hkv, w, bs, d)).float()
+    vg = torch.gather(cache_v.reshape(b, hkv, nb, bs, dv), 2,
+                      gidx.expand(b, hkv, w, bs, dv))
+    keep_g = torch.gather(plan.keep_heads, 2,
+                          idx[..., None].expand(b, hkv, w, g))
+    valid_b = valid.reshape(b, 1, nb, bs).expand(b, hkv, nb, bs)
+    valid_g = torch.gather(valid_b, 2, idx[..., None].expand(b, hkv, w, bs))
+    live = (torch.arange(w, device=q.device)[None, None, :]
+            < plan.counts[..., None])                  # (B, Hkv, W)
+    qg = q.reshape(b, hkv, g, d).float()
+    logits = torch.einsum("bkgd,bkwsd->bkgws", qg, kg) * (1.0 / d ** 0.5)
+    ok = (keep_g.permute(0, 1, 3, 2)[..., None]        # (B, Hkv, G, W, 1)
+          & valid_g[:, :, None]                        # (B, Hkv, 1, W, bs)
+          & live[:, :, None, :, None])
+    flat = logits.masked_fill(~ok, NEG_INF).reshape(b, hkv, g, w * bs)
+    ok_f = ok.expand(b, hkv, g, w, bs).reshape(b, hkv, g, w * bs)
+    m = flat.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(ok_f, torch.exp(flat - m), 0.0)
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    pv = (p / denom).to(vg.dtype).float().reshape(b, hkv, g, w, bs)
+    out = torch.einsum("bkgws,bkwsd->bkgd", pv, vg.float())
+    return out.to(q.dtype).reshape(b, h, dv)
+
+
+def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
+                             keep_heads, valid) -> torch.Tensor:
+    """The kernel (``csrc/decode_attn.cu``) on CUDA tensors; raises on what
+    it does not take.  Returns (B, H, D)."""
+    b, h, d = q.shape
+    if cache_k.shape != cache_v.shape or cache_k.dim() != 4 \
+            or cache_k.shape[0] != b or cache_k.shape[3] != d \
+            or h % cache_k.shape[1]:
+        raise ValueError(f"sparse decode: q {tuple(q.shape)}, cache "
+                         f"{tuple(cache_k.shape)} / {tuple(cache_v.shape)}")
+    hkv, s = cache_k.shape[1], cache_k.shape[2]
+    g = h // hkv
+    nb, w = keep_heads.shape[2], indices.shape[-1]
+    if tuple(indices.shape) != (b, hkv, w) \
+            or tuple(counts.shape) != (b, hkv) \
+            or tuple(keep_heads.shape) != (b, hkv, nb, g) \
+            or tuple(valid.shape) != (b, s):
+        raise ValueError("sparse decode: plan / valid shapes do not match "
+                         "the cache")
+    if s % nb or (s // nb) % 32 or g > 8 or d > 256:
+        raise ValueError(f"sparse decode kernel needs a block size that is "
+                         f"a multiple of 32, G <= 8 and D <= 256 "
+                         f"(S={s}, NB={nb}, G={g}, D={d})")
+    tensors = (q, cache_k, cache_v, indices, counts, keep_heads, valid)
+    if not all(t.is_cuda and t.device == q.device for t in tensors):
+        raise ValueError("sparse decode kernel takes CUDA tensors on one "
+                         "device")
+    if not (q.dtype == cache_k.dtype == cache_v.dtype):
+        raise ValueError("sparse decode kernel: q and cache dtypes differ")
+    if indices.dtype != torch.int32 or counts.dtype != torch.int32 \
+            or keep_heads.dtype != torch.bool or valid.dtype != torch.bool:
+        raise ValueError("sparse decode kernel takes int32 tables and bool "
+                         "keep / valid masks")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("sparse decode kernel takes contiguous tensors")
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attn")
+    fn = lib.repro_decode_attn
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    code = fn(_build.ptr(q), _build.ptr(cache_k), _build.ptr(cache_v),
+              _build.ptr(indices), _build.ptr(counts),
+              _build.ptr(keep_heads), _build.ptr(valid), _build.ptr(out),
+              _build.dtype_code(q), b, h, hkv, s, d, nb, w,
+              _build.stream_of(q))
+    _build.check(code, "sparse decode kernel")
+    flash_decode_sparse_cuda.launches += 1
+    return out
+
+
+flash_decode_sparse_cuda.launches = 0
+
+
+def flash_decode_sparse_batched(q, cache_k, cache_v, indices, counts,
+                                keep_heads, valid) -> torch.Tensor:
+    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+    if q.is_cuda:
+        return flash_decode_sparse_cuda(q, cache_k, cache_v, indices,
+                                        counts, keep_heads, valid)
+    return decode_plan_einsum_sliced(
+        q, cache_k, cache_v, DecodePlan(indices, counts, keep_heads), valid)
+
+
+def flash_decode_plan(q, cache_k, cache_v, plan: DecodePlan, valid, *,
+                      impl: str = "auto") -> torch.Tensor:
+    """Sparse decode over one layer's plan slice; (B, H, Dv).
+
+    ``kernel`` runs :func:`flash_decode_sparse_batched`; ``einsum`` runs the
+    plain path the reference's einsum fallback runs (full-cache for a
+    full-width plan, the sliced gather for ``W < NB``)."""
+    impl = resolve_decode_impl(impl, q.device)
+    if impl == "kernel":
+        return flash_decode_sparse_batched(
+            q, cache_k, cache_v, plan.indices, plan.counts, plan.keep_heads,
+            valid)
+    if plan.indices.shape[-1] < plan.keep_heads.shape[-2]:
+        return decode_plan_einsum_sliced(q, cache_k, cache_v, plan, valid)
+    return decode_plan_einsum(q, cache_k, cache_v, plan.keep_heads, valid)

@@ -1,0 +1,64 @@
+"""Mask → ``(indices, counts)`` staging for the block-sparse kernels.
+
+The port of ``repro/kernels/indices.py``; the contract is the same, and the
+tables must equal the reference's exactly:
+
+  * ``indices`` — ``(…, NBq, W)`` int32: each query-block row's active
+    kv-block ids in ascending order, padded by repeating the last kept id;
+  * ``counts`` — ``(…, NBq)`` int32: the number of kept ids per row;
+  * ``W = width`` caps a row at its ``W`` highest-index (most recent)
+    active blocks; ``width=None`` is lossless (``W = NBkv``).
+
+The reference's ragged-schedule stats layout ``(B, T, H)`` and its
+``scatter_schedule_stats`` inverse exist because the TPU grid runs in order;
+the port's CUDA kernel writes Ã in place, so neither is ported.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def compact_block_mask(block_mask: torch.Tensor,
+                       width: Optional[int] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(…, NBq, NBkv) bool mask → ``(indices (…, NBq, W), counts (…, NBq))``."""
+    nb_kv = block_mask.shape[-1]
+    w = nb_kv if width is None else max(1, min(int(width), nb_kv))
+    cols = torch.arange(nb_kv, dtype=torch.int32, device=block_mask.device)
+    # active columns sort before inactive ones, each group ascending; the
+    # keys are unique, so any sort gives the reference's order
+    key = torch.where(block_mask, cols, cols + nb_kv)
+    order = torch.argsort(key, dim=-1).to(torch.int32)
+    counts = block_mask.sum(dim=-1, dtype=torch.int32)
+    kept = torch.clamp(counts, max=w)
+    # under a cap, keep the W highest-index actives: ranks [counts-W, counts)
+    start = torch.clamp(counts - w, min=0)
+    ws = torch.arange(w, dtype=torch.int32, device=block_mask.device)
+    pos = torch.clamp(start[..., None] + ws, max=nb_kv - 1)
+    gathered = torch.gather(order, -1, pos.long())
+    last_kept = torch.gather(order, -1,
+                             torch.clamp(counts - 1, min=0)[..., None].long())
+    indices = torch.where(ws < kept[..., None], gathered, last_kept)
+    return indices.to(torch.int32), kept.to(torch.int32)
+
+
+def cap_block_mask(block_mask: torch.Tensor, width: int) -> torch.Tensor:
+    """Boolean form of the W cap: keep each row's ``width`` highest-index
+    active blocks — the truncation :func:`compact_block_mask` applies."""
+    w = max(1, min(int(width), block_mask.shape[-1]))
+    counts = block_mask.sum(dim=-1, keepdim=True)
+    rank = torch.cumsum(block_mask.to(torch.int32), dim=-1)
+    return block_mask & (rank > counts - w)
+
+
+def table_block_mask(indices: torch.Tensor, counts: torch.Tensor,
+                     nb_kv: int) -> torch.Tensor:
+    """``(indices, counts)`` → the (…, NBq, NBkv) bool mask of the blocks
+    the tables list (entries at ranks ≥ ``counts`` are padding)."""
+    w = indices.shape[-1]
+    live = torch.arange(w, device=indices.device) < counts[..., None]
+    cols = torch.arange(nb_kv, device=indices.device)
+    hit = (indices[..., None] == cols) & live[..., None]   # (…, W, NBkv)
+    return hit.any(dim=-2)

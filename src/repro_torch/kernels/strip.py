@@ -1,0 +1,86 @@
+"""Strip scores for SharePrefill's pattern estimation (paper Algorithm 3).
+
+Each head's block pattern is estimated from its *last query block strip*:
+softmax(Q̂ Kᵀ/√d) for Q̂ = Q[-block_size:] against all N keys, causally
+masked (strip row r is global query N − block_size + r).
+
+  * :func:`strip_scores` — the plain PyTorch version (float32 logits, the
+    full (bs, N) logits in memory), and the path for CPU tensors;
+  * :func:`strip_scores_cuda` — the hand-written kernel ``csrc/strip.cu``
+    (replaces the TPU kernel ``repro/kernels/strip.py::strip_scores_pallas``),
+    one launch for the whole batch;
+  * :func:`compute_strips` — the dispatcher: the kernel for CUDA tensors,
+    the plain version for CPU tensors.
+
+All three are batched and GQA-native: q ``(B, H, Nq, D)`` with ``Nq ≥ bs``,
+k ``(B, Hkv, N, D)``; query head ``h`` reads kv head ``h // (H // Hkv)``.
+N, and with it the causal row offsets, always come from ``k``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+
+
+def strip_scores(q: torch.Tensor, k: torch.Tensor,
+                 block_size: int) -> torch.Tensor:
+    """Plain version: (B, H, bs, N) float32 strips."""
+    b, h, _, d = q.shape
+    hkv, n = k.shape[1], k.shape[2]
+    g = h // hkv
+    q_hat = q[:, :, q.shape[2] - block_size:, :].float()
+    q_hat = q_hat.reshape(b, hkv, g, block_size, d)
+    logits = torch.einsum("bkgqd,bknd->bkgqn", q_hat, k.float())
+    logits = logits / math.sqrt(d)
+    rows = torch.arange(block_size, device=q.device) + (n - block_size)
+    cols = torch.arange(n, device=q.device)
+    logits = logits.masked_fill(cols[None, :] > rows[:, None], float("-inf"))
+    p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    p = p / p.sum(dim=-1, keepdim=True)
+    return p.reshape(b, h, block_size, n)
+
+
+def strip_scores_cuda(q: torch.Tensor, k: torch.Tensor,
+                      block_size: int) -> torch.Tensor:
+    """The strip kernel (``csrc/strip.cu``) on CUDA tensors; raises on
+    what it does not take."""
+    b, h, nq, d = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != d or h % k.shape[1]:
+        raise ValueError(f"strip: q {tuple(q.shape)} vs k {tuple(k.shape)}")
+    hkv, n = k.shape[1], k.shape[2]
+    if n % block_size or nq < block_size or block_size % 16:
+        raise ValueError(f"strip kernel needs N % bs == 0 and Nq >= bs "
+                         f"(N={n}, Nq={nq}, bs={block_size})")
+    if not (q.is_cuda and k.is_cuda and q.device == k.device):
+        raise ValueError("strip kernel takes CUDA tensors on one device")
+    if q.dtype != k.dtype:
+        raise ValueError(f"strip: q {q.dtype} and k {k.dtype} differ")
+    if not (q.is_contiguous() and k.is_contiguous()):
+        raise ValueError("strip kernel takes contiguous q and k")
+    out = torch.empty((b, h, block_size, n), dtype=torch.float32,
+                      device=q.device)
+    lib = _build.load("strip")
+    lib.repro_strip.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    code = lib.repro_strip(_build.ptr(q), _build.ptr(k), _build.ptr(out),
+                           _build.dtype_code(q), b, h, hkv, nq, n, d,
+                           block_size, _build.stream_of(q))
+    _build.check(code, "strip kernel")
+    strip_scores_cuda.launches += 1
+    return out
+
+
+strip_scores_cuda.launches = 0
+
+
+def compute_strips(q: torch.Tensor, k: torch.Tensor, *,
+                   block_size: int) -> torch.Tensor:
+    """(B, H, bs, N) float32 strips: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.is_cuda:
+        return strip_scores_cuda(q, k, block_size)
+    return strip_scores(q, k, block_size)

@@ -1,0 +1,85 @@
+"""Model API of the port (``repro/models/api.py``'s counterpart) for the
+``dense`` family::
+
+    model = build_model(cfg, dtype=torch.bfloat16)        # on cuda
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    result = model.prefill(params, tokens, sp, method="share")
+    logits, cache = model.decode(params, token, cache, pos, plan=plan)
+
+``build_model`` runs on CUDA unless the caller passes ``device="cpu"``; with
+no device and no GPU it raises rather than run quietly on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import checkpoint
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.api import SharePrefill
+from repro_torch.models import transformer
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as given, or CUDA; raises when neither is available."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the GPU; pass "
+                           "device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    device: torch.device
+    dtype: torch.dtype
+
+    def init(self, generator: torch.Generator):
+        return checkpoint.init_params(self.cfg, generator,
+                                      device=self.device, dtype=self.dtype)
+
+    def prefill(self, params, tokens, sp: SharePrefill, *,
+                method: str = "share", attn_impl: str = "auto",
+                attn_width: Optional[int] = None, prompt_lens=None):
+        return transformer.prefill(params, self.cfg, tokens, sp,
+                                   method=method, attn_impl=attn_impl,
+                                   attn_width=attn_width,
+                                   prompt_lens=prompt_lens)
+
+    def decode(self, params, token, cache, pos: int, *, plan=None,
+               prompt_lens=None, prefill_len: int = 0,
+               decode_impl: str = "auto"):
+        return transformer.decode_step(params, self.cfg, token, cache, pos,
+                                       plan=plan, prompt_lens=prompt_lens,
+                                       prefill_len=prefill_len,
+                                       decode_impl=decode_impl)
+
+    def init_cache(self, batch: int, cache_len: int):
+        return transformer.init_cache(self.cfg, batch, cache_len,
+                                      dtype=self.dtype, device=self.device)
+
+    def default_share_prefill(self) -> SharePrefill:
+        """Trivial clustering (per-head clusters) until an offline artifact
+        exists."""
+        if not self.cfg.share_prefill.enabled:
+            return SharePrefill.disabled()
+        return SharePrefill.trivial(self.cfg.share_prefill,
+                                    self.cfg.num_layers,
+                                    max(self.cfg.num_heads, 1))
+
+
+def build_model(cfg: ModelConfig, dtype=torch.float32,
+                device=None) -> Model:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r}: the port serves the dense family so far "
+            "(ROADMAP.md queue A.10)")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            "sliding-window attention comes with the Mixtral slice "
+            "(ROADMAP.md queue A.10)")
+    return Model(cfg, resolve_device(device), dtype)

@@ -1,0 +1,62 @@
+"""Shared building blocks of the dense decoder (port of
+``repro/models/common.py``): RMSNorm and RoPE in float32, SwiGLU, and the
+GQA projections with the reference's ``(d, H, hd)`` / ``(H, hd, d)`` weight
+layouts.  Plain ``torch.matmul``/``einsum`` products, as the reference
+leaves these to XLA outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = (x * x).mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(dtype)
+
+
+def rope_frequencies(dim: int, theta: float, *, device=None) -> torch.Tensor:
+    """(dim/2,) float32 inverse frequencies."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate ``(…, S, D)`` by per-token positions ``(…, S)`` — half-split
+    (not interleaved), with the angles in float32 (a bf16 RoPE loses the
+    angle at rope_theta ~ 2.8e8)."""
+    if theta <= 0:
+        return x
+    d = x.shape[-1]
+    inv = rope_frequencies(d, theta, device=x.device)
+    ang = positions[..., None].to(torch.float32) * inv       # (…, S, D/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def mlp(params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU."""
+    h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    return h @ params["w_down"]
+
+
+def gqa_qkv(params, x: torch.Tensor):
+    """x (B, S, d) → q (B, H, S, hd), k/v (B, Hkv, S, hd), contiguous."""
+    def proj(w):
+        d, h, hd = w.shape
+        y = x @ w.reshape(d, h * hd)                       # (B, S, H·hd)
+        return y.reshape(*x.shape[:-1], h, hd).transpose(1, 2).contiguous()
+    return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+
+
+def gqa_out(params, attn: torch.Tensor) -> torch.Tensor:
+    """attn (B, H, S, hd) → (B, S, d)."""
+    b, h, s, hd = attn.shape
+    flat = attn.transpose(1, 2).reshape(b, s, h * hd)
+    return flat @ params["wo"].reshape(h * hd, -1)

@@ -1,0 +1,131 @@
+"""Decoder-only transformer for the ``dense`` family (port of
+``repro/models/transformer.py``).
+
+Parameters are a plain dict (see :mod:`repro_torch.checkpoint`): ``embed``,
+``final_norm``, ``lm_head`` and ``layers``, a list of per-layer dicts
+``{attn: {wq, wk, wv, wo}, ffn: {w_gate, w_up, w_down}, ln1, ln2}``.  The
+reference's ``lax.scan`` over stacked layers is a Python loop here; the
+SharePrefill dictionary state is carried from layer to layer.  The KV cache
+is a pair of stacked tensors ``(L, B, Hkv, S, hd)``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.api import SharePrefill
+from repro_torch.kernels.decode_attn import DecodePlan
+from repro_torch.models import attention as attn
+from repro_torch.models import common
+
+Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+class PrefillResult(NamedTuple):
+    last_logits: torch.Tensor       # (B, V)
+    cache: Cache
+    stats: attn.AttnStats
+    sp_state: object
+
+
+def logits_from_hidden(params, cfg: ModelConfig,
+                       x: torch.Tensor) -> torch.Tensor:
+    x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
+    return x @ params["lm_head"]
+
+
+def _ffn_block(layer, x, cfg: ModelConfig) -> torch.Tensor:
+    h = common.rmsnorm(layer["ln2"], x, cfg.rms_norm_eps)
+    return x + common.mlp(layer["ffn"], h)
+
+
+def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+            sp: SharePrefill, *, method: str = "share",
+            attn_impl: str = "auto", attn_width: Optional[int] = None,
+            prompt_lens: Optional[torch.Tensor] = None) -> PrefillResult:
+    """Prefill the padded batch ``tokens (B, S)``.  ``prompt_lens`` gathers
+    each row's last logits at its real last token (``prompt_len − 1``)
+    instead of the padded final position."""
+    b, s = tokens.shape
+    device = tokens.device
+    positions = torch.arange(s, device=device)[None].expand(b, s)
+    x = params["embed"][tokens]
+
+    sharing = sp.cfg.enabled and sp.applicable(s)
+    sp_state = sp.init_state(b, s, device=device) if sharing else None
+    cluster_arr = sp.layer_cluster_ids(device=device) if sharing else None
+
+    hd = cfg.resolved_head_dim
+    shape = (cfg.num_layers, b, cfg.num_kv_heads, s, hd)
+    cache_k = torch.empty(shape, dtype=x.dtype, device=device)
+    cache_v = torch.empty(shape, dtype=x.dtype, device=device)
+    stats = []
+    for li, layer in enumerate(params["layers"]):
+        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+        ids = cluster_arr[li] if cluster_arr is not None else None
+        a, (k, v), sp_state, st = attn.attention_prefill(
+            layer["attn"], h, cfg, positions, method=method, sp=sp,
+            sp_state=sp_state, cluster_ids=ids, attn_impl=attn_impl,
+            attn_width=attn_width)
+        cache_k[li], cache_v[li] = k, v
+        x = _ffn_block(layer, x + a, cfg)
+        stats.append(st)
+
+    if prompt_lens is None:
+        last = x[:, -1, :]
+    else:
+        rows = torch.clamp(prompt_lens.long(), 1, s) - 1
+        last = x[torch.arange(b, device=device), rows, :]
+    return PrefillResult(logits_from_hidden(params, cfg, last),
+                         (cache_k, cache_v),
+                         attn.AttnStats.reduce_layers(stats), sp_state)
+
+
+def decode_valid_mask(cache_len: int, pos: int, prompt_lens: torch.Tensor,
+                      prefill_len: int) -> torch.Tensor:
+    """(B, S) slot validity: written (≤ pos) and not right-pad of a shorter
+    prompt (pad slots are ``[prompt_len, prefill_len)``)."""
+    slots = torch.arange(cache_len, device=prompt_lens.device)[None, :]
+    return (slots <= pos) & ((slots < prompt_lens[:, None])
+                             | (slots >= prefill_len))
+
+
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
+                cache: Cache, pos: int, *,
+                plan: Optional[DecodePlan] = None,     # (L, B, …) leaves
+                prompt_lens: Optional[torch.Tensor] = None,   # (B,)
+                prefill_len: int = 0,
+                decode_impl: str = "auto",
+                ) -> Tuple[torch.Tensor, Cache]:
+    """One lockstep decode step: token (B, 1) at cache slot ``pos`` →
+    logits (B, V).  The cache is updated in place and returned."""
+    b = token.shape[0]
+    cache_k, cache_v = cache
+    positions = torch.full((b, 1), pos, dtype=torch.int64,
+                           device=token.device)
+    x = params["embed"][token]
+    valid = None
+    if prompt_lens is not None:
+        valid = decode_valid_mask(cache_k.shape[3], pos, prompt_lens,
+                                  prefill_len)
+    for li, layer in enumerate(params["layers"]):
+        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+        a = attn.attention_decode(
+            layer["attn"], h, cfg, cache_k[li], cache_v[li], pos, positions,
+            valid_mask=valid, plan=None if plan is None else plan.layer(li),
+            decode_impl=decode_impl)
+        x = _ffn_block(layer, x + a, cfg)
+    return logits_from_hidden(params, cfg, x[:, -1, :]), cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
+               dtype=torch.float32, device=None) -> Cache:
+    """Empty KV cache ``((L, B, Hkv, S, hd), (L, B, Hkv, S, hd))``."""
+    shape = (cfg.num_layers, batch, cfg.num_kv_heads, cache_len,
+             cfg.resolved_head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))

@@ -1,0 +1,31 @@
+"""Decode-phase pattern sharing (port of
+``repro/serving/sparse_decode.py::decode_keep_blocks``).
+
+A head whose cluster has a pivot keeps, during decode, the pivot's last
+query-block row (a decode query is a "future last row") plus the final
+prefill block; heads without a valid pivot keep every block.
+:func:`repro_torch.serving.decode_plan.build_decode_plan` compacts these
+keep-sets into the decode kernel's tables once per served batch.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.api import SharePrefill
+from repro_torch.core.pattern_dict import PivotalState
+
+
+def decode_keep_blocks(sp: SharePrefill, sp_state: PivotalState,
+                       num_layers: int, num_heads: int) -> torch.Tensor:
+    """(L, B, H, NB) bool keep-sets from the post-prefill dictionaries
+    (``sp_state`` leaves ``(B, C, …)``)."""
+    device = sp_state.masks.device
+    ids = torch.as_tensor(sp.cluster_ids[:num_layers, :num_heads],
+                          device=device).long()                  # (L, H)
+    safe = ids.clamp(0, sp_state.masks.shape[1] - 1)
+    cover = sp_state.masks[:, :, -1, :].clone()                  # (B, C, NB)
+    cover[..., -1] = True
+    keep = cover[:, safe]                                        # (B, L, H, NB)
+    ok = sp_state.valid[:, safe] & (ids >= 0)                    # (B, L, H)
+    out = torch.where(ok[..., None], keep, True)
+    return out.transpose(0, 1)                                   # (L, B, H, NB)

@@ -1,0 +1,111 @@
+"""Rules of the port that hold whatever the numbers: what it imports, where
+it runs by default, how ``auto`` resolves, that kernels build lazily, and
+that its configs are field-for-field copies of the reference's."""
+import ast
+import dataclasses
+import pathlib
+
+import pytest
+import torch
+
+import repro.configs as jconfigs
+from repro_torch import configs
+from repro_torch.kernels import (
+    KERNELS, batched_sparse_attention_fn, launch_counts,
+    reset_launch_counts, resolve_decode_impl)
+from repro_torch.models import build_model
+from repro_torch.models.api import resolve_device
+from repro_torch.models.attention import resolve_attention_fn
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_the_reference(path):
+    bad = [m for m in _imports(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "flax")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_has_no_top_level_init():
+    """A namespace package, like ``src/repro``."""
+    assert not (ROOT / "src" / "repro_torch" / "__init__.py").exists()
+
+
+def test_build_model_without_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = configs.get_smoke_config("llama3-8b-262k")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    assert build_model(cfg, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("change", [{"family": "moe"},
+                                    {"sliding_window": 4096}])
+def test_build_model_refuses_unported_configs(change):
+    with pytest.raises(NotImplementedError, match="A.10"):
+        build_model(dataclasses.replace(
+            configs.get_smoke_config("granite-3-2b"), **change),
+            device="cpu")
+
+
+def test_auto_resolves_to_the_sparse_path_on_both_devices():
+    fn = resolve_attention_fn("auto", 64)
+    assert fn.batched
+    assert resolve_attention_fn("sparse", 64).batched
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        resolve_attention_fn("chunked", 64)
+    assert resolve_decode_impl("auto", torch.device("cpu")) == "einsum"
+    assert resolve_decode_impl("auto", torch.device("cuda")) == "kernel"
+    assert resolve_decode_impl("einsum", torch.device("cuda")) == "einsum"
+
+
+def test_launch_counters():
+    assert set(KERNELS) == {"strip", "block_sparse_attn", "decode_attn"}
+    for fn in KERNELS.values():
+        fn.launches = 7
+    reset_launch_counts()
+    assert launch_counts() == dict.fromkeys(KERNELS, 0)
+    assert batched_sparse_attention_fn(block_size=64).batched
+
+
+def test_kernels_are_not_built_at_import():
+    from repro_torch.kernels import _build
+    assert not _build._LIBS
+    assert not any(_build.BUILD_ROOT.glob("*/*.tmp"))
+
+
+@pytest.mark.parametrize("name", sorted(configs.REGISTRY))
+def test_configs_copy_the_reference(name):
+    mine, ref = configs.get_config(name), jconfigs.get_config(name)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(configs.get_smoke_config(name)) == \
+        dataclasses.asdict(jconfigs.get_smoke_config(name))
+
+
+def test_input_shapes_copy_the_reference():
+    assert {k: dataclasses.asdict(v) for k, v in configs.INPUT_SHAPES.items()
+            } == {k: dataclasses.asdict(v)
+                  for k, v in jconfigs.INPUT_SHAPES.items()}
+
+
+def test_registry_holds_the_dense_family():
+    assert set(configs.REGISTRY) == {
+        "granite-3-2b", "internlm2-1.8b", "phi3-mini-3.8b",
+        "llama3-8b-262k", "qwen2.5-7b"}
+    assert all(c.family == "dense" for c in configs.REGISTRY.values())
+    with pytest.raises(KeyError, match="unknown arch"):
+        configs.get_config("mixtral-8x22b")
