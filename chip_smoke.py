@@ -19,7 +19,20 @@ run on error:
      tokens, 16 greedy tokens each) through ``ServingEngine`` with
      SharePrefill prefill and plan-driven sparse decode, with every kernel's
      launch count reset just before and read just after; then serve them
-     once more under ``torch.profiler`` to see where the device time goes.
+     once more under ``torch.profiler`` to see where the device time goes;
+  5. hold the paged sparse-decode kernel against its plain version at the
+     paged serve's shapes (4 slots, a 65-page table of 128-token pages, a
+     shuffled pool with slack pages), in bfloat16 and float32, on layer 0's
+     plan rows from two real prefills (8192 and 2048 buckets), an empty
+     slot, a row padded from the 2048 bucket and partly false keep bits
+     with a right-pad range; and against the contiguous decode kernel on
+     the gathered pages, bitwise;
+  6. serve six full-width requests of two buckets through the continuous-
+     batching scheduler on a 148-page pool (``EngineConfig(paged=True)``),
+     launch counts reset just before and read just after, so that a request
+     waits for pages and finished slots are refilled during the serve; then
+     serve them through the contiguous scheduler (one per bucket) and
+     compare greedy tokens (near-tie aware).
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -71,7 +84,16 @@ KERNELS = {
                           "src/repro/kernels/block_sparse_attn.py:312"),
     "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                     "src/repro/kernels/decode_attn.py:340"),
+    "decode_attn_paged": ("src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:579"),
 }
+
+# phase 6: (prompt tokens, max_new_tokens); buckets 8192 / 2048 take 65 / 17
+# pages of the 147 usable, so r0-r2 fill the pool and r3 waits for r1's
+SHORT = 2048
+PAGED_REQUESTS = ((8192, 16), (7937, 4), (2048, 24), (1990, 8), (8192, 12),
+                  (2000, 6))
+NUM_PAGES = 148
 
 
 def nvidia_smi() -> str:
@@ -214,7 +236,8 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
     gate = decision.use_dense ^ (torch.arange(h, device=dev) % 3 == 0)
     width_cap = nb // 4
 
-    res = {name: {"max_abs_err": 0.0} for name in KERNELS}
+    res = {name: {"max_abs_err": 0.0}
+           for name in ("strip", "block_sparse_attn", "decode_attn")}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         q, k, v = (x.to(dtype) for x in (q16, k16, v16))
@@ -385,6 +408,9 @@ class LogitProbe:
         self._record(logits)
         return logits, cache
 
+    def __getattr__(self, name):        # the rest of the model's API
+        return getattr(self.model, name)
+
 
 def greedy_agree(ref_tokens, ref_logits, tokens, tol: float) -> str:
     """Greedy streams agree up to their first flip, and a flip is allowed
@@ -507,35 +533,35 @@ def serve_full(model, params, prompts, layers: int) -> dict:
     return counts
 
 
-def profile_serve(model, params, prompts) -> None:
-    """Where the serve's device time goes: the same two requests (4 new
-    tokens) once more under ``torch.profiler``, device time summed by
-    kernel, with prefill and decode steps marked as spans.  A measurement
-    only: the launch counts were read before it, and where the profiler
-    traces no device time it prints "not measured"."""
+class Spans(LogitProbe):
+    """:class:`LogitProbe` marking prefill and decode steps as profiler
+    spans."""
+
+    def prefill(self, *args, **kwargs):
+        from torch.profiler import record_function
+        with record_function("serve.prefill"):
+            return super().prefill(*args, **kwargs)
+
+    def decode(self, *args, **kwargs):
+        from torch.profiler import record_function
+        with record_function("serve.decode_step"):
+            return super().decode(*args, **kwargs)
+
+
+def profile_serve(label: str, serve) -> None:
+    """Where a serve's device time goes: ``serve(model_wrapper)`` under
+    ``torch.profiler``, device time summed by kernel, with prefill and
+    decode steps marked as spans.  A measurement only: the launch counts
+    were read before it, and where the profiler traces no device time it
+    prints "not measured"."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    from torch.profiler import ProfilerActivity, profile
 
-    class Spans(LogitProbe):
-        def prefill(self, *args, **kwargs):
-            with record_function("serve.prefill"):
-                return super().prefill(*args, **kwargs)
-
-        def decode(self, *args, **kwargs):
-            with record_function("serve.decode_step"):
-                return super().decode(*args, **kwargs)
-
-    eng = ServingEngine(Spans(model), params, model.default_share_prefill(),
-                        EngineConfig(method="share", decode_sparse=True,
-                                     max_batch=2, seq_buckets=(SEQ,)))
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=4)
-            for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        eng.serve(reqs)
+        serve(Spans)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     events = prof.key_averages()
@@ -550,24 +576,30 @@ def profile_serve(model, params, prompts) -> None:
                if on_device(e) and dev_us(e) > 0 and not is_span(e)]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     if busy_ms == 0:
-        print("profile: no device time traced (not measured)", flush=True)
+        print(f"profile {label}: no device time traced (not measured)",
+              flush=True)
         return
-    groups = {"strip": 0.0, "block_sparse_attn": 0.0, "decode_attn": 0.0,
-              "gemm": 0.0, "other": 0.0}
+    groups = {g: [0.0, 0] for g in ("strip", "block_sparse_attn",
+                                    "decode_attn", "decode_attn_paged",
+                                    "gemm", "other")}
     for e in kernels:
         name = e.key.lower()
         g = ("strip" if "strip_kernel" in name else
              "block_sparse_attn" if "bsa_kernel" in name else
+             "decode_attn_paged" if "decode_kernel" in name
+             and ", true>" in name else
              "decode_attn" if "decode_kernel" in name else
              "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
                                                "cutlass", "matmul"))
              else "other")
-        groups[g] += dev_us(e) / 1e3
-    print(f"profile (4 new tokens): wall {wall_ms:.1f} ms, device busy "
+        groups[g][0] += dev_us(e) / 1e3
+        groups[g][1] += e.count
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %, idle "
           f"{100 * (1 - busy_ms / wall_ms):.1f} %)", flush=True)
-    print("  device ms by group: " + json.dumps(
-        {k: round(v, 3) for k, v in groups.items()}), flush=True)
+    print("  device ms and launches by group: " + json.dumps(
+        {k: [round(v[0], 3), v[1]] for k, v in groups.items() if v[1]}),
+        flush=True)
     # per span: the host time to enqueue it, the device range from its
     # first kernel's start to its last kernel's end, and the device time of
     # the torch ops inside it (the port's own kernels, launched through
@@ -587,6 +619,303 @@ def profile_serve(model, params, prompts) -> None:
               f"{e.key[:90]}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 5
+
+def check_paged_decode(model, params, prompts) -> dict:
+    """Phase 5: the paged decode kernel against its plain version and
+    against the contiguous kernel on the gathered pages; returns its numbers
+    for the JSON line (errors over every case, times at bf16)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import (
+        compact_block_mask, expand_kv, flash_decode_sparse_cuda,
+        table_block_mask)
+    from repro_torch.kernels.decode_attn import (
+        DecodePlan, decode_plan_einsum_sliced_paged,
+        flash_decode_sparse_paged_cuda, gather_pages)
+    from repro_torch.models.transformer import decode_valid_mask
+    from repro_torch.serving import decode_plan as dplan
+
+    cfg = model.cfg
+    sp = model.default_share_prefill()
+    ps = sp.cfg.block_size
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    short_len = PAGED_REQUESTS[5][0]           # a ragged short prompt
+    nb = (SEQ + ps) // ps                       # the 8192 bucket + one tail
+    hkv, h, d = cfg.num_kv_heads, cfg.num_heads, cfg.resolved_head_dim
+    g = h // hkv
+
+    # layer 0's K/V and plan rows from two real prefills, each row built at
+    # its own allocation (bucket + tail) and padded to the table width
+    real = []
+    for prompt, bucket in ((prompts[0], SEQ),
+                           (prompts[1][:short_len], SHORT)):
+        toks = torch.zeros((1, bucket), dtype=torch.long, device=dev)
+        toks[0, :len(prompt)] = torch.as_tensor(prompt, device=dev)
+        res = model.prefill(params, toks, sp, method="share",
+                            prompt_lens=torch.tensor([len(prompt)],
+                                                     device=dev))
+        plan = dplan.pad_plan_row(dplan.build_decode_plan(
+            sp, res.sp_state, cfg, prefill_len=bucket,
+            cache_len=bucket + ps), nb)
+        real.append((res.cache[0][0, 0].clone(), res.cache[1][0, 0].clone(),
+                     [x[0, 0] for x in plan]))
+        del res, plan
+    torch.cuda.empty_cache()
+    (ka, va, row_a), (kb, vb, row_b) = real
+
+    # slots: 0 the 8192 row; 1 empty; 2 the row padded from the 2048 bucket
+    # (17 live blocks, then null pages); 3 the 8192 row with partly false
+    # keep bits and the right-pad range [7937, 8192) invalid
+    keep3 = row_a[2] & (torch.rand(row_a[2].shape, generator=gen,
+                                   device=dev) < 0.7)
+    keep3[:, SEQ // ps] = True                  # the decode tail block
+    union3 = keep3.any(-1)
+    idx3, cnt3 = compact_block_mask(union3)
+    keep3 &= union3[..., None]
+    empty = (torch.zeros_like(row_a[0]), torch.zeros_like(row_a[1]),
+             torch.zeros_like(row_a[2]))
+    rows = [row_a, empty, row_b, (idx3, cnt3, keep3)]
+    idx, cnt, keep = (torch.stack([r[i] for r in rows]).contiguous()
+                      for i in range(3))
+    pos = torch.tensor([SEQ + 5, SEQ, SHORT + 7, SEQ + 5], device=dev)
+    plens = torch.tensor([SEQ, SEQ, short_len, PROMPT_LENS[1]], device=dev)
+    pflens = torch.tensor([SEQ, SEQ, SHORT, SEQ], device=dev)
+    valid = decode_valid_mask(nb * ps, pos, plens, pflens).contiguous()
+
+    # a shuffled pool with slack pages; unheld table entries are the null
+    # page 0, which (like the slack pages) holds values that must never be
+    # read
+    held = [nb, 0, SHORT // ps + 1, nb]
+    num_pages = 1 + sum(held) + 4
+    perm = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)
+            ).to(torch.int32)
+    table = torch.zeros((4, nb), dtype=torch.int32, device=dev)
+    at = 0
+    for b, n in enumerate(held):
+        table[b, :n] = perm[at: at + n]
+        at += n
+    print(f"paged decode shapes: B=4 H={h} Hkv={hkv} D={d} ps={ps} NB={nb} "
+          f"P={num_pages}, table rows hold {held} pages", flush=True)
+
+    res = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        # garbage everywhere, then the prompts' pages; the decode tail
+        # pages keep their garbage as the appended tokens' K/V, at the
+        # scale of the model's own (|out| < 2, where the bf16 tolerance is
+        # one ulp)
+        pool_k = (torch.randn((num_pages, hkv, ps, d), generator=gen,
+                              device=dev) * 0.5).to(dtype)
+        pool_v = (torch.randn((num_pages, hkv, ps, d), generator=gen,
+                              device=dev) * 0.5).to(dtype)
+        for b, (k, v) in ((0, (ka, va)), (2, (kb, vb)), (3, (ka, va))):
+            n = k.shape[1] // ps                # prompt pages; the tail
+            pages = table[b, :n].long()         # page keeps its garbage
+            for pool, x in ((pool_k, k), (pool_v, v)):
+                pool[pages] = x.reshape(hkv, n, ps, d).transpose(0, 1).to(
+                    dtype)
+        q = torch.randn((4, h, d), generator=gen, device=dev).to(dtype)
+        print(f"[{dn}]", flush=True)
+        out = flash_decode_sparse_paged_cuda(q, pool_k, pool_v, table, idx,
+                                             cnt, keep, valid)
+        ref = decode_plan_einsum_sliced_paged(
+            q, pool_k, pool_v, table, DecodePlan(idx, cnt, keep), valid)
+        gk, gv = gather_pages(pool_k, table), gather_pages(pool_v, table)
+        contiguous = flash_decode_sparse_cuda(q, gk, gv, idx, cnt, keep,
+                                              valid)
+        torch.cuda.synchronize()
+        zeros = bool((out[1] == 0).all())
+        bitwise = max_err(out, contiguous)
+        print(f"  decode_attn_paged: empty slot exact zeros {zeros}; "
+              f"max |paged - contiguous kernel on gathered pages| "
+              f"{bitwise:.3e}; live blocks per slot "
+              f"{cnt.float().mean(1).tolist()}", flush=True)
+        if not zeros:
+            raise AssertionError("empty paged decode slot is not zeros")
+        if bitwise != 0.0:
+            raise AssertionError("paged kernel differs from the contiguous "
+                                 "kernel on the gathered pages")
+        e = max_err(out, ref)
+        check("  out", e, TOL[("out", dn)])
+        res["max_abs_err"] = max(res["max_abs_err"], e)
+        if dtype != torch.bfloat16:
+            continue
+        elt = q.element_size()
+        # bytes: q, out, the listed pages' K and V, the tables, keep bits,
+        # validity and the page table; products over the kept, valid keys
+        ntok = valid.reshape(4, 1, nb, ps).sum(-1)
+        listed = table_block_mask(idx, cnt, nb)
+        kept_tok = float(((keep & listed[..., None]).float()
+                          * ntok[..., None]).sum())
+        pb = bound(2 * 4 * h * d * elt + 2 * float(cnt.sum()) * ps * d * elt
+                   + (idx.numel() + cnt.numel() + table.numel()) * 4
+                   + keep.numel() + valid.numel(), 4.0 * d * kept_tok, dtype)
+        # yardstick: SDPA on the gathered cache expanded to 32 heads under
+        # the keep ∧ valid token mask
+        gkx, gvx = expand_kv(gk, gv, h)
+        dmask = (keep.movedim(-1, 2).repeat_interleave(ps, -1)
+                 .reshape(4, h, 1, nb * ps) & valid[:, None, None, :])
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], gkx, gvx, attn_mask=dmask), 50)
+        res.update(
+            ms=cuda_ms(lambda: flash_decode_sparse_paged_cuda(
+                q, pool_k, pool_v, table, idx, cnt, keep, valid), 50),
+            plain_ms=cuda_ms(lambda: decode_plan_einsum_sliced_paged(
+                q, pool_k, pool_v, table, DecodePlan(idx, cnt, keep),
+                valid), 10),
+            contiguous_ms=cuda_ms(lambda: flash_decode_sparse_cuda(
+                q, gk, gv, idx, cnt, keep, valid), 50),
+            bound_ms=pb[0], bound_by=pb[1], library_ms=lib)
+        print(f"  decode_attn_paged bf16: {res['ms']:.4f} ms (contiguous "
+              f"kernel on the gathered pages {res['contiguous_ms']:.4f}, "
+              f"plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.5f} "
+              f"by {res['bound_by']}, library {res['library_ms']})",
+              flush=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 6
+
+class PrefillProbe(LogitProbe):
+    """:class:`LogitProbe` that also keeps each request's first-token
+    logits, keyed by (prompt length, first token)."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.first = {}
+
+    def prefill(self, params, tokens, sp, **kwargs):
+        result = super().prefill(params, tokens, sp, **kwargs)
+        key = (int(kwargs["prompt_lens"][0]), int(tokens[0, 0]))
+        self.first[key] = result.last_logits[0].float()
+        return result
+
+
+def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
+    """One serve of the phase-6 requests through the slot scheduler,
+    launch counts reset just before and read just after; every paged
+    serve's allocator is kept for its audit."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (EngineConfig, Request, ServingEngine,
+                                     SlotScheduler)
+
+    probe = PrefillProbe(model)
+    eng = ServingEngine(probe, params, model.default_share_prefill(),
+                        EngineConfig(max_batch=4, method="share",
+                                     decode_sparse=True,
+                                     seq_buckets=(SHORT, SEQ), **ecfg))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=m)
+            for i, (p, m) in enumerate(zip(prompts, news))]
+    allocs = []
+    summary = SlotScheduler._pool_summary
+
+    def audited(self):
+        summary(self)
+        if self.paged:
+            allocs.append(self.alloc)
+
+    SlotScheduler._pool_summary = audited
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+    finally:
+        SlotScheduler._pool_summary = summary
+    return dict(eng=eng, reqs=reqs, probe=probe, counts=counts, wall=wall,
+                allocs=allocs)
+
+
+def serve_paged(model, params, prompts, layers: int) -> dict:
+    """Phase 6: the continuous-batching serve on the paged pool, checked,
+    then the same requests through the contiguous scheduler."""
+    import torch
+
+    news = [m for _, m in PAGED_REQUESTS]
+    run = scheduler_serve(model, params, prompts, news, paged=True,
+                          num_pages=NUM_PAGES)
+    eng, reqs, counts = run["eng"], run["reqs"], run["counts"]
+    steps = eng.slot_steps // eng.ecfg.max_batch
+    print(f"paged serve: {len(reqs)} requests in {run['wall']:.3f} s, "
+          f"{steps} decode steps; launches {counts}", flush=True)
+    for r in reqs:
+        m = r.metrics()
+        bucket = eng._bucket(len(r.prompt))
+        print(f"  request {r.uid}: prompt {len(r.prompt)} bucket {bucket} "
+              f"{r.finish_reason} {len(r.output_tokens)} tokens queue_s "
+              f"{m['queue_s']:.4f} ttft_s {m['ttft_s']:.4f} prefill_s "
+              f"{m['prefill_s']:.4f} prefill_stall_s "
+              f"{m['prefill_stall_s']:.4f} decode_tokens_per_s "
+              f"{m['decode_tokens_per_s']:.3f} plan_traffic_fraction "
+              f"{m['plan_traffic_fraction']:.4f} waiting_deferred_steps "
+              f"{m['waiting_deferred_steps']}", flush=True)
+    pool = eng.page_pool_stats
+    print(f"  slot_occupancy {eng.slot_occupancy():.4f}; phase_s "
+          + json.dumps({k: round(v, 4) for k, v in eng.phase_s.items()})
+          + f"; decode step {1e3 * eng.phase_s['decode'] / steps:.2f} ms "
+          f"(mean over 4 slots); pages_exhausted_steps "
+          f"{eng.pages_exhausted_steps}; pool {json.dumps(pool)}",
+          flush=True)
+
+    for r in reqs:
+        if r.finish_reason not in ("length", "stop") or (
+                r.finish_reason == "length"
+                and len(r.output_tokens) != r.max_new_tokens):
+            raise AssertionError(f"request {r.uid}: {r.finish_reason} with "
+                                 f"{len(r.output_tokens)} tokens")
+    finite = all(bool(torch.isfinite(x).all()) for x in run["probe"].logits)
+    print(f"  logits: {len(run['probe'].logits)} calls, all finite {finite}",
+          flush=True)
+    if not finite:
+        raise AssertionError("non-finite logits in the paged serve")
+    if eng.pages_exhausted_steps < 1:
+        raise AssertionError("no admission waited on pool headroom")
+    if pool["pages_in_use_at_end"] != 0:
+        raise AssertionError(f"pages leaked: {pool}")
+    for alloc in run["allocs"]:
+        alloc.check_consistency()
+    need = {"strip": layers * len(reqs),
+            "block_sparse_attn": layers * len(reqs),
+            "decode_attn_paged": layers * steps}
+    for name, n in need.items():
+        if counts[name] < n:
+            raise AssertionError(f"{name}: {counts[name]} launches on the "
+                                 f"paged serve, expected >= {n}")
+    if counts["decode_attn"]:
+        raise AssertionError("the paged serve launched the contiguous "
+                             "decode kernel")
+
+    contig = scheduler_serve(model, params, prompts, news, scheduler=True)
+    print(f"contiguous scheduler serve: {contig['wall']:.3f} s; launches "
+          f"{contig['counts']}", flush=True)
+    if contig["counts"]["decode_attn"] < layers or \
+            contig["counts"]["decode_attn_paged"]:
+        raise AssertionError("the contiguous serve did not run the "
+                             "contiguous decode kernel alone")
+    first = run["probe"].first
+    err = max(max_err(first[k], contig["probe"].first[k]) for k in first)
+    print(f"  first-step logits max_abs_err paged vs contiguous {err:.3e}",
+          flush=True)
+    for a, b in zip(reqs, contig["reqs"]):
+        ref, got = a.output_tokens, b.output_tokens
+        verdict = "identical"
+        if ref.tolist() != got.tolist():
+            # margins of the paged stream: the request served alone
+            solo = scheduler_serve(model, params, [a.prompt],
+                                   [a.max_new_tokens], paged=True,
+                                   num_pages=NUM_PAGES)
+            logits = torch.stack([x[0] for x in solo["probe"].logits])
+            verdict = greedy_agree(ref, logits.cpu().numpy(), got, TIE_TOL)
+        print(f"  request {a.uid}: {verdict}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -596,6 +925,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.models import build_model
     from repro_torch.checkpoint import num_params
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
 
     smi = nvidia_smi()
     print(smi, flush=True)
@@ -636,7 +966,30 @@ def main() -> int:
     counts = serve_full(model, params, prompts, cfg.num_layers)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
-    profile_serve(model, params, prompts)
+    profile_serve("(phase 4, 4 new tokens)", lambda wrap: ServingEngine(
+        wrap(model), params, model.default_share_prefill(),
+        EngineConfig(method="share", decode_sparse=True, max_batch=2,
+                     seq_buckets=(SEQ,))).serve(
+        [Request(uid=i, prompt=p, max_new_tokens=4)
+         for i, p in enumerate(prompts)]))
+    torch.cuda.empty_cache()
+    print("== phase 5: paged decode kernel against its plain version",
+          flush=True)
+    res["decode_attn_paged"] = check_paged_decode(model, params, prompts)
+    torch.cuda.empty_cache()
+    print("== phase 6: full-width continuous-batching serve, paged pool",
+          flush=True)
+    rng = np.random.default_rng(SEED + 2)
+    paged_prompts = [rng.integers(0, cfg.vocab_size, n)
+                     for n, _ in PAGED_REQUESTS]
+    torch.cuda.reset_peak_memory_stats()
+    paged_counts = serve_paged(model, params, paged_prompts, cfg.num_layers)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    counts["decode_attn_paged"] = paged_counts["decode_attn_paged"]
+    profile_serve("(phase 6, paged scheduler)", lambda wrap: scheduler_serve(
+        wrap(model), params, paged_prompts,
+        [m for _, m in PAGED_REQUESTS], paged=True, num_pages=NUM_PAGES))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

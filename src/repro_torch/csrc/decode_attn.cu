@@ -1,7 +1,9 @@
-// Batched GQA sparse decode over DecodePlan tables.
+// Batched GQA sparse decode over DecodePlan tables, on a contiguous cache or
+// on a block-paged pool.
 //
-// Replaces the TPU kernel repro/kernels/decode_attn.py::
-// flash_decode_sparse_batched (_batched_kernel).  One query token per
+// Replaces the TPU kernels repro/kernels/decode_attn.py::
+// flash_decode_sparse_batched (_batched_kernel) and
+// flash_decode_sparse_batched_paged (_paged_kernel).  One query token per
 // sequence: for every (batch b, kv head h) the CTA holds the G query vectors
 // of that kv head's group and walks indices[b, h, :counts[b, h]]; in block
 // j, key t is visible to query head g only if keep_heads[b, h, j, g] and
@@ -19,6 +21,15 @@
 // columns of all G heads.  The grid is only B * Hkv CTAs (16 for llama3-8b
 // at B = 2), far too few to saturate the memory system: splitting the table
 // across CTAs (split-K) is later work.
+//
+// Paged instance (PAGED = true): K/V live in a pool (P, Hkv, ps, D) and the
+// tile of table entry j for slot b, kv head hk starts at
+// pool + ((page_table[b * NB + j] * Hkv + hk) * ps) * D, in size_t (a whole
+// pool comes near 2^31 elements).  That address is the only difference: the
+// body, the keep bits, validity, counts and the running max stay in logical
+// coordinates, so the paged instance is bitwise the contiguous one run on
+// the gathered pages.  A page id outside [0, P) is never read: its block is
+// skipped.
 #include <cstdint>
 
 #include "common.cuh"
@@ -30,14 +41,15 @@ constexpr int NT = 128;    // threads
 constexpr int GMAX = 8;    // largest GQA group
 constexpr int DMAX = 256;  // largest head dim (two columns per thread)
 
-template <typename T>
+template <typename T, bool PAGED>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
-              const T* __restrict__ cv, const int* __restrict__ indices,
+              const T* __restrict__ cv, const int* __restrict__ page_table,
+              const int* __restrict__ indices,
               const int* __restrict__ counts,
               const uint8_t* __restrict__ keep,
               const uint8_t* __restrict__ valid, T* __restrict__ out, int H,
-              int Hkv, int S, int D, int NB, int W, float scale) {
+              int Hkv, int S, int D, int NB, int W, int P, float scale) {
   extern __shared__ float smem[];
   const int G = H / Hkv;
   float* q_s = smem;                    // G x D
@@ -51,8 +63,6 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bs = S / NB;
   const size_t bk = (size_t)b * Hkv + hk;
-  const T* kb = ck + bk * (size_t)S * D;
-  const T* vb = cv + bk * (size_t)S * D;
   const uint8_t* vrow = valid + (size_t)b * S;
 
   for (int i = tid; i < G * D; i += NT)
@@ -65,13 +75,24 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   const int n = counts[bk];
   for (int w = 0; w < n; ++w) {
     const int j = indices[bk * W + w];
+    // the block's first key, in the cache or in its page
+    size_t tile;
+    if constexpr (PAGED) {
+      const int page = page_table[(size_t)b * NB + j];
+      if (page < 0 || page >= P) continue;    // uniform across the CTA
+      tile = ((size_t)page * Hkv + hk) * (size_t)bs * D;
+    } else {
+      tile = (bk * (size_t)S + (size_t)j * bs) * D;
+    }
+    const T* kb = ck + tile;
+    const T* vb = cv + tile;
     for (int t0 = 0; t0 < bs; t0 += KT) {
       __syncthreads();                  // previous tile fully consumed
       if (t0 == 0 && tid < G)
         keep_s[tid] = keep[(bk * NB + j) * G + tid];
       for (int i = tid; i < KT * D; i += NT) {
         int r = i / D, c = i - r * D;
-        size_t off = ((size_t)j * bs + t0 + r) * D + c;
+        size_t off = (size_t)(t0 + r) * D + c;
         k_s[r * (D + 1) + c] = repro::to_f(kb[off]);
         v_s[r * D + c] = repro::to_f(vb[off]);
       }
@@ -130,23 +151,40 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* ck, const void* cv, const int* indices,
-           const int* counts, const uint8_t* keep, const uint8_t* valid,
-           void* out, int B, int H, int Hkv, int S, int D, int NB, int W,
-           void* stream) {
+template <typename T, bool PAGED>
+int launch(const void* q, const void* ck, const void* cv,
+           const int* page_table, const int* indices, const int* counts,
+           const uint8_t* keep, const uint8_t* valid, void* out, int B,
+           int H, int Hkv, int S, int D, int NB, int W, int P, void* stream) {
   const int G = H / Hkv;
   const size_t smem =
       (size_t)(G * D + KT * (D + 1) + KT * D + G * KT) * sizeof(float);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(decode_kernel<T>,
+    cudaFuncSetAttribute(decode_kernel<T, PAGED>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   dim3 grid(Hkv, B);
-  decode_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      (const T*)q, (const T*)ck, (const T*)cv, indices, counts, keep, valid,
-      (T*)out, H, Hkv, S, D, NB, W, 1.0f / sqrtf((float)D));
+  decode_kernel<T, PAGED><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)ck, (const T*)cv, page_table, indices, counts,
+      keep, valid, (T*)out, H, Hkv, S, D, NB, W, P,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
+}
+
+template <bool PAGED>
+int dispatch(const void* q, const void* ck, const void* cv,
+             const int* page_table, const int* indices, const int* counts,
+             const uint8_t* keep, const uint8_t* valid, void* out, int dtype,
+             int B, int H, int Hkv, int S, int D, int NB, int W, int P,
+             void* stream) {
+  if (H % Hkv || H / Hkv > GMAX || D > DMAX || S % NB || (S / NB) % KT)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == REPRO_BF16)
+    return launch<__nv_bfloat16, PAGED>(q, ck, cv, page_table, indices,
+                                        counts, keep, valid, out, B, H, Hkv,
+                                        S, D, NB, W, P, stream);
+  return launch<float, PAGED>(q, ck, cv, page_table, indices, counts, keep,
+                              valid, out, B, H, Hkv, S, D, NB, W, P, stream);
 }
 
 }  // namespace
@@ -157,11 +195,22 @@ extern "C" int repro_decode_attn(const void* q, const void* ck,
                                  const uint8_t* valid, void* out, int dtype,
                                  int B, int H, int Hkv, int S, int D, int NB,
                                  int W, void* stream) {
-  if (H % Hkv || H / Hkv > GMAX || D > DMAX || (S / NB) % KT)
-    return (int)cudaErrorInvalidValue;
-  if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16>(q, ck, cv, indices, counts, keep, valid,
-                                 out, B, H, Hkv, S, D, NB, W, stream);
-  return launch<float>(q, ck, cv, indices, counts, keep, valid, out, B, H,
-                       Hkv, S, D, NB, W, stream);
+  return dispatch<false>(q, ck, cv, nullptr, indices, counts, keep, valid,
+                         out, dtype, B, H, Hkv, S, D, NB, W, 0, stream);
+}
+
+// pool_k / pool_v: one layer's (P, Hkv, ps, D) pool; page_table (B, NB);
+// the plan and valid (B, NB * ps) in logical block coordinates.
+extern "C" int repro_decode_attn_paged(const void* q, const void* pool_k,
+                                       const void* pool_v,
+                                       const int* page_table,
+                                       const int* indices, const int* counts,
+                                       const uint8_t* keep,
+                                       const uint8_t* valid, void* out,
+                                       int dtype, int B, int H, int Hkv,
+                                       int ps, int D, int NB, int W, int P,
+                                       void* stream) {
+  return dispatch<true>(q, pool_k, pool_v, page_table, indices, counts, keep,
+                        valid, out, dtype, B, H, Hkv, NB * ps, D, NB, W, P,
+                        stream);
 }

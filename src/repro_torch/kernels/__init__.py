@@ -3,7 +3,8 @@ its plain PyTorch version.
 
   strip.py              strip-score kernel (Algorithm-3 estimation pass)
   block_sparse_attn.py  batched block-sparse prefill attention + fused Ã
-  decode_attn.py        batched sparse decode over DecodePlan tables
+  decode_attn.py        batched sparse decode over DecodePlan tables, on a
+                        contiguous cache or a block-paged pool
   indices.py            mask → (indices, counts) staging
   chunked.py            dense attention in plain PyTorch
   ops.py                table staging and GQA helpers
@@ -31,6 +32,7 @@ from repro_torch.kernels.decode_attn import (
     flash_decode_plan,
     flash_decode_sparse_batched,
     flash_decode_sparse_cuda,
+    flash_decode_sparse_paged_cuda,
     resolve_decode_impl,
 )
 from repro_torch.kernels.indices import (
@@ -50,6 +52,7 @@ KERNELS = {
     "strip": strip_scores_cuda,
     "block_sparse_attn": block_sparse_attention_cuda,
     "decode_attn": flash_decode_sparse_cuda,
+    "decode_attn_paged": flash_decode_sparse_paged_cuda,
 }
 
 
@@ -96,7 +99,8 @@ __all__ = [
     "cap_block_mask", "compact_block_mask", "compute_strips",
     "decode_plan_einsum", "decode_plan_einsum_sliced", "expand_kv",
     "flash_decode_plan", "flash_decode_sparse_batched",
-    "flash_decode_sparse_cuda", "launch_counts", "reset_launch_counts",
+    "flash_decode_sparse_cuda", "flash_decode_sparse_paged_cuda",
+    "launch_counts", "reset_launch_counts",
     "resolve_decode_impl", "strip_scores", "strip_scores_cuda",
     "table_block_mask",
 ]

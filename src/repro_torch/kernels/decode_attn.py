@@ -1,12 +1,15 @@
 """Sparse decode over prebuilt :class:`DecodePlan` tables.
 
-One query token per sequence against a contiguous cache ``(B, Hkv, S, D)``.
-The plan (built once per served batch by
+One query token per sequence against a contiguous cache ``(B, Hkv, S, D)``
+or a block-paged pool ``(P, Hkv, ps, D)`` read through a page table
+``(B, NB)``.  The plan (built once per admission or served batch by
 :func:`repro_torch.serving.decode_plan.build_decode_plan`) lists, per
 (batch, kv head), the kv blocks to read; ``keep_heads`` refines the union
 per query head of the GQA group, and ``valid (B, S)`` masks slots that are
 past the decode position or right-pad of a shorter prompt.  A (batch, kv
 head) with ``counts == 0`` outputs exact zeros (the inert-slot contract).
+Under paging the plan, keep bits and validity stay in *logical* block
+coordinates; only the K/V address goes through ``page_table[b, j]``.
 
   * :func:`decode_plan_einsum` — plain, full-cache grouped einsum masked by
     ``keep_heads``; the CPU path for full-width plans (``W == NB``);
@@ -18,7 +21,13 @@ head) with ``counts == 0`` outputs exact zeros (the inert-slot contract).
     ``repro/kernels/decode_attn.py::flash_decode_sparse_batched``);
   * :func:`flash_decode_sparse_batched` — kernel on CUDA tensors, its plain
     version on CPU tensors;
-  * :func:`flash_decode_plan` — the dispatcher the model calls.
+  * :func:`flash_decode_plan` — the dispatcher the model calls;
+  * :func:`gather_pages`, :func:`decode_plan_einsum_paged`,
+    :func:`decode_plan_einsum_sliced_paged`,
+    :func:`flash_decode_sparse_paged_cuda` (the paged instance of the same
+    kernel; replaces ``flash_decode_sparse_batched_paged``),
+    :func:`flash_decode_sparse_batched_paged` and
+    :func:`flash_decode_plan_paged` — the same five over the paged pool.
 """
 from __future__ import annotations
 
@@ -86,29 +95,17 @@ def decode_plan_einsum(q, cache_k, cache_v, keep_heads, valid):
     return out.to(q.dtype).reshape(b, h, dv)
 
 
-def decode_plan_einsum_sliced(q, cache_k, cache_v, plan: DecodePlan, valid):
-    """Gather only the plan's W table blocks (ranks ≥ counts masked) and
-    contract those; (B, H, Dv).  The kernel's plain version."""
-    b, h, d = q.shape
-    _, hkv, s, dv = cache_v.shape
-    g = h // hkv
-    nb = plan.keep_heads.shape[2]
-    bs = s // nb
-    idx = plan.indices.long()                          # (B, Hkv, W)
-    w = idx.shape[-1]
-    gidx = idx[..., None, None]
-    kg = torch.gather(cache_k.reshape(b, hkv, nb, bs, d), 2,
-                      gidx.expand(b, hkv, w, bs, d)).float()
-    vg = torch.gather(cache_v.reshape(b, hkv, nb, bs, dv), 2,
-                      gidx.expand(b, hkv, w, bs, dv))
-    keep_g = torch.gather(plan.keep_heads, 2,
-                          idx[..., None].expand(b, hkv, w, g))
-    valid_b = valid.reshape(b, 1, nb, bs).expand(b, hkv, nb, bs)
-    valid_g = torch.gather(valid_b, 2, idx[..., None].expand(b, hkv, w, bs))
-    live = (torch.arange(w, device=q.device)[None, None, :]
-            < plan.counts[..., None])                  # (B, Hkv, W)
-    qg = q.reshape(b, hkv, g, d).float()
-    logits = torch.einsum("bkgd,bkwsd->bkgws", qg, kg) * (1.0 / d ** 0.5)
+def _plan_einsum_sliced(qg, kg, vg, keep_g, valid_g, counts, out_dtype):
+    """Masked-softmax core of the width-sliced plain versions, on the
+    gathered table blocks ``kg``/``vg (B, Hkv, W, bs, D)``, their keep bits
+    ``keep_g (B, Hkv, W, G)`` and validity ``valid_g (B, Hkv, W, bs)``;
+    table ranks ≥ ``counts`` (repeat-last padding) are masked out."""
+    b, hkv, g, d = qg.shape
+    w, bs, dv = vg.shape[2], vg.shape[3], vg.shape[4]
+    live = (torch.arange(w, device=qg.device)[None, None, :]
+            < counts[..., None])                       # (B, Hkv, W)
+    logits = torch.einsum("bkgd,bkwsd->bkgws", qg.float(), kg.float()) \
+        * (1.0 / d ** 0.5)
     ok = (keep_g.permute(0, 1, 3, 2)[..., None]        # (B, Hkv, G, W, 1)
           & valid_g[:, :, None]                        # (B, Hkv, 1, W, bs)
           & live[:, :, None, :, None])
@@ -120,7 +117,67 @@ def decode_plan_einsum_sliced(q, cache_k, cache_v, plan: DecodePlan, valid):
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     pv = (p / denom).to(vg.dtype).float().reshape(b, hkv, g, w, bs)
     out = torch.einsum("bkgws,bkwsd->bkgd", pv, vg.float())
-    return out.to(q.dtype).reshape(b, h, dv)
+    return out.to(out_dtype).reshape(b, hkv * g, dv)
+
+
+def _gather_plan_bits(plan: DecodePlan, valid, bs: int):
+    """The table's keep bits ``(B, Hkv, W, G)`` and slot validity
+    ``(B, Hkv, W, bs)``, gathered in logical block coordinates."""
+    b, hkv, nb, g = plan.keep_heads.shape
+    idx = plan.indices.long()
+    w = idx.shape[-1]
+    keep_g = torch.gather(plan.keep_heads, 2,
+                          idx[..., None].expand(b, hkv, w, g))
+    valid_b = valid.reshape(b, 1, nb, bs).expand(b, hkv, nb, bs)
+    valid_g = torch.gather(valid_b, 2, idx[..., None].expand(b, hkv, w, bs))
+    return keep_g, valid_g
+
+
+def decode_plan_einsum_sliced(q, cache_k, cache_v, plan: DecodePlan, valid):
+    """Gather only the plan's W table blocks (ranks ≥ counts masked) and
+    contract those; (B, H, Dv).  The kernel's plain version."""
+    b, h, d = q.shape
+    _, hkv, s, dv = cache_v.shape
+    nb = plan.keep_heads.shape[2]
+    bs = s // nb
+    idx = plan.indices.long()                          # (B, Hkv, W)
+    w = idx.shape[-1]
+    gidx = idx[..., None, None]
+    kg = torch.gather(cache_k.reshape(b, hkv, nb, bs, d), 2,
+                      gidx.expand(b, hkv, w, bs, d))
+    vg = torch.gather(cache_v.reshape(b, hkv, nb, bs, dv), 2,
+                      gidx.expand(b, hkv, w, bs, dv))
+    keep_g, valid_g = _gather_plan_bits(plan, valid, bs)
+    return _plan_einsum_sliced(q.reshape(b, hkv, h // hkv, d), kg, vg,
+                               keep_g, valid_g, plan.counts, q.dtype)
+
+
+def _check_launch(what: str, q, tensors) -> None:
+    """Device, dtype and contiguity rules every decode launch shares
+    (``tensors`` = the float operands after ``q``, then indices, counts,
+    keep bits, validity and any further int32 tables)."""
+    if not all(t.is_cuda and t.device == q.device for t in (q, *tensors)):
+        raise ValueError(f"{what} takes CUDA tensors on one device")
+    kv, (indices, counts, keep, valid, *tables) = tensors[:2], tensors[2:]
+    if not all(t.dtype == q.dtype for t in kv):
+        raise ValueError(f"{what}: q and cache dtypes differ")
+    if any(t.dtype != torch.int32 for t in (indices, counts, *tables)) \
+            or keep.dtype != torch.bool or valid.dtype != torch.bool:
+        raise ValueError(f"{what} takes int32 tables and bool keep / valid "
+                         "masks")
+    if not all(t.is_contiguous() for t in (q, *tensors)):
+        raise ValueError(f"{what} takes contiguous tensors")
+
+
+def _check_plan(what, b, hkv, g, s, indices, counts, keep_heads, valid):
+    nb, w = keep_heads.shape[2], indices.shape[-1]
+    if tuple(indices.shape) != (b, hkv, w) \
+            or tuple(counts.shape) != (b, hkv) \
+            or tuple(keep_heads.shape) != (b, hkv, nb, g) \
+            or tuple(valid.shape) != (b, s):
+        raise ValueError(f"{what}: plan / valid shapes do not match the "
+                         "cache")
+    return nb, w
 
 
 def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
@@ -135,29 +192,14 @@ def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
                          f"{tuple(cache_k.shape)} / {tuple(cache_v.shape)}")
     hkv, s = cache_k.shape[1], cache_k.shape[2]
     g = h // hkv
-    nb, w = keep_heads.shape[2], indices.shape[-1]
-    if tuple(indices.shape) != (b, hkv, w) \
-            or tuple(counts.shape) != (b, hkv) \
-            or tuple(keep_heads.shape) != (b, hkv, nb, g) \
-            or tuple(valid.shape) != (b, s):
-        raise ValueError("sparse decode: plan / valid shapes do not match "
-                         "the cache")
+    nb, w = _check_plan("sparse decode", b, hkv, g, s, indices, counts,
+                        keep_heads, valid)
     if s % nb or (s // nb) % 32 or g > 8 or d > 256:
         raise ValueError(f"sparse decode kernel needs a block size that is "
                          f"a multiple of 32, G <= 8 and D <= 256 "
                          f"(S={s}, NB={nb}, G={g}, D={d})")
-    tensors = (q, cache_k, cache_v, indices, counts, keep_heads, valid)
-    if not all(t.is_cuda and t.device == q.device for t in tensors):
-        raise ValueError("sparse decode kernel takes CUDA tensors on one "
-                         "device")
-    if not (q.dtype == cache_k.dtype == cache_v.dtype):
-        raise ValueError("sparse decode kernel: q and cache dtypes differ")
-    if indices.dtype != torch.int32 or counts.dtype != torch.int32 \
-            or keep_heads.dtype != torch.bool or valid.dtype != torch.bool:
-        raise ValueError("sparse decode kernel takes int32 tables and bool "
-                         "keep / valid masks")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("sparse decode kernel takes contiguous tensors")
+    _check_launch("sparse decode kernel", q,
+                  (cache_k, cache_v, indices, counts, keep_heads, valid))
     out = torch.empty_like(q)
     lib = _build.load("decode_attn")
     fn = lib.repro_decode_attn
@@ -201,3 +243,122 @@ def flash_decode_plan(q, cache_k, cache_v, plan: DecodePlan, valid, *,
     if plan.indices.shape[-1] < plan.keep_heads.shape[-2]:
         return decode_plan_einsum_sliced(q, cache_k, cache_v, plan, valid)
     return decode_plan_einsum(q, cache_k, cache_v, plan.keep_heads, valid)
+
+
+# ---------------------------------------------------------------------------
+# Block-paged variants: K/V live in a shared page pool, one page per block
+# ---------------------------------------------------------------------------
+
+def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
+    """Contiguous per-slot view of a page pool: pool ``(P, Hkv, ps, D)``,
+    page_table ``(B, NB)`` → ``(B, Hkv, NB·ps, D)``.  A pure gather, so any
+    contiguous attention path on the view reads exactly the page
+    contents."""
+    b, nb = page_table.shape
+    _, hkv, ps, d = pool.shape
+    g = pool[page_table.reshape(-1).long()].reshape(b, nb, hkv, ps, d)
+    return g.transpose(1, 2).reshape(b, hkv, nb * ps, d)
+
+
+def decode_plan_einsum_paged(q, pool_k, pool_v, page_table, keep_heads,
+                             valid):
+    """:func:`decode_plan_einsum` on the gathered pages (bitwise the
+    contiguous plain path on the same cache)."""
+    return decode_plan_einsum(q, gather_pages(pool_k, page_table),
+                              gather_pages(pool_v, page_table), keep_heads,
+                              valid)
+
+
+def decode_plan_einsum_sliced_paged(q, pool_k, pool_v, page_table,
+                                    plan: DecodePlan, valid):
+    """:func:`decode_plan_einsum_sliced` over the pool: the logical table is
+    translated through the page table (``page = page_table[b, indices[b,
+    h, w]]``) and only those W pages are gathered.  The paged kernel's
+    plain version; bitwise the contiguous one on gathered pages."""
+    b, h, d = q.shape
+    _, hkv, ps, dv = pool_v.shape
+    nb = page_table.shape[1]
+    idx = plan.indices.long()                          # (B, Hkv, W)
+    pages = torch.gather(page_table.long()[:, None, :].expand(b, hkv, nb),
+                         2, idx)                       # (B, Hkv, W)
+    heads = torch.arange(hkv, device=q.device)[None, :, None]
+    kg = pool_k[pages, heads]                          # (B, Hkv, W, ps, D)
+    vg = pool_v[pages, heads]
+    keep_g, valid_g = _gather_plan_bits(plan, valid, ps)
+    return _plan_einsum_sliced(q.reshape(b, hkv, h // hkv, d), kg, vg,
+                               keep_g, valid_g, plan.counts, q.dtype)
+
+
+def flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table, indices,
+                                   counts, keep_heads, valid) -> torch.Tensor:
+    """The paged instance of the kernel (``csrc/decode_attn.cu``) on CUDA
+    tensors; raises on what it does not take.  Page ids outside ``[0, P)``
+    are never read (their blocks are skipped).  Returns (B, H, D)."""
+    b, h, d = q.shape
+    if pool_k.shape != pool_v.shape or pool_k.dim() != 4 \
+            or pool_k.shape[3] != d or h % pool_k.shape[1] \
+            or page_table.dim() != 2 or page_table.shape[0] != b:
+        raise ValueError(f"paged sparse decode: q {tuple(q.shape)}, pool "
+                         f"{tuple(pool_k.shape)} / {tuple(pool_v.shape)}, "
+                         f"page table {tuple(page_table.shape)}")
+    p, hkv, ps = pool_k.shape[:3]
+    g = h // hkv
+    nb = page_table.shape[1]
+    _, w = _check_plan("paged sparse decode", b, hkv, g, nb * ps, indices,
+                       counts, keep_heads, valid)
+    if keep_heads.shape[2] != nb or ps % 32 or g > 8 or d > 256:
+        raise ValueError(f"paged sparse decode kernel needs NB table "
+                         f"blocks, a page size that is a multiple of 32, "
+                         f"G <= 8 and D <= 256 (NB={nb}, plan NB="
+                         f"{keep_heads.shape[2]}, ps={ps}, G={g}, D={d})")
+    _check_launch("paged sparse decode kernel", q,
+                  (pool_k, pool_v, indices, counts, keep_heads, valid,
+                   page_table))
+    out = torch.empty_like(q)
+    lib = _build.load("decode_attn")
+    fn = lib.repro_decode_attn_paged
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
+        + [ctypes.c_void_p]
+    code = fn(_build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v),
+              _build.ptr(page_table), _build.ptr(indices),
+              _build.ptr(counts), _build.ptr(keep_heads), _build.ptr(valid),
+              _build.ptr(out), _build.dtype_code(q), b, h, hkv, ps, d, nb,
+              w, p, _build.stream_of(q))
+    _build.check(code, "paged sparse decode kernel")
+    flash_decode_sparse_paged_cuda.launches += 1
+    return out
+
+
+flash_decode_sparse_paged_cuda.launches = 0
+
+
+def flash_decode_sparse_batched_paged(q, pool_k, pool_v, page_table,
+                                      indices, counts, keep_heads,
+                                      valid) -> torch.Tensor:
+    """The paged kernel for CUDA tensors, its plain version for CPU
+    tensors."""
+    if q.is_cuda:
+        return flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table,
+                                              indices, counts, keep_heads,
+                                              valid)
+    return decode_plan_einsum_sliced_paged(
+        q, pool_k, pool_v, page_table,
+        DecodePlan(indices, counts, keep_heads), valid)
+
+
+def flash_decode_plan_paged(q, pool_k, pool_v, page_table, plan: DecodePlan,
+                            valid, *, impl: str = "auto") -> torch.Tensor:
+    """Sparse decode over one layer's pool slice; (B, H, Dv).  Same
+    dispatch as :func:`flash_decode_plan`: ``kernel`` runs
+    :func:`flash_decode_sparse_batched_paged`; ``einsum`` gathers the
+    table's pages for ``W < NB`` and the whole page-table row otherwise."""
+    impl = resolve_decode_impl(impl, q.device)
+    if impl == "kernel":
+        return flash_decode_sparse_batched_paged(
+            q, pool_k, pool_v, page_table, plan.indices, plan.counts,
+            plan.keep_heads, valid)
+    if plan.indices.shape[-1] < plan.keep_heads.shape[-2]:
+        return decode_plan_einsum_sliced_paged(q, pool_k, pool_v,
+                                               page_table, plan, valid)
+    return decode_plan_einsum_paged(q, pool_k, pool_v, page_table,
+                                    plan.keep_heads, valid)

@@ -5,6 +5,7 @@
     params = model.init(torch.Generator("cuda").manual_seed(0))
     result = model.prefill(params, tokens, sp, method="share")
     logits, cache = model.decode(params, token, cache, pos, plan=plan)
+    # the slot scheduler: per-slot pos (B,), and page_table= for the pool
 
 ``build_model`` runs on CUDA unless the caller passes ``device="cpu"``; with
 no device and no GPU it raises rather than run quietly on the CPU.
@@ -50,17 +51,21 @@ class Model:
                                    attn_width=attn_width,
                                    prompt_lens=prompt_lens)
 
-    def decode(self, params, token, cache, pos: int, *, plan=None,
-               prompt_lens=None, prefill_len: int = 0,
-               decode_impl: str = "auto"):
+    def decode(self, params, token, cache, pos, *, plan=None,
+               prompt_lens=None, prefill_len=0, decode_impl: str = "auto",
+               page_table=None):
         return transformer.decode_step(params, self.cfg, token, cache, pos,
                                        plan=plan, prompt_lens=prompt_lens,
                                        prefill_len=prefill_len,
-                                       decode_impl=decode_impl)
+                                       decode_impl=decode_impl,
+                                       page_table=page_table)
 
-    def init_cache(self, batch: int, cache_len: int):
+    def init_cache(self, batch: int, cache_len: int, *, dtype=None):
+        """Zeroed contiguous cache in ``dtype`` (default: the model's); the
+        slot scheduler passes its prefill cache's dtype."""
         return transformer.init_cache(self.cfg, batch, cache_len,
-                                      dtype=self.dtype, device=self.device)
+                                      dtype=dtype or self.dtype,
+                                      device=self.device)
 
     def default_share_prefill(self) -> SharePrefill:
         """Trivial clustering (per-head clusters) until an offline artifact

@@ -23,7 +23,8 @@ from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
 from repro_torch.kernels import batched_sparse_attention_fn, expand_kv
 from repro_torch.kernels.chunked import chunked_attention
-from repro_torch.kernels.decode_attn import DecodePlan, flash_decode_plan
+from repro_torch.kernels.decode_attn import (
+    DecodePlan, flash_decode_plan, flash_decode_plan_paged, gather_pages)
 from repro_torch.models import common
 
 PREFILL_METHODS = ("dense", "share")
@@ -104,46 +105,73 @@ def attention_prefill(
     return common.gqa_out(params, out), (k, v), new_state, stats
 
 
+def row_positions(pos, b: int, device) -> torch.Tensor:
+    """``pos`` (an int, a 0-d or a (B,) tensor) as a (B, 1) column."""
+    p = torch.as_tensor(pos, device=device)
+    return (p[:, None] if p.dim() else p.expand(b, 1)).long()
+
+
 def attention_decode(
     params,
     x: torch.Tensor,                    # (B, 1, d)
     cfg: ModelConfig,
     cache_k: torch.Tensor,              # (B, Hkv, S, hd), written in place
     cache_v: torch.Tensor,
-    pos: int,                           # cache write index (lockstep)
+    pos,                                # int, or (B,) per-slot write index
     positions: torch.Tensor,            # (B, 1) rope positions
     *,
     valid_mask: Optional[torch.Tensor] = None,   # (B, S) slot validity
     plan: Optional[DecodePlan] = None,  # this layer's sparse-decode tables
     decode_impl: str = "auto",
+    page_table: Optional[torch.Tensor] = None,   # (B, NB) int32
 ) -> torch.Tensor:
     """One decode step; returns ``(B, 1, d)``.
 
-    The new token's K/V are written into ``cache_k``/``cache_v`` at ``pos``
-    in place (the reference returns an updated copy; writing in place saves
-    copying the whole cache every step).  ``valid_mask`` marks the visible
-    slots (length ∧ not right-pad); without it every slot ≤ ``pos`` is
+    ``pos`` is the cache write index: an int for the lockstep batch path,
+    or a ``(B,)`` tensor for the slot scheduler, where each row writes and
+    masks at its own position.  The new token's K/V are written in place
+    (the reference returns an updated copy; writing in place saves copying
+    the whole cache every step).  ``valid_mask`` marks the visible slots
+    (length ∧ not right-pad); without it every slot ≤ ``pos`` of the row is
     visible.  With ``plan`` the step streams only the plan's blocks through
-    :func:`repro_torch.kernels.decode_attn.flash_decode_plan`; without it the
-    step attends densely (plain PyTorch)."""
+    :func:`repro_torch.kernels.decode_attn.flash_decode_plan`; without it
+    the step attends densely (plain PyTorch).
+
+    ``page_table`` switches to the block-paged pool: ``cache_k``/``cache_v``
+    are then one layer's ``(P, Hkv, page_size, hd)`` pool slice and ``pos``
+    must be the per-slot vector (see :func:`_attention_decode_paged`)."""
     b = x.shape[0]
     q, k, v = common.gqa_qkv(params, x)
     q, k = rope_qk(q, k, positions, cfg)
-    cache_k[:, :, pos] = k[:, :, 0]
-    cache_v[:, :, pos] = v[:, :, 0]
+    if page_table is not None:
+        return _attention_decode_paged(
+            params, q, k, v, cache_k, cache_v, pos, page_table,
+            valid_mask=valid_mask, plan=plan, decode_impl=decode_impl)
+    if isinstance(pos, torch.Tensor) and pos.dim():
+        rows = torch.arange(b, device=x.device)    # per-row writes
+        cache_k[rows, :, pos] = k[:, :, 0]
+        cache_v[rows, :, pos] = v[:, :, 0]
+    else:
+        cache_k[:, :, pos] = k[:, :, 0]
+        cache_v[:, :, pos] = v[:, :, 0]
     s = cache_k.shape[2]
     if valid_mask is None:
-        mask = (torch.arange(s, device=x.device) <= pos).expand(b, s)
+        mask = (torch.arange(s, device=x.device)[None, :]
+                <= row_positions(pos, b, x.device))
     else:
         mask = valid_mask
-    hkv, hd = cache_k.shape[1], q.shape[-1]
-    g = q.shape[1] // hkv
-
     if plan is not None:
         out = flash_decode_plan(q[:, :, 0].contiguous(), cache_k, cache_v,
                                 plan, mask.contiguous(), impl=decode_impl)
         return common.gqa_out(params, out[:, :, None, :])
+    return _dense_decode(params, q, cache_k, cache_v, mask)
 
+
+def _dense_decode(params, q, cache_k, cache_v, mask) -> torch.Tensor:
+    """Grouped masked-softmax decode over a contiguous cache (plain)."""
+    b, h, _, hd = q.shape
+    hkv = cache_k.shape[1]
+    g = h // hkv
     qg = q[:, :, 0].reshape(b, hkv, g, hd).float()
     logits = torch.einsum("bkgd,bksd->bkgs", qg, cache_k.float())
     logits = logits * (1.0 / hd ** 0.5)
@@ -151,5 +179,37 @@ def attention_decode(
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p.to(cache_v.dtype).float(),
                        cache_v.float())
-    out = out.to(x.dtype).reshape(b, hkv * g, 1, hd)
+    out = out.to(q.dtype).reshape(b, h, 1, hd)
     return common.gqa_out(params, out)
+
+
+def _attention_decode_paged(params, q, k, v, pool_k, pool_v, pos,
+                            page_table, *, valid_mask, plan, decode_impl):
+    """Block-paged half of :func:`attention_decode` (after QKV and rope).
+
+    The append is a sliver scatter: row b's K/V land at ``pool[page_table[b,
+    pos // ps], :, pos % ps]`` and nothing else in the pool changes.
+    Attention then reads the pool through the page table — the paged kernel
+    with a plan, the gathered contiguous view without — with masks and
+    tables in *logical* coordinates over ``NB · page_size`` slots."""
+    if not (isinstance(pos, torch.Tensor) and pos.dim()):
+        raise ValueError("paged decode requires per-slot (vector) pos")
+    b = q.shape[0]
+    ps = pool_k.shape[2]
+    sv = page_table.shape[1] * ps
+    rows = torch.arange(b, device=q.device)
+    pg = page_table[rows, pos // ps].long()
+    within = pos % ps
+    pool_k[pg, :, within] = k[:, :, 0].to(pool_k.dtype)
+    pool_v[pg, :, within] = v[:, :, 0].to(pool_v.dtype)
+    if valid_mask is None:
+        mask = torch.arange(sv, device=q.device)[None, :] <= pos[:, None]
+    else:
+        mask = valid_mask
+    if plan is not None:
+        out = flash_decode_plan_paged(
+            q[:, :, 0].contiguous(), pool_k, pool_v, page_table, plan,
+            mask.contiguous(), impl=decode_impl)
+        return common.gqa_out(params, out[:, :, None, :])
+    return _dense_decode(params, q, gather_pages(pool_k, page_table),
+                         gather_pages(pool_v, page_table), mask)

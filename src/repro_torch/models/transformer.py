@@ -85,39 +85,55 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
                          attn.AttnStats.reduce_layers(stats), sp_state)
 
 
-def decode_valid_mask(cache_len: int, pos: int, prompt_lens: torch.Tensor,
-                      prefill_len: int) -> torch.Tensor:
+def decode_valid_mask(cache_len: int, pos, prompt_lens: torch.Tensor,
+                      prefill_len) -> torch.Tensor:
     """(B, S) slot validity: written (≤ pos) and not right-pad of a shorter
-    prompt (pad slots are ``[prompt_len, prefill_len)``)."""
-    slots = torch.arange(cache_len, device=prompt_lens.device)[None, :]
-    return (slots <= pos) & ((slots < prompt_lens[:, None])
-                             | (slots >= prefill_len))
+    prompt (pad slots are ``[prompt_len, prefill_len)``).  ``pos`` and
+    ``prefill_len`` are ints (lockstep) or per-row (B,) tensors (the slot
+    scheduler, where buckets and positions differ per slot)."""
+    b, dev = prompt_lens.shape[0], prompt_lens.device
+    slots = torch.arange(cache_len, device=dev)[None, :]
+    return ((slots <= attn.row_positions(pos, b, dev))
+            & ((slots < prompt_lens[:, None])
+               | (slots >= attn.row_positions(prefill_len, b, dev))))
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
-                cache: Cache, pos: int, *,
+                cache: Cache, pos, *,
                 plan: Optional[DecodePlan] = None,     # (L, B, …) leaves
                 prompt_lens: Optional[torch.Tensor] = None,   # (B,)
-                prefill_len: int = 0,
+                prefill_len=0,
                 decode_impl: str = "auto",
+                page_table: Optional[torch.Tensor] = None,    # (B, NB)
                 ) -> Tuple[torch.Tensor, Cache]:
-    """One lockstep decode step: token (B, 1) at cache slot ``pos`` →
-    logits (B, V).  The cache is updated in place and returned."""
+    """One decode step: token (B, 1) → logits (B, V).
+
+    ``pos`` is the lockstep write index (an int) or a ``(B,)`` tensor of
+    per-slot positions, which then also give each row its rope position;
+    ``prefill_len`` is an int or a ``(B,)`` tensor of per-slot prefill
+    lengths (slots of different buckets under paging).  ``page_table``
+    switches the cache to the block-paged pools ``(L, P, Hkv, ps, hd)``,
+    read and appended through the table; the logical cache length is then
+    ``page_table.shape[1] · ps``.  The cache is updated in place and
+    returned."""
     b = token.shape[0]
     cache_k, cache_v = cache
-    positions = torch.full((b, 1), pos, dtype=torch.int64,
-                           device=token.device)
+    if page_table is not None and not (isinstance(pos, torch.Tensor)
+                                       and pos.dim()):
+        raise ValueError("paged decode requires per-slot (vector) pos")
+    positions = attn.row_positions(pos, b, token.device)
     x = params["embed"][token]
     valid = None
     if prompt_lens is not None:
-        valid = decode_valid_mask(cache_k.shape[3], pos, prompt_lens,
-                                  prefill_len)
+        s = (page_table.shape[1] * cache_k.shape[3] if page_table is not None
+             else cache_k.shape[3])
+        valid = decode_valid_mask(s, pos, prompt_lens, prefill_len)
     for li, layer in enumerate(params["layers"]):
         h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
         a = attn.attention_decode(
             layer["attn"], h, cfg, cache_k[li], cache_v[li], pos, positions,
             valid_mask=valid, plan=None if plan is None else plan.layer(li),
-            decode_impl=decode_impl)
+            decode_impl=decode_impl, page_table=page_table)
         x = _ffn_block(layer, x + a, cfg)
     return logits_from_hidden(params, cfg, x[:, -1, :]), cache
 

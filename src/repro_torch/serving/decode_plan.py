@@ -1,10 +1,20 @@
 """Build-once block tables for sparse decode (port of
-``repro/serving/decode_plan.py::build_decode_plan`` and its plan counters).
+``repro/serving/decode_plan.py``: ``build_decode_plan``, the plan counters
+and the slot scheduler's row helpers).
 
 The tables cover the *grown* cache (prefill bucket + decode headroom):
 blocks past the prefill region form a dense recent tail every head keeps, so
 post-prefill tokens are always visible and the plan serves every decode step
-of the batch without a rebuild.
+without a rebuild.
+
+Under the slot scheduler the plan's batch axis is a set of slots: it starts
+as :func:`empty_decode_plan` (inert slots stream nothing and output zeros),
+and each admission splices its own single-row plan in with
+:func:`update_plan_slot` — padded first to the shared table width with
+:func:`pad_plan_row` when buckets mix under paging.  An admission without a
+pattern dictionary gets the all-keep :func:`dense_decode_plan` row.  The
+mesh variants (``_sharded``/``_auto``) are the single-device call here
+(ROADMAP.md A.12).
 """
 from __future__ import annotations
 
@@ -48,6 +58,92 @@ def build_decode_plan(sp: SharePrefill, sp_state, cfg: ModelConfig, *,
     indices, counts = compact_block_mask(union, width=width)
     keep_heads = kh.movedim(3, -1).contiguous()   # (L, B, Hkv, NB, G)
     return DecodePlan(indices.contiguous(), counts.contiguous(), keep_heads)
+
+
+def _slot_shape(cfg: ModelConfig, batch: int, cache_len: int,
+                block_size: int):
+    if cache_len % block_size:
+        raise ValueError(f"cache_len {cache_len} must be a multiple of the "
+                         f"pattern block size {block_size}")
+    hkv = max(cfg.num_kv_heads, 1)
+    return ((cfg.num_layers, batch, hkv), cache_len // block_size,
+            cfg.num_heads // hkv)
+
+
+def empty_decode_plan(cfg: ModelConfig, *, batch: int, cache_len: int,
+                      block_size: int, device=None) -> DecodePlan:
+    """All-masked slot plan, the scheduler's initial decode state: zero
+    counts and no keep bits, so an unoccupied slot streams nothing and
+    outputs zeros.  W == NB, the width :func:`build_decode_plan` gives."""
+    shape, nb, g = _slot_shape(cfg, batch, cache_len, block_size)
+    return DecodePlan(
+        torch.zeros(shape + (nb,), dtype=torch.int32, device=device),
+        torch.zeros(shape, dtype=torch.int32, device=device),
+        torch.zeros(shape + (nb, g), dtype=torch.bool, device=device))
+
+
+def dense_decode_plan(cfg: ModelConfig, *, cache_len: int, block_size: int,
+                      device=None) -> DecodePlan:
+    """Single-row all-keep plan: the per-request dense fallback for an
+    admission whose prefill gave no pattern dictionary."""
+    shape, nb, g = _slot_shape(cfg, 1, cache_len, block_size)
+    idx = torch.arange(nb, dtype=torch.int32, device=device)
+    return DecodePlan(
+        idx.expand(shape + (nb,)).contiguous(),
+        torch.full(shape, nb, dtype=torch.int32, device=device),
+        torch.ones(shape + (nb, g), dtype=torch.bool, device=device))
+
+
+def update_plan_slot(plan: DecodePlan, new: DecodePlan,
+                     slot: int) -> DecodePlan:
+    """Replace batch row ``slot`` of every leaf with the single-row plan
+    ``new``, in place (the reference returns a copy); the other slots'
+    tables are untouched."""
+    if new.indices.shape[-1] != plan.indices.shape[-1]:
+        raise ValueError(
+            f"plan width mismatch: slot plan W={new.indices.shape[-1]} vs "
+            f"batch plan W={plan.indices.shape[-1]} (same prefill_len / "
+            f"cache_len / width required)")
+    for dst, src in zip(plan, new):
+        dst[:, slot] = src[:, 0].to(dst.dtype)
+    return plan
+
+
+def pad_plan_row(plan: DecodePlan, nb_target: int) -> DecodePlan:
+    """Widen a plan built at a shorter cache to ``nb_target`` blocks without
+    changing what it streams: ``indices`` repeat each row's last entry,
+    keep bits pad False, ``counts`` stay — the padded blocks are never
+    streamed, so a slot's table never reaches pages it does not hold."""
+    w, nb = plan.indices.shape[-1], plan.keep_heads.shape[-2]
+    if nb_target < w or nb_target < nb:
+        raise ValueError(f"cannot narrow plan (W={w}, NB={nb}) "
+                         f"to {nb_target}")
+    idx = plan.indices
+    if nb_target > w:
+        idx = torch.cat([idx, idx[..., -1:].expand(
+            idx.shape[:-1] + (nb_target - w,))], dim=-1)
+    keep = plan.keep_heads
+    if nb_target > nb:
+        keep = torch.cat([keep, keep.new_zeros(
+            keep.shape[:-2] + (nb_target - nb, keep.shape[-1]))], dim=-2)
+    return DecodePlan(idx.contiguous(), plan.counts, keep.contiguous())
+
+
+def plan_row_tail_stats(row: DecodePlan, *, prefill_blocks: int,
+                        num_blocks: Optional[int] = None
+                        ) -> Tuple[float, float]:
+    """``(tail_fraction, traffic_fraction)`` of one slot's plan row: the
+    share of its streamed blocks at or past ``prefill_blocks`` (the dense
+    decode tail), and its streamed-block fraction against ``num_blocks``
+    (default: the row's own NB)."""
+    w = row.indices.shape[-1]
+    live = (torch.arange(w, device=row.counts.device)
+            < row.counts[..., None])
+    in_tail = live & (row.indices >= prefill_blocks)
+    streamed = max(int(row.counts.sum()), 1)
+    nb = num_blocks if num_blocks else row.keep_heads.shape[-2]
+    traffic = float(row.counts.float().mean()) / nb
+    return int(in_tail.sum()) / streamed, traffic
 
 
 def plan_traffic_fraction(plan: DecodePlan) -> float:

@@ -1,22 +1,32 @@
-"""Serving engine, batch-at-a-time path (port of the ``scheduler=False``
-path of ``repro/serving/engine.py``).
+"""Serving engine (port of ``repro/serving/engine.py``): the batch path and
+the continuous-batching slot scheduler.
 
-Requests are grouped by sequence bucket and served ``max_batch`` at a time:
-prompts are left-aligned and right-padded to the bucket, the padded batch is
-prefilled once (SharePrefill sparse prefill with ``method="share"``), and the
-batch then decodes in lockstep until every row has its tokens or a stop
-token.  Per-request prompt lengths are threaded into prefill (each row's
-first token comes from its own last prompt token) and into every decode step
-as slot validity (right-pad K/V is never attended).
+``scheduler=False`` (the default) serves batch-at-a-time: requests are
+grouped by sequence bucket and served ``max_batch`` at a time; prompts are
+left-aligned and right-padded to the bucket, the padded batch is prefilled
+once (SharePrefill sparse prefill with ``method="share"``), and the batch
+then decodes in lockstep until every row has its tokens or a stop token.
+Per-request prompt lengths are threaded into prefill (each row's first
+token comes from its own last prompt token) and into every decode step as
+slot validity (right-pad K/V is never attended).  With
+``decode_sparse=True`` the prefill pattern dictionaries are compiled into a
+:class:`~repro_torch.kernels.decode_attn.DecodePlan` once per batch, and
+every decode step streams only the plan's blocks.
 
-With ``decode_sparse=True`` the prefill pattern dictionaries are compiled
-into a :class:`~repro_torch.kernels.decode_attn.DecodePlan` once per batch,
-over the grown cache (``seq + extra``; the headroom is a block multiple so
-the tables tile it), and every decode step streams only the plan's blocks.
+``scheduler=True`` serves each bucket through a
+:class:`~repro_torch.serving.scheduler.SlotScheduler`: ``max_batch`` slots
+decode at their own positions, a finished slot is refilled during the serve
+(its prefill K/V inserted with :meth:`ServingEngine.cache_insert`, its plan
+row spliced), and ``paged=True`` replaces the per-bucket contiguous caches
+by one block-paged pool, so ONE scheduler serves every bucket and admission
+waits on pool headroom.  Requests are validated first
+(:meth:`ServingEngine.validate_request`); a malformed one finishes
+``rejected`` with its :class:`~repro_torch.serving.errors.RequestError`.
 
-The slot scheduler, the paged cache, chunked prefill, prefix sharing, plan
-refresh and the ``auto``/``count`` width policies are not ported yet; asking
-for them raises ``NotImplementedError`` naming the ROADMAP.md item.
+Chunked admission, prefill packing, prefix sharing, plan refresh,
+preemption, deadlines, cancellation, fault injection and the
+``auto``/``count`` width policies are not ported yet; asking for them
+raises ``NotImplementedError`` naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -30,10 +40,34 @@ import torch
 
 from repro_torch.core.api import SharePrefill
 from repro_torch.models.api import Model
+from repro_torch.serving import cache_ops
 from repro_torch.serving import decode_plan as dplan
+from repro_torch.serving.errors import RequestError
 from repro_torch.serving.sampling import SamplingConfig, sample_token
+from repro_torch.serving.scheduler import SlotScheduler
 
 logger = logging.getLogger(__name__)
+
+
+def _refuse_unported(obj, table) -> None:
+    """Raise for a field of ``table`` set away from its default."""
+    for name, (default, item) in table.items():
+        if getattr(obj, name) != default:
+            raise NotImplementedError(
+                f"{type(obj).__name__}.{name}={getattr(obj, name)!r}: not "
+                f"ported yet (ROADMAP.md queue {item})")
+
+
+# Request fields of the reference that are not ported yet: a value other
+# than the default raises, naming the ROADMAP.md item that ports it
+_REQUEST_NOT_PORTED = {
+    "deadline_s": (0.0, "A.9 (deadlines)"),
+    "priority": (0, "A.9 (preemption)"),
+    "preempted_count": (0, "A.9 (preemption)"),
+    "prefix_hit": (False, "A.9 (prefix sharing)"),
+    "refreshes": (0, "A.9 (pattern refresh)"),
+    "resume_tokens": ([], "A.9 (preemption)"),
+}
 
 
 @dataclasses.dataclass
@@ -44,34 +78,70 @@ class Request:
     sampling: SamplingConfig = dataclasses.field(
         default_factory=SamplingConfig)
     arrival_s: float = 0.0              # arrival offset from serve() start
+                                        # (the scheduler admits after it)
+    deadline_s: float = 0.0
+    priority: int = 0
+    allow_truncation: bool = True       # False: a prompt longer than the
+                                        # largest bucket is rejected
     # filled by the engine:
     output_tokens: Optional[np.ndarray] = None
-    prefill_s: float = 0.0              # the batch's prefill wall time
-    decode_s: float = 0.0               # first token → this row's last token
+    prefill_s: float = 0.0              # this request's (or its batch's)
+                                        # prefill wall time
+    decode_s: float = 0.0               # first token → last token
     queue_s: float = 0.0                # arrival → prefill start
     ttft_s: float = 0.0                 # arrival → first token
     decode_tokens_per_s: float = 0.0    # (n_tokens − 1) / decode_s
+    prefill_stall_s: float = 0.0        # decode wall time other slots lost
+                                        # to this request's admission
     truncated: bool = False             # prompt clipped to the largest bucket
-    finish_reason: str = ""             # "stop" | "length"
-    state: str = "waiting"              # waiting | done
+    finish_reason: str = ""             # "stop" | "length" | "failed" |
+                                        # "rejected"
+    state: str = "waiting"              # waiting | prefilling | decode |
+                                        # done | failed
+    error: Optional[Exception] = None   # the RequestError behind "failed"
+                                        # or "rejected"
+    waiting_deferred_steps: int = 0     # scheduler steps this request's
+                                        # admission waited on pool headroom
+    preempted_count: int = 0
+    prefix_hit: bool = False
+    tail_fraction: float = 0.0          # share of its plan row's streamed
+                                        # blocks in the dense decode tail
+    plan_traffic_fraction: float = 0.0  # its plan row's streamed-block
+                                        # fraction against dense
+    refreshes: int = 0
+    resume_tokens: List[int] = dataclasses.field(default_factory=list)
     pattern_stats: Optional[Dict[str, float]] = None
+
+    def __post_init__(self):
+        _refuse_unported(self, _REQUEST_NOT_PORTED)
 
     def metrics(self) -> Dict[str, float]:
         return {"queue_s": self.queue_s, "ttft_s": self.ttft_s,
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
-                "decode_tokens_per_s": self.decode_tokens_per_s}
+                "decode_tokens_per_s": self.decode_tokens_per_s,
+                "prefill_stall_s": self.prefill_stall_s,
+                "waiting_deferred_steps": self.waiting_deferred_steps,
+                "tail_fraction": self.tail_fraction,
+                "plan_traffic_fraction": self.plan_traffic_fraction}
 
 
 # EngineConfig fields of the reference that are not ported yet: a value
 # other than the default raises, naming the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "scheduler": (False, "A.7 (slot scheduler)"),
-    "paged": (False, "A.7 (paged cache)"),
     "prefill_chunk": (0, "A.8 (chunked prefill)"),
     "prefill_pack": (1, "A.8 (prefill packing)"),
+    "preempt_after_steps": (0, "A.9 (preemption)"),
     "prefix_sharing": (False, "A.9 (prefix sharing)"),
+    "prefix_max_entries": (32, "A.9 (prefix sharing)"),
     "refresh_every": (0, "A.9 (pattern refresh)"),
+    "refresh_mass": (0.95, "A.9 (pattern refresh)"),
+    "refresh_tail_threshold": (0.0, "A.9 (pattern refresh)"),
+    "refresh_min_width": (1, "A.9 (pattern refresh)"),
+    "refresh_horizon_blocks": (0, "A.9 (pattern refresh)"),
+    "refresh_strip_impl": ("auto", "A.9 (pattern refresh)"),
     "width_policy": ("off", "A.5 (width policies)"),
+    "width_percentile": (95.0, "A.5 (width policies)"),
+    "width_safety": (1.25, "A.5 (width policies)"),
 }
 
 
@@ -86,19 +156,27 @@ class EngineConfig:
     decode_impl: str = "auto"           # auto | kernel | einsum
     prefill_width: Optional[int] = None  # static per-row block budget W
     width_policy: str = "off"
-    scheduler: bool = False
-    paged: bool = False
+    width_percentile: float = 95.0
+    width_safety: float = 1.25
+    scheduler: bool = False             # continuous batching over slots
     prefill_chunk: int = 0
     prefill_pack: int = 1
+    paged: bool = False                 # one block-paged pool, one
+                                        # scheduler for every bucket
+    num_pages: int = 0                  # pool pages incl. the null page;
+                                        # 0 = enough for max_batch slots
+    preempt_after_steps: int = 0
     prefix_sharing: bool = False
+    prefix_max_entries: int = 32
     refresh_every: int = 0
+    refresh_mass: float = 0.95
+    refresh_tail_threshold: float = 0.0
+    refresh_min_width: int = 1
+    refresh_horizon_blocks: int = 0
+    refresh_strip_impl: str = "auto"
 
     def __post_init__(self):
-        for name, (default, item) in _NOT_PORTED.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"EngineConfig.{name}={getattr(self, name)!r}: not ported "
-                    f"yet (ROADMAP.md queue {item})")
+        _refuse_unported(self, _NOT_PORTED)
 
 
 class ServingEngine:
@@ -111,6 +189,25 @@ class ServingEngine:
         self.sp = sp
         self.ecfg = ecfg
         self.device = model.device
+        self._reset_counters()
+
+    def _reset_counters(self) -> None:
+        """Per-serve accounting: decode slot capacity and the slots that
+        emitted a token (both paths), the scheduler's wall time by phase,
+        admissions deferred on pool headroom, and the paged pool's
+        end-of-serve summary."""
+        self.slot_steps = 0
+        self.active_slot_steps = 0
+        self.phase_s: Dict[str, float] = {"prefill": 0.0, "decode": 0.0,
+                                          "idle": 0.0}
+        self.pages_exhausted_steps = 0
+        self.page_pool_stats: Dict[str, float] = {}
+
+    def slot_occupancy(self) -> float:
+        """Mean fraction of decode slot capacity that emitted a token
+        during the last :meth:`serve`."""
+        return (self.active_slot_steps / self.slot_steps
+                if self.slot_steps else 0.0)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -122,28 +219,114 @@ class ServingEngine:
                 return b
         return self.ecfg.seq_buckets[-1]
 
-    def serve(self, requests: List[Request], *,
-              seed: int = 0) -> List[Request]:
-        """Serve ``requests`` grouped by bucket, ``max_batch`` at a time."""
-        t0 = time.time()
-        groups: Dict[int, List[Request]] = {}
+    def validate_request(self, r: Request) -> None:
+        """Raise :class:`RequestError` for a malformed request: an empty,
+        non-1-D or non-integer prompt, a negative ``max_new_tokens`` (0 is
+        prefill-only), a prompt longer than the largest bucket with
+        ``allow_truncation=False``, or stop tokens that are not
+        non-negative ints."""
+        p = np.asarray(r.prompt)
+        if p.ndim != 1 or p.size == 0:
+            raise RequestError(
+                r.uid, f"prompt must be a non-empty 1-D token array "
+                f"(got shape {p.shape})")
+        if not np.issubdtype(p.dtype, np.integer):
+            raise RequestError(
+                r.uid, f"prompt dtype {p.dtype} is not an integer type")
+        if r.max_new_tokens < 0:
+            raise RequestError(
+                r.uid, f"max_new_tokens={r.max_new_tokens} is negative "
+                "(0 means prefill-only)")
+        top = max(self.ecfg.seq_buckets)
+        if p.size > top and not r.allow_truncation:
+            raise RequestError(
+                r.uid, f"prompt of {p.size} tokens exceeds the largest "
+                f"bucket ({top}) and allow_truncation=False")
+        try:
+            bad = [t for t in r.sampling.stop_tokens
+                   if not (isinstance(t, (int, np.integer))
+                           and not isinstance(t, bool) and int(t) >= 0)]
+        except TypeError:
+            raise RequestError(
+                r.uid, f"stop_tokens {r.sampling.stop_tokens!r} is not "
+                "iterable") from None
+        if bad:
+            raise RequestError(
+                r.uid, f"malformed stop_tokens {r.sampling.stop_tokens!r}: "
+                "entries must be non-negative integers")
+
+    def _validate_all(self, requests: List[Request]) -> List[Request]:
+        """Malformed requests finish ``rejected`` (empty output, the error
+        attached); the rest are returned for scheduling."""
+        live = []
         for r in requests:
+            try:
+                self.validate_request(r)
+            except RequestError as e:
+                r.error = e
+                r.finish_reason = "rejected"
+                r.state = "failed"
+                r.output_tokens = np.zeros((0,), np.int32)
+                logger.warning("rejected: %s", e)
+            else:
+                live.append(r)
+        return live
+
+    def serve(self, requests: List[Request], *, seed: int = 0,
+              handle=None, faults=None) -> List[Request]:
+        """Serve ``requests``: batch-at-a-time per bucket, through one
+        slot scheduler per bucket (``scheduler=True``), or through one
+        paged scheduler for all buckets (``paged=True``)."""
+        if handle is not None or faults is not None:
+            raise NotImplementedError(
+                "serve(handle=, faults=): cancellation and fault injection "
+                "are not ported yet (ROADMAP.md queue A.9)")
+        t0 = time.time()
+        self._reset_counters()
+        live = self._validate_all(requests)
+        use_sched = ((self.ecfg.scheduler or self.ecfg.paged)
+                     and self._supports_scheduler())
+        if self.ecfg.paged and use_sched:
+            if live:
+                seq = max(self._bucket(len(r.prompt)) for r in live)
+                SlotScheduler(self, live, seq, seed=seed, t0=t0,
+                              paged=True).run()
+            return requests
+        groups: Dict[int, List[Request]] = {}
+        for r in live:
             groups.setdefault(self._bucket(len(r.prompt)), []).append(r)
         for seq, grp in groups.items():
+            if use_sched:
+                SlotScheduler(self, grp, seq, seed=seed, t0=t0).run()
+                continue
             for i in range(0, len(grp), self.ecfg.max_batch):
                 self._serve_batch(grp[i: i + self.ecfg.max_batch], seq,
                                   seed, t0=t0)
         return requests
 
+    def _supports_scheduler(self) -> bool:
+        """Per-slot decode needs the GQA cache (per-row writes and
+        validity); MLA latent caches keep the batch path."""
+        return (self.model.cfg.family in ("dense", "vlm", "moe")
+                and not self.model.cfg.mla.enabled)
+
+    _supports_sparse_decode = _supports_scheduler
+
     @staticmethod
     def grow_cache(cache, old_len: int, extra: int):
         """Grow the stacked ``(L, B, Hkv, S, hd)`` K/V by ``extra`` zero
         slots on the sequence axis (one copy per batch)."""
-        def grow(x):
-            out = x.new_zeros(x.shape[:3] + (old_len + extra,) + x.shape[4:])
-            out[:, :, :, :old_len] = x
-            return out
-        return tuple(grow(x) for x in cache)
+        return tuple(cache_ops.grow_leaf(x, old_len, extra) for x in cache)
+
+    @staticmethod
+    def cache_insert(cache, new, slot: int):
+        """Write one freshly prefilled request's K/V (``(L, 1, Hkv, S,
+        hd)``) into row ``slot`` of the running ``(L, B, Hkv, S', hd)``
+        cache, at sequence offset 0 and in place.  The slot's decode tail
+        keeps what the previous occupant wrote; validity masks it."""
+        for dst, src in zip(cache, new):
+            cache_ops.write_slot(dst, src, {1: slot})
+        return cache
 
     def _pad_prompt(self, r: Request, seq: int, row: np.ndarray) -> int:
         """Left-align one prompt into ``row``; flag and warn on clipping.
@@ -172,6 +355,27 @@ class ServingEngine:
             toks[rows] = t.cpu().numpy()
         return toks
 
+    def _record_prefill_stats(self, result, width: Optional[int]
+                              ) -> Dict[str, float]:
+        """Pattern stats of one prefill (both serving paths)."""
+        st = result.stats
+        return {"num_shared": float(st.num_shared),
+                "num_dense": float(st.num_dense),
+                "num_vs": float(st.num_vs),
+                "block_density": float(st.block_density),
+                "max_row_pop": float(st.max_row_pop),
+                "prefill_width_cap": 0 if width is None else int(width)}
+
+    @staticmethod
+    def _plan_stats(plan, cache_len: int) -> Dict[str, float]:
+        """Modeled sparse-decode traffic counters of a built DecodePlan."""
+        total, streamed = dplan.plan_block_counts(plan)
+        return {"decode_traffic_fraction": dplan.plan_traffic_fraction(plan),
+                "decode_blocks_total": float(total),
+                "decode_blocks_computed": float(streamed),
+                "decode_blocks_skipped": float(total - streamed),
+                "decode_cache_len": float(cache_len)}
+
     @staticmethod
     def _decode_rate(n_tokens: int, decode_s: float) -> float:
         return ((n_tokens - 1) / decode_s
@@ -196,14 +400,7 @@ class ServingEngine:
             attn_width=width, prompt_lens=plens)
         self._sync()
         prefill_s = time.time() - tp
-
-        st = result.stats
-        stats = {"num_shared": float(st.num_shared),
-                 "num_dense": float(st.num_dense),
-                 "num_vs": float(st.num_vs),
-                 "block_density": float(st.block_density),
-                 "max_row_pop": float(st.max_row_pop),
-                 "prefill_width_cap": 0 if width is None else int(width)}
+        stats = self._record_prefill_stats(result, width)
 
         max_new = max(r.max_new_tokens for r in grp)
         extra = max(max_new, self.ecfg.decode_extra)
@@ -214,20 +411,15 @@ class ServingEngine:
         cache = self.grow_cache(result.cache, seq, extra)
 
         use_sparse = (self.ecfg.decode_sparse and self.ecfg.method == "share"
-                      and result.sp_state is not None)
+                      and result.sp_state is not None
+                      and self._supports_sparse_decode())
         plan = None
         if use_sparse:
             # built ONCE for the batch; every decode step reuses it
             plan = dplan.build_decode_plan(
                 self.sp, result.sp_state, self.model.cfg, prefill_len=seq,
                 cache_len=seq + extra)
-            total, streamed = dplan.plan_block_counts(plan)
-            stats.update({
-                "decode_traffic_fraction": dplan.plan_traffic_fraction(plan),
-                "decode_blocks_total": float(total),
-                "decode_blocks_computed": float(streamed),
-                "decode_blocks_skipped": float(total - streamed),
-                "decode_cache_len": float(seq + extra)})
+            stats.update(self._plan_stats(plan, seq + extra))
 
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
@@ -258,6 +450,9 @@ class ServingEngine:
                     finish[i] = now
             if all(done):
                 break
+            # a lockstep step burns max_batch slot-steps of capacity
+            self.slot_steps += self.ecfg.max_batch
+            self.active_slot_steps += b - sum(done)
             tok_t = torch.as_tensor(tok, device=self.device)[:, None]
             logits, cache = self.model.decode(
                 self.params, tok_t, cache, seq + t, plan=plan,

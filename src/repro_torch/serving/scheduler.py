@@ -1,0 +1,437 @@
+"""Slot-based continuous-batching scheduler (port of the one-shot core of
+``repro/serving/scheduler.py``).
+
+A request walks ``waiting → prefilling → decode → {done, failed}`` over a
+fixed set of ``max_batch`` decode *slots*:
+
+  * **Admission** (:meth:`SlotScheduler._admit`): the FIFO head is admitted
+    into a free slot once its arrival time has passed.  It is prefilled
+    alone at its own bucket (one-shot, SharePrefill sparse prefill), its
+    first token is sampled, its K/V are written into the slot — a row of
+    the contiguous cache (:meth:`ServingEngine.cache_insert`) or pages of
+    the shared pool (:func:`paged_cache.insert_prefill`) — and under
+    ``decode_sparse`` its DecodePlan row is spliced into the live plan.
+  * **Per-slot decode** (:meth:`SlotScheduler._decode_step`): every slot,
+    occupied or not, decodes at its own position (the ``(B,)`` ``pos``
+    contract of ``transformer.decode_step``); greedy rows take ``argmax``
+    on one host copy of the step's logits.  A slot that finishes (stop
+    token or ``max_new_tokens``) is vacated at once and refilled by the
+    next admission.
+  * **Inert slots** keep decoding with the empty plan row, and validity
+    hides whatever their cache rows hold, so occupied rows do not depend on
+    slot churn: greedy tokens match the batch path's.
+  * **Block-paged pool** (``paged=True``): one pool ``(L, P, Hkv, ps, hd)``
+    with page 0 reserved null and a per-slot page table ``(nslots,
+    table_blocks)``.  Admission takes ``(bucket + decode tail) / ps`` pages
+    and waits — FIFO, counted in ``engine.pages_exhausted_steps`` and the
+    request's ``waiting_deferred_steps`` — while the pool lacks them.  One
+    paged scheduler serves every bucket: each slot keeps its own prefill
+    length (``pflens``), and its plan row, built at its own allocation, is
+    padded to the shared table width.
+  * **Quarantine**: a prefill that raises or gives non-finite logits fails
+    only its request, and so do non-finite decode logits in one row
+    (``finish_reason="failed"``, the :class:`RequestError` in
+    ``Request.error``, the slot vacated).
+
+Sampled (temperature > 0) streams draw from one ``torch.Generator`` per
+request, seeded from ``(seed, uid)``; they are not held against the
+reference, whose JAX key chains cannot be reproduced.  Chunked admission
+and packing (ROADMAP.md A.8), cancellation, deadlines, preemption, fault
+injection, prefix sharing and plan refresh (A.9) are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import logging
+import time
+from collections import deque
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.serving import decode_plan as dplan
+from repro_torch.serving import paged_cache
+from repro_torch.serving.errors import RequestError
+from repro_torch.serving.sampling import sample_token
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class _Slot:
+    """One occupied decode slot: the request and its live decode state."""
+    req: object                         # engine.Request
+    gen: Optional[torch.Generator]      # the request's sampling stream
+    outs: List[int]
+    last_tok: int
+    t_first: float                      # wall time of the first token
+
+
+class SlotScheduler:
+    """Continuous-batching serve of one bucket's requests (contiguous), or
+    of every bucket's (``paged=True``)."""
+
+    def __init__(self, engine, requests, seq: int, *, seed: int = 0,
+                 t0: Optional[float] = None, paged: bool = False):
+        self.eng = engine
+        self.seq = seq
+        self.seed = seed
+        self.paged = bool(paged and engine.ecfg.paged)
+        self.t0 = time.time() if t0 is None else t0
+        # FIFO in arrival order (stable for equal arrivals)
+        self.queue = deque(sorted(requests, key=lambda r: r.arrival_s))
+
+        ecfg = engine.ecfg
+        self.nslots = ecfg.max_batch
+        blk = max(engine.sp.cfg.block_size, 1)
+        # one decode headroom for the whole serve, a block multiple so the
+        # plan tables tile it (the batch path's rounding)
+        extra = max(max(r.max_new_tokens for r in requests),
+                    ecfg.decode_extra)
+        self.cache_len = seq + ((extra + blk - 1) // blk) * blk
+
+        self.slots: List[Optional[_Slot]] = [None] * self.nslots
+        self.pos = np.full((self.nslots,), seq, np.int64)
+        self.plens = np.full((self.nslots,), seq, np.int64)
+        # per-slot prefill length: ``seq`` everywhere in contiguous mode,
+        # each slot's own bucket under paging
+        self.pflens = np.full((self.nslots,), seq, np.int64)
+        # created at the first admission, in the prefill cache's dtype
+        self.cache = None
+
+        self.page_size = blk
+        self.extra_len = self.cache_len - seq   # block-rounded decode tail
+        if self.paged:
+            if seq % blk:
+                raise ValueError(
+                    f"paged serving needs block-aligned seq buckets; got "
+                    f"bucket {seq} with page_size {blk}")
+            self.table_blocks = self.cache_len // blk
+            cap = ecfg.num_pages or 1 + self.nslots * self.table_blocks
+            if cap - 1 < self.table_blocks:
+                raise ValueError(
+                    f"num_pages={cap} cannot hold one max-length request "
+                    f"({self.table_blocks} pages + the null page): "
+                    "admission would deadlock")
+            self.num_pages = cap
+            self.alloc = paged_cache.PageAllocator(cap)
+            self.page_table = np.full((self.nslots, self.table_blocks),
+                                      paged_cache.NULL_PAGE, np.int32)
+            self.slot_pages: dict = {}
+        # paged mode drops the bucket-wide applicability term: a bucket
+        # whose prefill gives no dictionary gets the dense row per request
+        self.use_sparse = (ecfg.decode_sparse and ecfg.method == "share"
+                           and engine._supports_sparse_decode()
+                           and engine.sp.cfg.enabled
+                           and (self.paged or engine.sp.applicable(seq)))
+        self.plan = None
+        self._empty_row = None
+        self._stale_slots = set()       # vacated, plan row not yet emptied
+        if self.use_sparse:
+            kw = dict(cache_len=self.cache_len, block_size=blk,
+                      device=engine.device)
+            self.plan = dplan.empty_decode_plan(
+                engine.model.cfg, batch=self.nslots, **kw)
+            # spliced over a vacated slot so it streams nothing
+            self._empty_row = dplan.empty_decode_plan(
+                engine.model.cfg, batch=1, **kw)
+
+    # -- lifecycle ------------------------------------------------------
+    def run(self) -> None:
+        try:
+            while self.queue or any(s is not None for s in self.slots):
+                self._admit()
+                self._flush_stale_slots()
+                if any(s is not None for s in self.slots):
+                    self._decode_step()
+            self._flush_stale_slots()   # unoccupied slots' rows are empty
+        finally:
+            self._pool_summary()
+
+    def _request_generator(self, uid: int) -> torch.Generator:
+        gen = torch.Generator(device=self.eng.device)
+        gen.manual_seed(int(np.random.SeedSequence(
+            [self.seed, uid]).generate_state(1)[0]))
+        return gen
+
+    def _finish_inert(self, r, reason: str, error=None) -> None:
+        """Finish a request that holds no slot."""
+        if error is not None and r.error is None:
+            r.error = error
+        self._finish(_Slot(req=r, gen=None, outs=[], last_tok=0,
+                           t_first=time.time()), reason)
+
+    def _pool_summary(self) -> None:
+        """Publish the pool's capacity, peak and end-of-serve use on the
+        engine (``pages_in_use_at_end`` is 0 after a drained serve)."""
+        if not self.paged:
+            return
+        self.eng.page_pool_stats = {
+            "num_pages": self.num_pages,
+            "page_size": self.page_size,
+            "table_blocks": self.table_blocks,
+            "peak_pages": self.alloc.peak_in_use,
+            "peak_utilization": (self.alloc.peak_in_use
+                                 / max(1, self.num_pages - 1)),
+            "pages_in_use_at_end": self.alloc.used_pages,
+        }
+
+    def _flush_stale_slots(self) -> None:
+        """Empty the plan rows of slots vacated since the last decode step
+        (deferred from :meth:`_vacate`, so a slot refilled at once is
+        spliced once, not twice)."""
+        for slot in sorted(self._stale_slots):
+            self._splice_row(slot, self._empty_row)
+        self._stale_slots.clear()
+
+    def _splice_row(self, slot: int, row) -> None:
+        self.plan = dplan.update_plan_slot(self.plan, row, slot)
+
+    # -- paged-pool bookkeeping -----------------------------------------
+    def _bucket_of(self, r) -> int:
+        """A request's prefill length: the scheduler's bucket in contiguous
+        mode, its own bucket under paging."""
+        if not self.paged:
+            return self.seq
+        b = self.eng._bucket(len(r.prompt))
+        if b % self.page_size:
+            raise ValueError(
+                f"seq bucket {b} is not a multiple of page_size "
+                f"{self.page_size}; paged serving needs block-aligned "
+                "buckets (page_size == pattern block_size)")
+        return b
+
+    def _pages_needed(self, r) -> int:
+        """Pages one admission holds: its bucket plus the decode tail."""
+        return (self._bucket_of(r) + self.extra_len) // self.page_size
+
+    def _alloc_slot_pages(self, slot: int, n: int) -> np.ndarray:
+        """Grant ``n`` pages to ``slot`` and map them in its table row
+        (callers check the headroom first)."""
+        pages = self.alloc.alloc(n)
+        if pages is None:
+            raise RuntimeError("page allocation after headroom check")
+        self.slot_pages[slot] = pages
+        self.page_table[slot, :n] = pages
+        return pages
+
+    def _release_pages(self, slot: int) -> None:
+        """Return a vacated slot's pages and null its table row.  The inert
+        slot's appends then land in the null page, and its plan row is
+        emptied before the next decode step, so recycled pages are never
+        read through a stale table."""
+        pages = self.slot_pages.pop(slot, None)
+        if pages is not None:
+            self.alloc.free(pages)
+            self.page_table[slot, :] = paged_cache.NULL_PAGE
+
+    def _note_starved(self, r) -> None:
+        """The queue head waited on pool headroom this step."""
+        self.eng.pages_exhausted_steps += 1
+        r.waiting_deferred_steps += 1
+
+    # -- admission --------------------------------------------------------
+    def _admit(self) -> None:
+        """waiting → prefilling: fill free slots from the FIFO."""
+        while self.queue:
+            free = [i for i, s in enumerate(self.slots) if s is None]
+            if not free:
+                return
+            r = self.queue[0]
+            if self.paged and self.alloc.free_pages < self._pages_needed(r):
+                # the head waits until a finishing slot frees pages; later,
+                # smaller requests do not jump the queue
+                self._note_starved(r)
+                return
+            wait = (self.t0 + r.arrival_s) - time.time()
+            if wait > 0:
+                if any(s is not None for s in self.slots):
+                    return              # keep decoding, admit it later
+                time.sleep(wait)        # fully idle: jump to next arrival
+                self.eng.phase_s["idle"] += wait
+            self.queue.popleft()
+            self._start(r, free[0])
+
+    def _start(self, r, slot: int) -> None:
+        """prefilling → decode: prefill one request alone, sample its first
+        token, write its K/V and splice its plan row."""
+        eng, seq = self.eng, self._bucket_of(r)
+        r.state = "prefilling"
+        toks = np.zeros((1, seq), np.int64)
+        plen = eng._pad_prompt(r, seq, toks[0])
+        width = eng.ecfg.prefill_width
+        tp = time.time()
+        r.queue_s = max(tp - (self.t0 + r.arrival_s), 0.0)
+        try:
+            # a failing prefill fails only this request: no slot is
+            # occupied and no page granted yet, so nothing to unwind
+            result = eng.model.prefill(
+                eng.params, torch.as_tensor(toks, device=eng.device), eng.sp,
+                method=eng.ecfg.method, attn_impl=eng.ecfg.attn_impl,
+                attn_width=width,
+                prompt_lens=torch.tensor([plen], device=eng.device))
+            finite = bool(torch.isfinite(result.last_logits).all())
+        except Exception as e:          # noqa: BLE001 — quarantine wall
+            r.prefill_s = time.time() - tp
+            eng.phase_s["prefill"] += r.prefill_s
+            err = RequestError(r.uid, f"prefill raised {type(e).__name__}: "
+                               f"{e}", kind="prefill")
+            logger.warning("quarantined: %s", err, exc_info=True)
+            self._finish_inert(r, "failed", error=err)
+            return
+        r.prefill_s = time.time() - tp
+        eng.phase_s["prefill"] += r.prefill_s
+        if any(s is not None for s in self.slots):
+            # the whole prefill ran while other slots waited to decode
+            r.prefill_stall_s = r.prefill_s
+        if not finite:
+            err = RequestError(r.uid, "non-finite prefill logits",
+                               kind="prefill")
+            logger.warning("quarantined: %s", err)
+            self._finish_inert(r, "failed", error=err)
+            return
+
+        stats = eng._record_prefill_stats(result, width)
+        r.pattern_stats = stats
+        if r.max_new_tokens <= 0:       # prefill-only: no token is emitted
+            self._finish_inert(r, "length")
+            return
+
+        gen = self._request_generator(r.uid)
+        tok0 = int(sample_token(result.last_logits, r.sampling, gen)[0])
+        t_first = time.time()
+        r.ttft_s = max(t_first - (self.t0 + r.arrival_s), 0.0)
+        s = _Slot(req=r, gen=gen, outs=[tok0], last_tok=tok0,
+                  t_first=t_first)
+        if r.sampling.is_stop(tok0):
+            self._finish(s, "stop")
+            return                      # the slot stays free
+        if len(s.outs) >= r.max_new_tokens:
+            self._finish(s, "length")
+            return
+
+        # decode: occupy the slot (a request that finished on its first
+        # token never pays for the plan build)
+        if self.cache is None:
+            dt = result.cache[0].dtype
+            self.cache = (paged_cache.init_paged_pool(
+                              eng.model.cfg, num_pages=self.num_pages,
+                              page_size=self.page_size, dtype=dt,
+                              device=eng.device)
+                          if self.paged else
+                          eng.model.init_cache(self.nslots, self.cache_len,
+                                               dtype=dt))
+        if self.paged:
+            # the prefill fills the first seq // ps pages; the rest are the
+            # decode tail the appends grow into
+            pages = self._alloc_slot_pages(slot, self._pages_needed(r))
+            paged_cache.insert_prefill(self.cache, result.cache,
+                                       pages[: seq // self.page_size])
+        else:
+            eng.cache_insert(self.cache, result.cache, slot)
+        if self.use_sparse:
+            # built at the request's own allocation; under paging, padded to
+            # the shared table width
+            alloc_len = seq + self.extra_len
+            if result.sp_state is not None:
+                rplan = dplan.build_decode_plan(
+                    eng.sp, result.sp_state, eng.model.cfg,
+                    prefill_len=seq, cache_len=alloc_len)
+            else:
+                rplan = dplan.dense_decode_plan(
+                    eng.model.cfg, cache_len=alloc_len,
+                    block_size=self.page_size, device=eng.device)
+            stats.update(eng._plan_stats(rplan, alloc_len))
+            r.tail_fraction, r.plan_traffic_fraction = \
+                dplan.plan_row_tail_stats(
+                    rplan, prefill_blocks=seq // self.page_size)
+            if self.paged:
+                rplan = dplan.pad_plan_row(rplan, self.table_blocks)
+            self._splice_row(slot, rplan)
+            self._stale_slots.discard(slot)    # the refill replaced the row
+        self.pos[slot] = seq
+        self.plens[slot] = plen
+        self.pflens[slot] = seq
+        self.slots[slot] = s
+        r.state = "decode"
+
+    # -- decode ----------------------------------------------------------
+    def _decode_step(self) -> None:
+        """One decode step over all slots (occupied or inert), then per-slot
+        sampling, early exit and slot freeing."""
+        eng = self.eng
+        td = time.time()
+        occ = [i for i, s in enumerate(self.slots) if s is not None]
+        eng.slot_steps += self.nslots
+        eng.active_slot_steps += len(occ)
+
+        toks = np.zeros((self.nslots,), np.int64)
+        for i in occ:
+            toks[i] = self.slots[i].last_tok
+        dev = eng.device
+        as_dev = lambda a: torch.as_tensor(a, device=dev)
+        kw = dict(plan=self.plan, prompt_lens=as_dev(self.plens),
+                  decode_impl=eng.ecfg.decode_impl)
+        if self.paged:
+            kw.update(prefill_len=as_dev(self.pflens),
+                      page_table=as_dev(self.page_table))
+        else:
+            kw.update(prefill_len=self.seq)
+        logits, self.cache = eng.model.decode(
+            eng.params, as_dev(toks)[:, None], self.cache, as_dev(self.pos),
+            **kw)
+
+        # one device→host copy for the step; greedy rows take np.argmax on
+        # it (the first maximum, as torch.argmax)
+        logits_h = logits.float().cpu().numpy()
+        for i in occ:
+            self.pos[i] += 1            # this step wrote at the old pos
+            s = self.slots[i]
+            row = logits_h[i]
+            if not np.isfinite(row).all():
+                # only this slot fails: decode rows share nothing
+                err = RequestError(s.req.uid, "non-finite decode logits",
+                                   kind="decode")
+                logger.warning("quarantined: %s", err)
+                if s.req.error is None:
+                    s.req.error = err
+                self._vacate(i, s, "failed")
+                continue
+            if s.req.sampling.temperature <= 0.0:
+                tok = int(np.argmax(row))
+            else:
+                tok = int(sample_token(logits[i: i + 1], s.req.sampling,
+                                       s.gen)[0])
+            s.outs.append(tok)
+            s.last_tok = tok
+            if s.req.sampling.is_stop(tok):
+                self._vacate(i, s, "stop")
+            elif len(s.outs) >= s.req.max_new_tokens:
+                self._vacate(i, s, "length")
+        eng.phase_s["decode"] += time.time() - td
+
+    def _vacate(self, slot: int, s: _Slot, reason: str) -> None:
+        """Free a slot mid-decode: finish its request, return its pages and
+        mark its plan row stale (emptied before the next decode step unless
+        a refill splices a new row first)."""
+        self.slots[slot] = None
+        if self.paged:
+            self._release_pages(slot)
+        if self.use_sparse:
+            self._stale_slots.add(slot)
+        self._finish(s, reason)
+
+    # terminal Request.state per finish_reason
+    _TERMINAL_STATE = {"stop": "done", "length": "done", "failed": "failed"}
+
+    def _finish(self, s: _Slot, reason: str) -> None:
+        """Finalize the request's output, metrics and terminal state."""
+        r = s.req
+        now = time.time()
+        r.output_tokens = np.asarray(s.outs, np.int32)
+        r.finish_reason = reason
+        r.state = self._TERMINAL_STATE[reason]
+        r.decode_s = max(now - s.t_first, 0.0)
+        r.decode_tokens_per_s = self.eng._decode_rate(len(s.outs),
+                                                      r.decode_s)

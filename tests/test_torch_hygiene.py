@@ -74,7 +74,8 @@ def test_auto_resolves_to_the_sparse_path_on_both_devices():
 
 
 def test_launch_counters():
-    assert set(KERNELS) == {"strip", "block_sparse_attn", "decode_attn"}
+    assert set(KERNELS) == {"strip", "block_sparse_attn", "decode_attn",
+                            "decode_attn_paged"}
     for fn in KERNELS.values():
         fn.launches = 7
     reset_launch_counts()

@@ -135,7 +135,9 @@ def test_serve_fills_request_metrics(served):
         assert r.state == "done" and r.finish_reason == "length"
         m = r.metrics()
         assert set(m) == {"queue_s", "ttft_s", "prefill_s", "decode_s",
-                          "decode_tokens_per_s"}
+                          "decode_tokens_per_s", "prefill_stall_s",
+                          "waiting_deferred_steps", "tail_fraction",
+                          "plan_traffic_fraction"}
         assert m["prefill_s"] > 0 and m["ttft_s"] >= m["prefill_s"]
         assert m["decode_tokens_per_s"] > 0
         assert not r.truncated
@@ -163,7 +165,7 @@ def test_stop_token_and_prefill_only_rows():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("scheduler", True, "A.7"), ("paged", True, "A.7"),
+    ("preempt_after_steps", 4, "A.9"), ("prefill_pack", 2, "A.8"),
     ("prefill_chunk", 128, "A.8"), ("prefix_sharing", True, "A.9"),
     ("refresh_every", 64, "A.9"), ("width_policy", "auto", "A.5")])
 def test_unported_engine_options_raise(field, value, item):
