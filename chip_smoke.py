@@ -32,7 +32,20 @@ run on error:
      launch counts reset just before and read just after, so that a request
      waits for pages and finished slots are refilled during the serve; then
      serve them through the contiguous scheduler (one per bucket) and
-     compare greedy tokens (near-tie aware).
+     compare greedy tokens (near-tie aware);
+  7. hold the kernel API slice's four kernels against their plain versions
+     in bfloat16 and float32 at the main path's shapes: the single-sample
+     block-sparse kernel on sample 0's real layer-0 tables (W = 64) and on
+     edge rows, the paged block-sparse kernel on a 16-block chunk at q
+     block 48 over a shuffled pool (also bitwise against the batched
+     kernel on the gathered pages), and both single-sample decodes on a
+     real plan's token mask over an 8320-token cache with one all-false
+     head; time them; then call each public function that no serve
+     reaches once, launch counts reset just before and read just after;
+  8. serve phase 4's requests through the per-sample path
+     (``attn_impl="kernel"``), launch counts reset just before and read
+     just after, and compare greedy tokens and first-step logits with
+     phase 4's; then profile it.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -44,6 +57,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -86,6 +100,14 @@ KERNELS = {
                     "src/repro/kernels/decode_attn.py:340"),
     "decode_attn_paged": ("src/repro_torch/csrc/decode_attn.cu",
                           "src/repro/kernels/decode_attn.py:579"),
+    "block_sparse_attn_single": ("src/repro_torch/csrc/block_sparse_attn.cu",
+                                 "src/repro/kernels/block_sparse_attn.py:122"),
+    "block_sparse_attn_paged": ("src/repro_torch/csrc/block_sparse_attn.cu",
+                                "src/repro/kernels/block_sparse_attn.py:428"),
+    "decode_attn_dense": ("src/repro_torch/csrc/decode_attn.cu",
+                          "src/repro/kernels/decode_attn.py:143"),
+    "decode_attn_sparse": ("src/repro_torch/csrc/decode_attn.cu",
+                           "src/repro/kernels/decode_attn.py:226"),
 }
 
 # phase 6: (prompt tokens, max_new_tokens); buckets 8192 / 2048 take 65 / 17
@@ -179,13 +201,61 @@ def layer0_qkv(model, params, tokens):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
+def real_masks(model, q, k, v):
+    """Layer 0's SharePrefill masks and decisions for q (B,H,N,D) and k/v
+    (B,Hkv,N,D) from the dictionary that layer 0 builds on the same input
+    (so some heads share), as in a serve's second pass over a cluster."""
+    from repro_torch.core.share_attention import (
+        build_share_masks, update_share_state)
+    from repro_torch.kernels import (block_sparse_attention_cuda,
+                                     compact_block_mask)
+
+    spc = model.cfg.share_prefill
+    b, h, n, _ = q.shape
+    nb = n // spc.block_size
+    sp = model.default_share_prefill()
+    state = sp.init_state(b, n, device=q.device)
+    ids = sp.layer_cluster_ids(device=q.device)[0]
+    masks, decision = build_share_masks(q, k, state, ids, spc)
+    idx, cnt = compact_block_mask(masks)
+    _, a0 = block_sparse_attention_cuda(
+        q, k, v, idx.contiguous(), cnt.contiguous(),
+        block_size=spc.block_size, stats_gate=decision.use_dense)
+    state = update_share_state(a0, state, ids, decision, spc)
+    shared, decision = build_share_masks(q, k, state, ids, spc)
+    for label, m in (("layer 0", masks), ("with its dictionary", shared)):
+        print(f"real masks, {label}: density "
+              f"{float(m.float().sum() / (b * h * nb * (nb + 1) / 2)):.4f}",
+              flush=True)
+    print(f"with its dictionary: shared heads "
+          f"{int(decision.use_shared.sum())}, dense "
+          f"{int(decision.use_dense.sum())}, vs {int(decision.use_vs.sum())}",
+          flush=True)
+    return shared, decision
+
+
+def bsa_work(vis, group: int, bs: int, off: int) -> tuple:
+    """What block-sparse tables make the kernel do: the causally valid
+    (query, key) entries over the visited blocks (query block i sits at
+    block ``off + i``) and the distinct (batch, kv head, block) K/V tiles
+    read; ``vis`` (B, H, NBq, NBkv) bool."""
+    import torch
+    b, h, nbq, nbkv = vis.shape
+    i = torch.arange(nbq, device=vis.device)[:, None] + off
+    j = torch.arange(nbkv, device=vis.device)[None, :]
+    per_block = torch.where(j < i, float(bs * bs),
+                            torch.where(j == i, bs * (bs + 1) / 2.0, 0.0))
+    entries = float((vis.float() * per_block).sum())
+    tiles = float(vis.reshape(b, h // group, group, nbq, nbkv)
+                  .any(2).any(2).sum())
+    return entries, tiles
+
+
 def check_kernels(model, params, tokens, prompt_lens) -> dict:
     """Phase 2: each kernel against its plain version; returns the kernels'
     numbers for the JSON line (errors over every case, times at bf16)."""
     import torch
     import torch.nn.functional as F
-    from repro_torch.core.share_attention import (
-        build_share_masks, update_share_state)
     from repro_torch.kernels import (
         block_sparse_attention_cuda, block_sparse_attention_plain,
         compact_block_mask, decode_plan_einsum_sliced, expand_kv,
@@ -205,28 +275,7 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
     g = h // hkv
     nb = n // bs
     print(f"shapes: B={b} H={h} Hkv={hkv} N={n} D={d} bs={bs}", flush=True)
-
-    # real masks: layer 0's, from the empty dictionary, and the masks the
-    # same q/k get from the dictionary layer 0 builds (shared heads)
-    sp = model.default_share_prefill()
-    state = sp.init_state(b, n, device=dev)
-    ids = sp.layer_cluster_ids(device=dev)[0]
-    masks, decision = build_share_masks(q16, k16, state, ids, spc)
-    idx, cnt = compact_block_mask(masks)
-    _, a0 = block_sparse_attention_cuda(
-        q16, k16, v16, idx.contiguous(), cnt.contiguous(), block_size=bs,
-        stats_gate=decision.use_dense)
-    state = update_share_state(a0, state, ids, decision, spc)
-    shared, decision = build_share_masks(q16, k16, state, ids, spc)
-    for label, m in (("layer 0", masks), ("with its dictionary", shared)):
-        print(f"real masks, {label}: density "
-              f"{float(m.float().sum() / (b * h * nb * (nb + 1) / 2)):.4f}",
-              flush=True)
-    print(f"with its dictionary: shared heads "
-          f"{int(decision.use_shared.sum())}, dense "
-          f"{int(decision.use_dense.sum())}, vs {int(decision.use_vs.sum())}",
-          flush=True)
-    masks = shared
+    masks, decision = real_masks(model, q16, k16, v16)
     # synthetic rows: an empty row (counts == 0), a sparse random row, and
     # a stats-gate mix (real gate xor every third head)
     syn = masks.clone()
@@ -332,12 +381,7 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
         bidx, bcnt = bidx.contiguous(), bcnt.contiguous()
         dg = decision.use_dense
         vis = table_block_mask(bidx, bcnt, nb)     # causal rows: all visited
-        tri = torch.tril(torch.ones(bs, bs, device=dev)).sum()
-        per_block = torch.where(
-            torch.eye(nb, dtype=torch.bool, device=dev), tri,
-            torch.tensor(float(bs * bs), device=dev))
-        entries = float((vis.float() * per_block).sum())
-        kv_blocks = float(vis.reshape(b, hkv, g, nb, nb).any(2).any(2).sum())
+        entries, kv_blocks = bsa_work(vis, g, bs, 0)
         bb = bound(2 * b * h * n * d * elt + 2 * kv_blocks * bs * d * elt
                    + bidx.numel() * 4 + bcnt.numel() * 4 + b * h * nb * nb * 4,
                    4.0 * d * entries, dtype)
@@ -477,17 +521,20 @@ def _to(params, dev):
     return params.to(dev)
 
 
-def serve_full(model, params, prompts, layers: int) -> dict:
-    """Phase 4: the main path at full width, launch counts reset just
-    before it and read just after."""
+def serve_full(model, params, prompts, need: dict,
+               attn_impl: str = "auto") -> dict:
+    """Phases 4 and 8: the main path at full width, launch counts reset
+    just before it and read just after; fails unless each kernel in
+    ``need`` launched at least that often."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import EngineConfig, Request, ServingEngine
 
     probe = LogitProbe(model)
     eng = ServingEngine(probe, params, model.default_share_prefill(),
-                        EngineConfig(method="share", decode_sparse=True,
-                                     max_batch=2, seq_buckets=(SEQ,)))
+                        EngineConfig(method="share", attn_impl=attn_impl,
+                                     decode_sparse=True, max_batch=2,
+                                     seq_buckets=(SEQ,)))
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
             for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
@@ -497,8 +544,8 @@ def serve_full(model, params, prompts, layers: int) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
-    print(f"serve: {len(reqs)} requests in {wall:.3f} s; launches {counts}",
-          flush=True)
+    print(f"serve (attn_impl={attn_impl}): {len(reqs)} requests in "
+          f"{wall:.3f} s; launches {counts}", flush=True)
     for r in reqs:
         m = r.metrics()
         print(f"  request {r.uid}: prompt {len(r.prompt)} tokens "
@@ -524,13 +571,11 @@ def serve_full(model, params, prompts, layers: int) -> dict:
           f"all finite {finite}", flush=True)
     if not (shapes_ok and finite):
         raise AssertionError("non-finite or misshapen logits")
-    need = {"strip": layers, "block_sparse_attn": layers,
-            "decode_attn": layers * (NEW_TOKENS - 1)}
     for name, n in need.items():
         if counts[name] < n:
             raise AssertionError(f"{name}: {counts[name]} launches on the "
                                  f"serve, expected >= {n}")
-    return counts
+    return dict(counts=counts, reqs=reqs, logits=probe.logits)
 
 
 class Spans(LogitProbe):
@@ -579,16 +624,21 @@ def profile_serve(label: str, serve) -> None:
         print(f"profile {label}: no device time traced (not measured)",
               flush=True)
         return
-    groups = {g: [0.0, 0] for g in ("strip", "block_sparse_attn",
-                                    "decode_attn", "decode_attn_paged",
-                                    "gemm", "other")}
+    groups = {g: [0.0, 0] for g in (*KERNELS, "gemm", "other")}
+    # the instances of the two templated kernels, by their MODE argument
+    # (csrc/block_sparse_attn.cu and csrc/decode_attn.cu)
+    instance = {("bsa", "0"): "block_sparse_attn",
+                ("bsa", "1"): "block_sparse_attn_paged",
+                ("bsa", "2"): "block_sparse_attn_single",
+                ("decode", "0"): "decode_attn",
+                ("decode", "1"): "decode_attn_paged",
+                ("decode", "2"): "decode_attn_dense",
+                ("decode", "3"): "decode_attn_sparse"}
     for e in kernels:
         name = e.key.lower()
+        mode = re.search(r"(bsa|decode)_kernel<[^>]*?(\d+)>", name)
         g = ("strip" if "strip_kernel" in name else
-             "block_sparse_attn" if "bsa_kernel" in name else
-             "decode_attn_paged" if "decode_kernel" in name
-             and ", true>" in name else
-             "decode_attn" if "decode_kernel" in name else
+             instance[mode.groups()] if mode else
              "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
                                                "cutlass", "matmul"))
              else "other")
@@ -916,6 +966,334 @@ def serve_paged(model, params, prompts, layers: int) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- phase 7
+
+API_OFFSET = 48          # phase 7's paged chunk: q blocks [48, 64) of 65
+
+
+def check_kernel_api(model, params, tokens, prompt) -> dict:
+    """Phase 7: the kernel API slice's four kernels against their plain
+    versions in bfloat16 and float32 at the main path's shapes, timed
+    beside their bounds and library calls; then one call of each public
+    function that no serving path reaches (the paged block-sparse kernel
+    and both single-sample decodes), launch counts reset just before and
+    read just after.  Returns the four kernels' numbers for the JSON line
+    and that run's launch counts."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch import kernels as K
+    from repro_torch.kernels.decode_attn import gather_pages
+    from repro_torch.models.transformer import decode_valid_mask
+    from repro_torch.serving import decode_plan as dplan
+
+    cfg = model.cfg
+    sp = model.default_share_prefill()
+    bs = cfg.share_prefill.block_size
+    dev = tokens.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    q16, k16, v16 = layer0_qkv(model, params, tokens)
+    masks, decision = real_masks(model, q16, k16, v16)
+    b, h, n, d = q16.shape
+    hkv = k16.shape[1]
+    g, nb = h // hkv, n // bs
+
+    # B.6: sample 0's tables at full width, and edge rows: counts == 0, a
+    # row listing a block above the diagonal first, and a W cap
+    sidx, scnt = (x.contiguous() for x in K.compact_block_mask(masks[0]))
+    eidx, ecnt = sidx.clone(), scnt.clone()
+    ecnt[1, nb // 2] = 0
+    eidx[0, 1, :3] = torch.tensor([2, 0, 1], device=dev)
+    eidx[0, 1, 3:] = 1
+    ecnt[0, 1] = 3
+    cidx, ccnt = (x.contiguous()
+                  for x in K.compact_block_mask(masks[0], width=nb // 4))
+    single_cases = [("real masks", sidx, scnt), ("edge rows", eidx, ecnt),
+                    (f"W cap {nb // 4}", cidx, ccnt)]
+
+    # B.5: a 16-block chunk at q block 48 of a 65-block logical cache (the
+    # last block a decode tail that no row may list) over a shuffled pool;
+    # the tail's table entry is the null page 0, which, like the slack
+    # pages, holds random values that must never be read
+    nbq, nbkv = nb - API_OFFSET, nb + 1
+    chunk = masks[:, :, API_OFFSET:, :]
+    chunk = torch.cat([chunk, torch.zeros_like(chunk[..., :1])], dim=-1)
+    chunk[0, 3, 2] = False                          # a counts == 0 row
+    pidx, pcnt = (x.contiguous() for x in K.compact_block_mask(chunk))
+    pgate = decision.use_dense ^ (torch.arange(h, device=dev) % 3 == 0)
+    num_pages = 1 + b * nb + 4
+    perm = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)
+            ).to(torch.int32)
+    table = torch.zeros((b, nbkv), dtype=torch.int32, device=dev)
+    table[:, :nb] = perm[:b * nb].reshape(b, nb)
+
+    # B.7 / B.8: a real plan's keep bits ∧ validity of sample 0 as a token
+    # mask over an 8320-token cache (the prompt plus a 128-token decode
+    # tail, 6 tokens of it written), and one all-false head
+    res = model.prefill(params, tokens[:1], sp, method="share",
+                        prompt_lens=torch.tensor([len(prompt)], device=dev))
+    plan = dplan.build_decode_plan(sp, res.sp_state, cfg, prefill_len=n,
+                                   cache_len=n + bs).layer(0)
+    s = n + bs
+    pos = n + 5
+    valid = decode_valid_mask(s, pos, torch.tensor([len(prompt)],
+                                                   device=dev), n)[0]
+    keep = plan.keep_heads[0].permute(0, 2, 1).reshape(h, nbkv)
+    tok_mask = keep.repeat_interleave(bs, dim=1) & valid[None]
+    dead = 5
+    tok_mask[dead] = False
+    tok_mask = tok_mask.contiguous()
+    ck0, cv0 = res.cache[0][0, 0].clone(), res.cache[1][0, 0].clone()
+    del res
+    tail = [torch.randn((hkv, bs, d), generator=gen, device=dev) * 0.5
+            for _ in range(2)]
+    print(f"kernel API shapes: single H={h} Hkv={hkv} N={n} D={d} bs={bs} "
+          f"W={nb}; paged B={b} NBq={nbq} at q block {API_OFFSET}, "
+          f"NBkv={nbkv}, P={num_pages}; decode S={s}, kept tokens per head "
+          f"{float(tok_mask.float().sum(1).mean()):.1f} of {s}, union "
+          f"blocks per kv head "
+          f"{K.decode_block_table(tok_mask, hkv, bs)[1].tolist()}",
+          flush=True)
+
+    names = ("block_sparse_attn_single", "block_sparse_attn_paged",
+             "decode_attn_dense", "decode_attn_sparse")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        print(f"[{dn}]", flush=True)
+
+        # ---- B.6
+        for label, idx, cnt in single_cases:
+            o1, s1 = K.block_sparse_attention_single_cuda(
+                q[0], k[0], v[0], idx, cnt, block_size=bs)
+            o2, s2 = K.block_sparse_attention_single_plain(
+                q[0], k[0], v[0], idx, cnt, block_size=bs)
+            edge = ""
+            if idx is eidx:
+                zero = bool((o1[1, (nb // 2) * bs:(nb // 2 + 1) * bs] == 0)
+                            .all())
+                above = bool(torch.isneginf(s1[0, 1, 0]))
+                edge = (f", counts==0 row exact zeros {zero}, block above "
+                        f"the diagonal -inf {above}")
+                if not (zero and above):
+                    raise AssertionError("single-sample edge rows wrong")
+            print(f"  block_sparse_attn_single [{label}]: W="
+                  f"{idx.shape[-1]}{edge}", flush=True)
+            e = max_err(o1, o2)
+            check("  out", e, TOL[("out", dn)])
+            check("  stats", a_tilde_err(s1, s2), TOL[("a_tilde", dn)])
+            r = out["block_sparse_attn_single"]
+            r["max_abs_err"] = max(r["max_abs_err"], e)
+
+        # ---- B.5
+        qc = q[:, :, API_OFFSET * bs:].contiguous()
+        pool_k = (torch.randn((num_pages, hkv, bs, d), generator=gen,
+                              device=dev) * 0.5).to(dtype)
+        pool_v = (torch.randn((num_pages, hkv, bs, d), generator=gen,
+                              device=dev) * 0.5).to(dtype)
+        for pool, x in ((pool_k, k), (pool_v, v)):
+            pool[table[:, :nb].reshape(-1).long()] = x.reshape(
+                b, hkv, nb, bs, d).transpose(1, 2).reshape(-1, hkv, bs, d)
+        kw = dict(block_size=bs, stats_gate=pgate, q_block_offset=API_OFFSET)
+        o1, a1 = K.block_sparse_attention_paged_cuda(
+            qc, pool_k, pool_v, table, pidx, pcnt, **kw)
+        o2, a2 = K.block_sparse_attention_paged_plain(
+            qc, pool_k, pool_v, table, pidx, pcnt, **kw)
+        gk, gv = gather_pages(pool_k, table), gather_pages(pool_v, table)
+        o3, a3 = K.block_sparse_attention_cuda(qc, gk, gv, pidx, pcnt, **kw)
+        torch.cuda.synchronize()
+        bitwise = max(max_err(o1, o3), a_tilde_err(a1, a3))
+        zero = bool((o1[0, 3, 2 * bs:3 * bs] == 0).all())
+        print(f"  block_sparse_attn_paged: counts==0 row exact zeros {zero};"
+              f" max |paged - kernel 2 on gathered pages| {bitwise:.3e}",
+              flush=True)
+        if not zero:
+            raise AssertionError("paged counts == 0 row is not zeros")
+        if bitwise != 0.0:
+            raise AssertionError("paged block-sparse kernel differs from "
+                                 "the contiguous kernel on gathered pages")
+        e = max_err(o1, o2)
+        check("  out", e, TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+        r = out["block_sparse_attn_paged"]
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+
+        # ---- B.7 / B.8
+        ck = torch.cat([ck0.to(dtype), tail[0].to(dtype)], dim=1)
+        cv = torch.cat([cv0.to(dtype), tail[1].to(dtype)], dim=1)
+        qd = (torch.randn((h, d), generator=gen, device=dev)).to(dtype)
+        for name, cuda_fn, plain_fn in (
+                ("decode_attn_dense", K.flash_decode_cuda,
+                 K.flash_decode_plain),
+                ("decode_attn_sparse", K.flash_decode_sparse_single_cuda,
+                 K.flash_decode_sparse_plain)):
+            o1 = cuda_fn(qd, ck, cv, tok_mask, block_kv=bs)
+            o2 = plain_fn(qd, ck, cv, tok_mask, block_kv=bs)
+            zero = bool((o1[dead] == 0).all())
+            print(f"  {name}: all-false head exact zeros {zero}", flush=True)
+            if not zero:
+                raise AssertionError(f"{name}: all-false head not zeros")
+            e = max_err(o1, o2)
+            check("  out", e, TOL[("out", dn)])
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+
+        if dtype != torch.bfloat16:
+            continue
+        # ---- times at the main path's dtype, with bounds and library calls
+        elt = q.element_size()
+        # B.6: q, out, the visited K/V tiles, tables and stats moved once;
+        # QK and PV products over the causally valid entries visited
+        vis = K.table_block_mask(sidx, scnt, nb)[None]
+        entries, tiles = bsa_work(vis, g, bs, 0)
+        sb = bound(2 * h * n * d * elt + 2 * tiles * bs * d * elt
+                   + sidx.numel() * 4 + scnt.numel() * 4      # tables
+                   + sidx.numel() * 4, 4.0 * d * entries,     # stats
+                   dtype)
+        kx, vx = K.expand_kv(k[:1], v[:1], h)
+        tmask = (vis.repeat_interleave(bs, 2).repeat_interleave(bs, 3)
+                 & torch.ones(n, n, dtype=torch.bool, device=dev).tril())
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            q[:1], kx, vx, attn_mask=tmask), 5)
+        del kx, vx, tmask
+        out["block_sparse_attn_single"].update(
+            ms=cuda_ms(lambda: K.block_sparse_attention_single_cuda(
+                q[0], k[0], v[0], sidx, scnt, block_size=bs), 10),
+            plain_ms=cuda_ms(lambda: K.block_sparse_attention_single_plain(
+                q[0], k[0], v[0], sidx, scnt, block_size=bs), 2),
+            bound_ms=sb[0], bound_by=sb[1], library_ms=lib)
+
+        # B.5: the same count at the chunk's offset, plus the page table
+        # and Ã
+        vis = K.table_block_mask(pidx, pcnt, nbkv)
+        entries, tiles = bsa_work(vis, g, bs, API_OFFSET)
+        pb = bound(2 * qc.numel() * elt + 2 * tiles * bs * d * elt
+                   + pidx.numel() * 4 + pcnt.numel() * 4 + table.numel() * 4
+                   + vis.numel() * 4, 4.0 * d * entries, dtype)
+        gkx, gvx = K.expand_kv(gk, gv, h)
+        qpos = API_OFFSET * bs + torch.arange(nbq * bs, device=dev)
+        tmask = (vis.repeat_interleave(bs, 2).repeat_interleave(bs, 3)
+                 & (torch.arange(nbkv * bs, device=dev)[None, :]
+                    <= qpos[:, None]))
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            qc, gkx, gvx, attn_mask=tmask), 5)
+        del gkx, gvx, tmask
+        out["block_sparse_attn_paged"].update(
+            ms=cuda_ms(lambda: K.block_sparse_attention_paged_cuda(
+                qc, pool_k, pool_v, table, pidx, pcnt, **kw), 10),
+            plain_ms=cuda_ms(lambda: K.block_sparse_attention_paged_plain(
+                qc, pool_k, pool_v, table, pidx, pcnt, **kw), 2),
+            contiguous_ms=cuda_ms(lambda: K.block_sparse_attention_cuda(
+                qc, gk, gv, pidx, pcnt, **kw), 10),
+            bound_ms=pb[0], bound_by=pb[1], library_ms=lib)
+
+        # B.7 / B.8 compute one function: q, out, the mask, and the K/V rows
+        # of tokens that some head of the group keeps, moved once; QK and
+        # PV products over the kept tokens
+        rows = float(tok_mask.reshape(hkv, g, s).any(1).sum())
+        db = bound(2 * h * d * elt + 2 * rows * d * elt + tok_mask.numel(),
+                   4.0 * d * float(tok_mask.sum()), dtype)
+        ckx, cvx = K.expand_kv(ck, cv, h)
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, None], ckx, cvx, attn_mask=tok_mask[:, None]), 50)
+        # the sparse wrapper's time includes staging its union table
+        out["decode_attn_sparse"]["staging_ms"] = cuda_ms(
+            lambda: K.decode_block_table(tok_mask, hkv, bs), 50)
+        for name, cuda_fn, plain_fn in (
+                ("decode_attn_dense", K.flash_decode_cuda,
+                 K.flash_decode_plain),
+                ("decode_attn_sparse", K.flash_decode_sparse_single_cuda,
+                 K.flash_decode_sparse_plain)):
+            out[name].update(
+                ms=cuda_ms(lambda: cuda_fn(qd, ck, cv, tok_mask,
+                                           block_kv=bs), 50),
+                plain_ms=cuda_ms(lambda: plain_fn(qd, ck, cv, tok_mask,
+                                                  block_kv=bs), 10),
+                bound_ms=db[0], bound_by=db[1], library_ms=lib)
+        for name, r in out.items():
+            extra = (f", contiguous kernel on the gathered pages "
+                     f"{r['contiguous_ms']:.4f}" if "contiguous_ms" in r
+                     else f", of which table staging {r['staging_ms']:.4f}"
+                     if "staging_ms" in r else "")
+            print(f"  {name} bf16: {r['ms']:.4f} ms (plain "
+                  f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by "
+                  f"{r['bound_by']}, library {r['library_ms']}{extra})",
+                  flush=True)
+
+        # ---- the public functions no serving path reaches, once each
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        api = {
+            "block_sparse_attn_paged": K.block_sparse_attention_batched_paged(
+                qc, pool_k, pool_v, table, pidx, pcnt, **kw)[0],
+            "decode_attn_dense": K.flash_decode(qd, ck, cv, tok_mask,
+                                                block_kv=bs),
+            "decode_attn_sparse": K.flash_decode_sparse(qd, ck, cv, tok_mask,
+                                                        block_kv=bs),
+        }
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        print(f"kernel API calls: launches {counts}", flush=True)
+        want = {name: int(name in api) for name in counts}
+        if counts != want:
+            raise AssertionError(f"kernel API calls launched {counts}, "
+                                 f"expected {want}")
+        same = (torch.equal(api["block_sparse_attn_paged"],
+                            K.block_sparse_attention_paged_cuda(
+                                qc, pool_k, pool_v, table, pidx, pcnt,
+                                **kw)[0])
+                and torch.equal(api["decode_attn_dense"],
+                                K.flash_decode_cuda(qd, ck, cv, tok_mask,
+                                                    block_kv=bs))
+                and torch.equal(api["decode_attn_sparse"],
+                                K.flash_decode_sparse_single_cuda(
+                                    qd, ck, cv, tok_mask, block_kv=bs)))
+        if not same:
+            raise AssertionError("a public function's result differs from "
+                                 "its checked kernel's on the same inputs")
+    return out, counts
+
+
+# ---------------------------------------------------------------- phase 8
+
+# first-step logits of the per-sample serve against phase 4's: at most this
+# share of the largest |logit| (2.5 bf16 ulps; both runs do the same
+# kernels' arithmetic per (head, row), and only the torch ops that build
+# masks run at batch 1 instead of 2), which is also the near-tie margin of
+# the greedy comparison
+PER_SAMPLE_RTOL = 1e-2
+
+
+def serve_per_sample(model, params, prompts, layers: int, batch: dict
+                     ) -> dict:
+    """Phase 8: phase 4's requests served through the per-sample path
+    (``attn_impl="kernel"``): the single-sample kernel and the strip once
+    per sample and layer, the batched block-sparse kernel never, decode as
+    in phase 4; greedy tokens and first-step logits against phase 4's."""
+    import torch
+    run = serve_full(model, params, prompts,
+                     {"block_sparse_attn_single": 2 * layers},
+                     attn_impl="kernel")
+    counts, ref_counts = run["counts"], batch["counts"]
+    want = dict(ref_counts, block_sparse_attn=0,
+                block_sparse_attn_single=len(prompts) * layers,
+                strip=len(prompts) * layers)
+    if counts != want:
+        raise AssertionError(f"per-sample serve launched {counts}, "
+                             f"expected {want}")
+    first, ref_first = run["logits"][0], batch["logits"][0]
+    err = max_err(first, ref_first)
+    tol = PER_SAMPLE_RTOL * float(ref_first.abs().max())
+    print(f"  first-step logits max_abs_err against phase 4 {err:.3e} "
+          f"(tol {tol:.3e})", flush=True)
+    if err > tol:
+        raise AssertionError(f"per-sample logits differ by {err} > {tol}")
+    for i, (a, c) in enumerate(zip(batch["reqs"], run["reqs"])):
+        logits = torch.stack([x[i] for x in batch["logits"]]).cpu().numpy()
+        verdict = greedy_agree(a.output_tokens, logits, c.output_tokens, tol)
+        print(f"  request {a.uid}: {verdict}", flush=True)
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -963,7 +1341,11 @@ def main() -> int:
     small_serve_agreement()
     print("== phase 4: full-width serve", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    counts = serve_full(model, params, prompts, cfg.num_layers)
+    layers = cfg.num_layers
+    batch = serve_full(model, params, prompts, {
+        "strip": layers, "block_sparse_attn": layers,
+        "decode_attn": layers * (NEW_TOKENS - 1)})
+    counts = dict(batch["counts"])
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
     profile_serve("(phase 4, 4 new tokens)", lambda wrap: ServingEngine(
@@ -983,13 +1365,37 @@ def main() -> int:
     paged_prompts = [rng.integers(0, cfg.vocab_size, n)
                      for n, _ in PAGED_REQUESTS]
     torch.cuda.reset_peak_memory_stats()
-    paged_counts = serve_paged(model, params, paged_prompts, cfg.num_layers)
+    paged_counts = serve_paged(model, params, paged_prompts, layers)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
     counts["decode_attn_paged"] = paged_counts["decode_attn_paged"]
     profile_serve("(phase 6, paged scheduler)", lambda wrap: scheduler_serve(
         wrap(model), params, paged_prompts,
         [m for _, m in PAGED_REQUESTS], paged=True, num_pages=NUM_PAGES))
+    torch.cuda.empty_cache()
+    print("== phase 7: kernel API kernels against their plain versions",
+          flush=True)
+    api, api_counts = check_kernel_api(model, params, tokens, prompts[0])
+    res.update(api)
+    for name in ("block_sparse_attn_paged", "decode_attn_dense",
+                 "decode_attn_sparse"):
+        counts[name] = api_counts[name]
+    torch.cuda.empty_cache()
+    print("== phase 8: full-width serve through the per-sample path",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    single = serve_per_sample(model, params, prompts, layers, batch)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    counts["block_sparse_attn_single"] = single["block_sparse_attn_single"]
+    profile_serve("(phase 8, per-sample, 4 new tokens)",
+                  lambda wrap: ServingEngine(
+                      wrap(model), params, model.default_share_prefill(),
+                      EngineConfig(method="share", attn_impl="kernel",
+                                   decode_sparse=True, max_batch=2,
+                                   seq_buckets=(SEQ,))).serve(
+                      [Request(uid=i, prompt=p, max_new_tokens=4)
+                       for i, p in enumerate(prompts)]))
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -19,10 +19,16 @@ For a batch and one layer's heads:
 
 K/V stay un-expanded ``(B, Hkv, N, D)`` throughout.  Each sample carries its
 own dictionary; the reference's per-sample ``vmap`` is a batch axis here.
+
+A per-sample attention function (no ``fn.batched``; ``attn_impl="kernel"``
+or ``"ref"``) takes the reference's other branch instead: the whole layer
+runs once per sample (:func:`share_prefill_attention_layer`, a Python loop
+for the reference's ``vmap``), with no head permutation and no stats gate,
+and the per-sample stats are reduced by :func:`_reduce_layer_stats`.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -36,10 +42,16 @@ from repro_torch.core.determine import (
 )
 from repro_torch.core.patterns import block_mask_density, causal_block_mask
 from repro_torch.core.vertical_slash import search_vertical_slash_from_strip
-from repro_torch.kernels import batched_sparse_attention_fn, compute_strips
+from repro_torch.kernels import (
+    batched_sparse_attention_fn,
+    compute_strips,
+    sparse_attention_fn,
+)
 
 # batched AttentionFn (fn.batched = True): (q (B,H,N,D), k (B,Hkv,N,D),
 # v (B,Hkv,N,Dv), masks (B,H,NB,NB), stats_gate=(B,H)) -> (out, Ã)
+# per-sample AttentionFn: (q (H,N,D), k (Hkv,N,D), v (Hkv,N,Dv),
+# masks (H,NB,NB)) -> (out (H,N,Dv), Ã (H,NB,NB))
 AttentionFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -143,6 +155,45 @@ def _take_heads(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return x[rows, perm]
 
 
+def share_prefill_attention_layer(
+    q: torch.Tensor,                # (H, N, D)
+    k: torch.Tensor,                # (Hkv, N, D)
+    v: torch.Tensor,
+    state: pdict.PivotalState,      # one sample's: no batch axis
+    cluster_ids: torch.Tensor,      # (H,)
+    cfg: SharePrefillConfig,
+    attention_fn: Optional[AttentionFn] = None,
+) -> Tuple[torch.Tensor, pdict.PivotalState, LayerStats]:
+    """One layer of SharePrefill for a single sample.  A batched
+    ``attention_fn`` gets the sample as a batch of one, with the stats
+    gate; a per-sample one (the default, :func:`repro_torch.kernels.
+    sparse_attention_fn`) gets every head's masks and returns every head's
+    Ã."""
+    if attention_fn is None:
+        attention_fn = sparse_attention_fn(block_size=cfg.block_size)
+    state_b = pdict.PivotalState(*(x[None] for x in state))
+    masks, decision = build_share_masks(q[None], k[None], state_b,
+                                        cluster_ids, cfg)
+    if getattr(attention_fn, "batched", False):
+        out, a_tilde = attention_fn(q[None], k[None], v[None], masks,
+                                    stats_gate=decision.use_dense)
+    else:
+        out, a_tilde = attention_fn(q, k, v, masks[0])
+        out, a_tilde = out[None], a_tilde[None]
+    new_state = update_share_state(a_tilde, state_b, cluster_ids, decision,
+                                   cfg)
+    return (out[0], pdict.PivotalState(*(x[0] for x in new_state)),
+            layer_pattern_stats(masks, decision))
+
+
+def _reduce_layer_stats(stats: Sequence[LayerStats]) -> LayerStats:
+    """Per-sample LayerStats reduced over the batch: means, except
+    ``max_row_pop`` (a bound: the max over samples)."""
+    cols = [torch.stack(list(f)) for f in zip(*stats)]
+    means = LayerStats(*(c.mean() for c in cols))
+    return means._replace(max_row_pop=cols[-1].max())
+
+
 def batched_share_prefill_attention_layer(
     q: torch.Tensor,                # (B, H, N, D)
     k: torch.Tensor,                # (B, Hkv, N, D)
@@ -152,13 +203,23 @@ def batched_share_prefill_attention_layer(
     cfg: SharePrefillConfig,
     attention_fn: Optional[AttentionFn] = None,
 ) -> Tuple[torch.Tensor, pdict.PivotalState, LayerStats]:
-    """One layer of SharePrefill over a batch (module docstring).  Only
-    batched attention functions (``fn.batched``) are taken."""
+    """One layer of SharePrefill over a batch (module docstring).  A
+    per-sample ``attention_fn`` runs the layer sample by sample, each
+    sample with its own dictionary."""
     if attention_fn is None:
         attention_fn = batched_sparse_attention_fn(block_size=cfg.block_size)
     if not getattr(attention_fn, "batched", False):
-        raise ValueError("the port's SharePrefill layer takes a batched "
-                         "attention function (fn.batched = True)")
+        outs, states, stats = [], [], []
+        for i in range(q.shape[0]):
+            o, st, ls = share_prefill_attention_layer(
+                q[i], k[i], v[i], pdict.PivotalState(*(x[i] for x in state)),
+                cluster_ids, cfg, attention_fn)
+            outs.append(o)
+            states.append(st)
+            stats.append(ls)
+        return (torch.stack(outs),
+                pdict.PivotalState(*(torch.stack(f) for f in zip(*states))),
+                _reduce_layer_stats(stats))
     group = q.shape[1] // k.shape[1]
     masks, decision = build_share_masks(q, k, state, cluster_ids, cfg)
     gate = decision.use_dense                              # (B, H)

@@ -1,9 +1,11 @@
-// Batched GQA sparse decode over DecodePlan tables, on a contiguous cache or
-// on a block-paged pool.
+// GQA flash decode: one kernel body, four instances.
 //
-// Replaces the TPU kernels repro/kernels/decode_attn.py::
-// flash_decode_sparse_batched (_batched_kernel) and
-// flash_decode_sparse_batched_paged (_paged_kernel).  One query token per
+// Replaces the TPU kernels of repro/kernels/decode_attn.py:
+//   PLAN        flash_decode_sparse_batched (_batched_kernel)
+//   PAGED       flash_decode_sparse_batched_paged (_paged_kernel)
+//   MASK_DENSE  flash_decode (_kernel)
+//   MASK_TABLE  flash_decode_sparse (_sparse_kernel)
+// PLAN and PAGED decode over DecodePlan tables.  One query token per
 // sequence: for every (batch b, kv head h) the CTA holds the G query vectors
 // of that kv head's group and walks indices[b, h, :counts[b, h]]; in block
 // j, key t is visible to query head g only if keep_heads[b, h, j, g] and
@@ -22,7 +24,7 @@
 // at B = 2), far too few to saturate the memory system: splitting the table
 // across CTAs (split-K) is later work.
 //
-// Paged instance (PAGED = true): K/V live in a pool (P, Hkv, ps, D) and the
+// Paged instance (PAGED): K/V live in a pool (P, Hkv, ps, D) and the
 // tile of table entry j for slot b, kv head hk starts at
 // pool + ((page_table[b * NB + j] * Hkv + hk) * ps) * D, in size_t (a whole
 // pool comes near 2^31 elements).  That address is the only difference: the
@@ -30,6 +32,15 @@
 // coordinates, so the paged instance is bitwise the contiguous one run on
 // the gathered pages.  A page id outside [0, P) is never read: its block is
 // skipped.
+//
+// Token-mask instances (MASK_DENSE, MASK_TABLE): the reference's single-
+// sample kernels take a per-(query head, token) mask (H, S) instead of keep
+// bits x slot validity; key t of block j is visible to head g of kv head hk
+// only if mask[b, hk * G + g, j * bs + t] (uint8).  MASK_DENSE walks all
+// S / bs blocks in order; MASK_TABLE walks the per-kv-head union table that
+// the wrapper stages on the device (the reference's argsort of the blocks
+// with any kept token, padded with the last id).  A head whose mask is all
+// false writes exact zeros, by the same -inf-safe max.
 #include <cstdint>
 
 #include "common.cuh"
@@ -41,15 +52,21 @@ constexpr int NT = 128;    // threads
 constexpr int GMAX = 8;    // largest GQA group
 constexpr int DMAX = 256;  // largest head dim (two columns per thread)
 
-template <typename T, bool PAGED>
+enum Mode { PLAN = 0, PAGED = 1, MASK_DENSE = 2, MASK_TABLE = 3 };
+
+// keep / valid are read by PLAN and PAGED, mask by MASK_DENSE and
+// MASK_TABLE, indices / counts by all but MASK_DENSE, page_table by PAGED.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(NT)
 decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
               const T* __restrict__ cv, const int* __restrict__ page_table,
               const int* __restrict__ indices,
               const int* __restrict__ counts,
               const uint8_t* __restrict__ keep,
-              const uint8_t* __restrict__ valid, T* __restrict__ out, int H,
+              const uint8_t* __restrict__ valid,
+              const uint8_t* __restrict__ mask, T* __restrict__ out, int H,
               int Hkv, int S, int D, int NB, int W, int P, float scale) {
+  constexpr bool BY_PLAN = MODE == PLAN || MODE == PAGED;
   extern __shared__ float smem[];
   const int G = H / Hkv;
   float* q_s = smem;                    // G x D
@@ -63,7 +80,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bs = S / NB;
   const size_t bk = (size_t)b * Hkv + hk;
-  const uint8_t* vrow = valid + (size_t)b * S;
+  const uint8_t* vrow = BY_PLAN ? valid + (size_t)b * S : nullptr;
+  // the token mask's rows of this kv head's G query heads
+  const uint8_t* mrow =
+      BY_PLAN ? nullptr : mask + ((size_t)b * H + (size_t)hk * G) * S;
 
   for (int i = tid; i < G * D; i += NT)
     q_s[i] = repro::to_f(q[((size_t)b * H + (size_t)hk * G) * D + i]);
@@ -72,12 +92,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
 #pragma unroll
   for (int g = 0; g < GMAX; ++g) { acc[g][0] = 0.f; acc[g][1] = 0.f; }
 
-  const int n = counts[bk];
+  const int n = MODE == MASK_DENSE ? NB : counts[bk];
   for (int w = 0; w < n; ++w) {
-    const int j = indices[bk * W + w];
+    const int j = MODE == MASK_DENSE ? w : indices[bk * W + w];
     // the block's first key, in the cache or in its page
     size_t tile;
-    if constexpr (PAGED) {
+    if constexpr (MODE == PAGED) {
       const int page = page_table[(size_t)b * NB + j];
       if (page < 0 || page >= P) continue;    // uniform across the CTA
       tile = ((size_t)page * Hkv + hk) * (size_t)bs * D;
@@ -88,7 +108,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
     const T* vb = cv + tile;
     for (int t0 = 0; t0 < bs; t0 += KT) {
       __syncthreads();                  // previous tile fully consumed
-      if (t0 == 0 && tid < G)
+      if (BY_PLAN && t0 == 0 && tid < G)
         keep_s[tid] = keep[(bk * NB + j) * G + tid];
       for (int i = tid; i < KT * D; i += NT) {
         int r = i / D, c = i - r * D;
@@ -98,13 +118,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
       }
       __syncthreads();
       const int key = j * bs + t0 + lane;
-      const bool tok = vrow[key] != 0;
+      const bool tok = BY_PLAN ? vrow[key] != 0 : false;
       for (int g = warp; g < G; g += NT / 32) {
         float s = 0.f;
         for (int d = 0; d < D; ++d)
           s = fmaf(q_s[g * D + d], k_s[lane * (D + 1) + d], s);
         s *= scale;
-        const bool ok = tok && keep_s[g] != 0;
+        const bool ok = BY_PLAN ? tok && keep_s[g] != 0
+                                : mrow[(size_t)g * S + key] != 0;
         const float mx = repro::group_max<32>(ok ? s : -CUDART_INF_F);
         const float m_prev = m_s[g];
         const float m_new = fmaxf(m_prev, mx);
@@ -151,40 +172,42 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   }
 }
 
-template <typename T, bool PAGED>
+template <typename T, int MODE>
 int launch(const void* q, const void* ck, const void* cv,
            const int* page_table, const int* indices, const int* counts,
-           const uint8_t* keep, const uint8_t* valid, void* out, int B,
-           int H, int Hkv, int S, int D, int NB, int W, int P, void* stream) {
+           const uint8_t* keep, const uint8_t* valid, const uint8_t* mask,
+           void* out, int B, int H, int Hkv, int S, int D, int NB, int W,
+           int P, void* stream) {
   const int G = H / Hkv;
   const size_t smem =
       (size_t)(G * D + KT * (D + 1) + KT * D + G * KT) * sizeof(float);
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute(decode_kernel<T, PAGED>,
+    cudaFuncSetAttribute(decode_kernel<T, MODE>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
   dim3 grid(Hkv, B);
-  decode_kernel<T, PAGED><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  decode_kernel<T, MODE><<<grid, NT, smem, (cudaStream_t)stream>>>(
       (const T*)q, (const T*)ck, (const T*)cv, page_table, indices, counts,
-      keep, valid, (T*)out, H, Hkv, S, D, NB, W, P,
+      keep, valid, mask, (T*)out, H, Hkv, S, D, NB, W, P,
       1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <bool PAGED>
+template <int MODE>
 int dispatch(const void* q, const void* ck, const void* cv,
              const int* page_table, const int* indices, const int* counts,
-             const uint8_t* keep, const uint8_t* valid, void* out, int dtype,
-             int B, int H, int Hkv, int S, int D, int NB, int W, int P,
-             void* stream) {
+             const uint8_t* keep, const uint8_t* valid, const uint8_t* mask,
+             void* out, int dtype, int B, int H, int Hkv, int S, int D,
+             int NB, int W, int P, void* stream) {
   if (H % Hkv || H / Hkv > GMAX || D > DMAX || S % NB || (S / NB) % KT)
     return (int)cudaErrorInvalidValue;
   if (dtype == REPRO_BF16)
-    return launch<__nv_bfloat16, PAGED>(q, ck, cv, page_table, indices,
-                                        counts, keep, valid, out, B, H, Hkv,
-                                        S, D, NB, W, P, stream);
-  return launch<float, PAGED>(q, ck, cv, page_table, indices, counts, keep,
-                              valid, out, B, H, Hkv, S, D, NB, W, P, stream);
+    return launch<__nv_bfloat16, MODE>(q, ck, cv, page_table, indices,
+                                       counts, keep, valid, mask, out, B, H,
+                                       Hkv, S, D, NB, W, P, stream);
+  return launch<float, MODE>(q, ck, cv, page_table, indices, counts, keep,
+                             valid, mask, out, B, H, Hkv, S, D, NB, W, P,
+                             stream);
 }
 
 }  // namespace
@@ -195,8 +218,9 @@ extern "C" int repro_decode_attn(const void* q, const void* ck,
                                  const uint8_t* valid, void* out, int dtype,
                                  int B, int H, int Hkv, int S, int D, int NB,
                                  int W, void* stream) {
-  return dispatch<false>(q, ck, cv, nullptr, indices, counts, keep, valid,
-                         out, dtype, B, H, Hkv, S, D, NB, W, 0, stream);
+  return dispatch<PLAN>(q, ck, cv, nullptr, indices, counts, keep, valid,
+                        nullptr, out, dtype, B, H, Hkv, S, D, NB, W, 0,
+                        stream);
 }
 
 // pool_k / pool_v: one layer's (P, Hkv, ps, D) pool; page_table (B, NB);
@@ -210,7 +234,26 @@ extern "C" int repro_decode_attn_paged(const void* q, const void* pool_k,
                                        int dtype, int B, int H, int Hkv,
                                        int ps, int D, int NB, int W, int P,
                                        void* stream) {
-  return dispatch<true>(q, pool_k, pool_v, page_table, indices, counts, keep,
-                        valid, out, dtype, B, H, Hkv, NB * ps, D, NB, W, P,
-                        stream);
+  return dispatch<PAGED>(q, pool_k, pool_v, page_table, indices, counts,
+                         keep, valid, nullptr, out, dtype, B, H, Hkv, NB * ps,
+                         D, NB, W, P, stream);
+}
+
+// q (B, H, D); cache_k / cache_v (B, Hkv, S, D); mask (B, H, S) uint8 with
+// S = NB * bs.  table = 0 walks every block (flash_decode); table = 1 walks
+// indices[b, hk, :counts[b, hk]] of the (B, Hkv, NB) union table
+// (flash_decode_sparse).
+extern "C" int repro_decode_attn_mask(const void* q, const void* ck,
+                                      const void* cv, const int* indices,
+                                      const int* counts, const uint8_t* mask,
+                                      void* out, int dtype, int B, int H,
+                                      int Hkv, int S, int D, int NB,
+                                      int table, void* stream) {
+  if (table)
+    return dispatch<MASK_TABLE>(q, ck, cv, nullptr, indices, counts, nullptr,
+                                nullptr, mask, out, dtype, B, H, Hkv, S, D,
+                                NB, NB, 0, stream);
+  return dispatch<MASK_DENSE>(q, ck, cv, nullptr, nullptr, nullptr, nullptr,
+                              nullptr, mask, out, dtype, B, H, Hkv, S, D, NB,
+                              NB, 0, stream);
 }

@@ -2,12 +2,15 @@
 its plain PyTorch version.
 
   strip.py              strip-score kernel (Algorithm-3 estimation pass)
-  block_sparse_attn.py  batched block-sparse prefill attention + fused Ã
-  decode_attn.py        batched sparse decode over DecodePlan tables, on a
-                        contiguous cache or a block-paged pool
-  indices.py            mask → (indices, counts) staging
+  block_sparse_attn.py  block-sparse prefill attention + fused Ã: batched,
+                        through a page table, and single-sample
+  decode_attn.py        sparse decode over DecodePlan tables, on a
+                        contiguous cache or a block-paged pool, and the
+                        single-sample decodes under a token mask
+  indices.py            mask ⇄ (indices, counts) staging + Ã scatter
   chunked.py            dense attention in plain PyTorch
-  ops.py                table staging and GQA helpers
+  ops.py                table staging, GQA helpers, per-sample AttentionFn
+  ref.py                plain oracles (``attn_impl="ref"``)
   _build.py             nvcc build of ``csrc/*.cu`` and ctypes loading
 
 Every kernel wrapper takes its plain version for CPU tensors and launches
@@ -22,25 +25,50 @@ import torch
 
 from repro_torch.kernels.block_sparse_attn import (
     block_sparse_attention_batched,
+    block_sparse_attention_batched_paged,
     block_sparse_attention_cuda,
+    block_sparse_attention_kernel,
+    block_sparse_attention_paged_cuda,
+    block_sparse_attention_paged_plain,
     block_sparse_attention_plain,
+    block_sparse_attention_single_cuda,
+    block_sparse_attention_single_plain,
 )
 from repro_torch.kernels.decode_attn import (
     DecodePlan,
+    decode_block_table,
     decode_plan_einsum,
     decode_plan_einsum_sliced,
+    flash_decode,
+    flash_decode_cuda,
+    flash_decode_plain,
     flash_decode_plan,
+    flash_decode_sparse,
     flash_decode_sparse_batched,
     flash_decode_sparse_cuda,
     flash_decode_sparse_paged_cuda,
+    flash_decode_sparse_plain,
+    flash_decode_sparse_single_cuda,
     resolve_decode_impl,
 )
 from repro_torch.kernels.indices import (
+    build_block_tables,
     cap_block_mask,
     compact_block_mask,
+    scatter_block_stats,
     table_block_mask,
 )
-from repro_torch.kernels.ops import batched_block_sparse_attention, expand_kv
+from repro_torch.kernels.ops import (
+    batched_block_sparse_attention,
+    block_sparse_attention,
+    expand_kv,
+    make_attention_fn,
+)
+from repro_torch.kernels.ref import (
+    block_sparse_attention_ref,
+    decode_attention_ref,
+    dense_attention_ref,
+)
 from repro_torch.kernels.strip import (
     compute_strips,
     strip_scores,
@@ -53,6 +81,10 @@ KERNELS = {
     "block_sparse_attn": block_sparse_attention_cuda,
     "decode_attn": flash_decode_sparse_cuda,
     "decode_attn_paged": flash_decode_sparse_paged_cuda,
+    "block_sparse_attn_single": block_sparse_attention_single_cuda,
+    "block_sparse_attn_paged": block_sparse_attention_paged_cuda,
+    "decode_attn_dense": flash_decode_cuda,
+    "decode_attn_sparse": flash_decode_sparse_single_cuda,
 }
 
 
@@ -63,6 +95,33 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def _check_grid(nbq: int, nbkv: int, n_q: int, n_kv: int,
+                block_size: int) -> None:
+    if nbq * block_size != n_q or nbkv * block_size != n_kv:
+        raise ValueError(
+            f"mask grid ({nbq}, {nbkv}) at block {block_size} does not "
+            f"tile q {n_q} / kv {n_kv} tokens")
+
+
+def sparse_attention_fn(*, block_size: int, causal: bool = True,
+                        width: Optional[int] = None):
+    """Bind the single-sample sparse path as a per-sample AttentionFn:
+    ``(q (H,N,D), k (Hkv,N,D), v (Hkv,N,Dv), masks (H,NBq,NBkv)) -> (out
+    (H,N,Dv), Ã (H,NBq,NBkv))`` through the single-sample kernel.  As in
+    :func:`batched_sparse_attention_fn`, a mask grid that does not tile q
+    and k/v at exactly ``block_size`` raises ``ValueError``."""
+
+    def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           masks: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        _check_grid(masks.shape[-2], masks.shape[-1], q.shape[1], k.shape[1],
+                    block_size)
+        return block_sparse_attention(
+            q, k, v, masks, block_size=block_size, causal=causal,
+            impl="kernel", width=width)
+
+    return fn
 
 
 def batched_sparse_attention_fn(*, block_size: int,
@@ -79,11 +138,8 @@ def batched_sparse_attention_fn(*, block_size: int,
     def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            masks: torch.Tensor, stats_gate: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-        nbq, nbkv = masks.shape[-2], masks.shape[-1]
-        if nbq * block_size != q.shape[2] or nbkv * block_size != k.shape[2]:
-            raise ValueError(
-                f"mask grid ({nbq}, {nbkv}) at block {block_size} does not "
-                f"tile q {q.shape[2]} / kv {k.shape[2]} tokens")
+        _check_grid(masks.shape[-2], masks.shape[-1], q.shape[2], k.shape[2],
+                    block_size)
         return batched_block_sparse_attention(
             q, k, v, masks, block_size=block_size, width=width,
             stats_gate=stats_gate)
@@ -94,13 +150,21 @@ def batched_sparse_attention_fn(*, block_size: int,
 
 __all__ = [
     "DecodePlan", "KERNELS", "batched_block_sparse_attention",
-    "batched_sparse_attention_fn", "block_sparse_attention_batched",
-    "block_sparse_attention_cuda", "block_sparse_attention_plain",
+    "batched_sparse_attention_fn", "block_sparse_attention",
+    "block_sparse_attention_batched", "block_sparse_attention_batched_paged",
+    "block_sparse_attention_cuda", "block_sparse_attention_kernel",
+    "block_sparse_attention_paged_cuda", "block_sparse_attention_paged_plain",
+    "block_sparse_attention_plain", "block_sparse_attention_ref",
+    "block_sparse_attention_single_cuda",
+    "block_sparse_attention_single_plain", "build_block_tables",
     "cap_block_mask", "compact_block_mask", "compute_strips",
-    "decode_plan_einsum", "decode_plan_einsum_sliced", "expand_kv",
-    "flash_decode_plan", "flash_decode_sparse_batched",
+    "decode_attention_ref", "decode_block_table", "decode_plan_einsum",
+    "decode_plan_einsum_sliced", "dense_attention_ref", "expand_kv",
+    "flash_decode", "flash_decode_cuda", "flash_decode_plain",
+    "flash_decode_plan", "flash_decode_sparse", "flash_decode_sparse_batched",
     "flash_decode_sparse_cuda", "flash_decode_sparse_paged_cuda",
-    "launch_counts", "reset_launch_counts",
-    "resolve_decode_impl", "strip_scores", "strip_scores_cuda",
-    "table_block_mask",
+    "flash_decode_sparse_plain", "flash_decode_sparse_single_cuda",
+    "launch_counts", "make_attention_fn", "reset_launch_counts",
+    "resolve_decode_impl", "scatter_block_stats", "sparse_attention_fn",
+    "strip_scores", "strip_scores_cuda", "table_block_mask",
 ]

@@ -27,7 +27,13 @@ coordinates; only the K/V address goes through ``page_table[b, j]``.
     :func:`flash_decode_sparse_paged_cuda` (the paged instance of the same
     kernel; replaces ``flash_decode_sparse_batched_paged``),
     :func:`flash_decode_sparse_batched_paged` and
-    :func:`flash_decode_plan_paged` — the same five over the paged pool.
+    :func:`flash_decode_plan_paged` — the same five over the paged pool;
+  * :func:`flash_decode` and :func:`flash_decode_sparse` — the reference's
+    single-sample kernels under a per-(query head, token) mask ``(H, S)``
+    (public API; no serving path calls them), each with its plain version
+    (:func:`flash_decode_plain`, :func:`flash_decode_sparse_plain`) and its
+    kernel (:func:`flash_decode_cuda`, :func:`flash_decode_sparse_single_cuda`;
+    replace ``flash_decode`` and ``flash_decode_sparse``).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.indices import compact_block_mask
 
 NEG_INF = float("-inf")
 
@@ -362,3 +369,171 @@ def flash_decode_plan_paged(q, pool_k, pool_v, page_table, plan: DecodePlan,
                                                page_table, plan, valid)
     return decode_plan_einsum_paged(q, pool_k, pool_v, page_table,
                                     plan.keep_heads, valid)
+
+
+# ---------------------------------------------------------------------------
+# Single-sample decode under a per-(query head, token) mask
+# ---------------------------------------------------------------------------
+
+def _masked_decode(qg, k, v, ok, out_dtype):
+    """Masked-softmax decode of ``qg (Hkv, G, D)`` against ``k``/``v (Hkv,
+    S, D)`` under ``ok (Hkv, G, S)``; ``(Hkv·G, Dv)``.  A head with nothing
+    visible gets zeros (max guarded, denominator ``max(l, 1e-30)``)."""
+    hkv, g, d = qg.shape
+    logits = torch.einsum("kgd,ksd->kgs", qg.float(), k.float()) \
+        * (1.0 / d ** 0.5)
+    logits = logits.masked_fill(~ok, NEG_INF)
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.where(ok, torch.exp(logits - m), 0.0)
+    denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("kgs,ksd->kgd", p / denom, v.float())
+    return out.to(out_dtype).reshape(hkv * g, v.shape[-1])
+
+
+def flash_decode_plain(q, cache_k, cache_v, mask, *, block_kv: int = 128
+                       ) -> torch.Tensor:
+    """Plain version of :func:`flash_decode`: q ``(H, D)`` against the
+    cache ``(Hkv, S, D)`` under ``mask (H, S)``; ``(H, Dv)``.  Like the
+    reference it reads ``S // block_kv`` whole blocks (a ragged tail is
+    dropped)."""
+    h, d = q.shape
+    hkv = cache_k.shape[0]
+    s = (cache_k.shape[1] // block_kv) * block_kv
+    return _masked_decode(q.reshape(hkv, h // hkv, d), cache_k[:, :s],
+                          cache_v[:, :s], mask[:, :s].reshape(hkv, -1, s),
+                          q.dtype)
+
+
+def decode_block_table(mask: torch.Tensor, num_kv_heads: int,
+                       block_kv: int):
+    """The union block table :func:`flash_decode_sparse` walks: per kv
+    head, the blocks where any head of its group keeps a token, ascending,
+    padded with the last id (the reference's argsort, staged in torch on
+    the mask's device); ``(indices (Hkv, NB), counts (Hkv,))`` int32."""
+    h, s = mask.shape
+    if s % block_kv:
+        raise ValueError(f"sparse decode: S={s} is not a multiple of "
+                         f"block_kv={block_kv}")
+    blk_any = mask.reshape(num_kv_heads, h // num_kv_heads, s // block_kv,
+                           block_kv).any(dim=3).any(dim=1)
+    return compact_block_mask(blk_any)
+
+
+def flash_decode_sparse_plain(q, cache_k, cache_v, mask, *,
+                              block_kv: int = 128) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_sparse`: stages the union table
+    and attends over its blocks only (ranks ≥ counts masked), as the kernel
+    walks it; ``(H, Dv)``."""
+    h, d = q.shape
+    hkv, s, _ = cache_k.shape
+    g, nb = h // hkv, s // block_kv
+    idx, cnt = decode_block_table(mask, hkv, block_kv)
+    live = torch.arange(nb, device=q.device)[None, :] < cnt[:, None]
+    heads = torch.arange(hkv, device=q.device)[:, None]
+    blocks = lambda x: x.reshape(hkv, nb, block_kv, -1)[heads, idx.long()]
+    kg, vg = blocks(cache_k), blocks(cache_v)      # (Hkv, NB, bs, D)
+    ok = mask.reshape(hkv, g, nb, block_kv)[heads, :, idx.long()]
+    ok = ok.permute(0, 2, 1, 3) & live[:, None, :, None]   # (Hkv, G, NB, bs)
+    return _masked_decode(q.reshape(hkv, g, d),
+                          kg.reshape(hkv, nb * block_kv, d),
+                          vg.reshape(hkv, nb * block_kv, -1),
+                          ok.reshape(hkv, g, nb * block_kv), q.dtype)
+
+
+def _check_masked(what, q, cache_k, cache_v, mask, block_kv):
+    """Shape, device, dtype and contiguity rules of the token-mask
+    kernels; returns ``(H, Hkv, S, D)``."""
+    if q.dim() != 2 or cache_k.dim() != 3 or cache_k.shape != cache_v.shape \
+            or cache_k.shape[2] != q.shape[1] \
+            or q.shape[0] % cache_k.shape[0] \
+            or tuple(mask.shape) != (q.shape[0], cache_k.shape[1]):
+        raise ValueError(f"{what}: q {tuple(q.shape)}, cache "
+                         f"{tuple(cache_k.shape)} / {tuple(cache_v.shape)}, "
+                         f"mask {tuple(mask.shape)}")
+    h, d = q.shape
+    hkv, s = cache_k.shape[:2]
+    if s % block_kv or block_kv % 32 or h // hkv > 8 or d > 256:
+        raise ValueError(f"{what} kernel needs S % block_kv == 0, block_kv a "
+                         f"multiple of 32, G <= 8 and D <= 256 (S={s}, "
+                         f"block_kv={block_kv}, G={h // hkv}, D={d})")
+    if not all(t.is_cuda and t.device == q.device
+               for t in (q, cache_k, cache_v, mask)):
+        raise ValueError(f"{what} kernel takes CUDA tensors on one device")
+    if not (q.dtype == cache_k.dtype == cache_v.dtype) \
+            or mask.dtype != torch.bool:
+        raise ValueError(f"{what} kernel takes q and cache of one dtype and "
+                         "a bool mask")
+    if not all(t.is_contiguous() for t in (q, cache_k, cache_v, mask)):
+        raise ValueError(f"{what} kernel takes contiguous tensors")
+    return h, hkv, s, d
+
+
+def _launch_masked(q, cache_k, cache_v, mask, indices, counts, *, h, hkv,
+                   s, d, nb, what):
+    out = torch.empty_like(q)
+    fn = _build.load("decode_attn").repro_decode_attn_mask
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
+        + [ctypes.c_void_p]
+    table = indices is not None
+    code = fn(_build.ptr(q), _build.ptr(cache_k), _build.ptr(cache_v),
+              _build.ptr(indices) if table else None,
+              _build.ptr(counts) if table else None, _build.ptr(mask),
+              _build.ptr(out), _build.dtype_code(q), 1, h, hkv, s, d, nb,
+              int(table), _build.stream_of(q))
+    _build.check(code, what)
+    return out
+
+
+def flash_decode_cuda(q, cache_k, cache_v, mask, *, block_kv: int = 128
+                      ) -> torch.Tensor:
+    """The dense-walk token-mask instance of ``csrc/decode_attn.cu`` on
+    CUDA tensors (replaces the TPU kernel ``flash_decode``); raises on what
+    it does not take, a ragged ``S % block_kv`` included.  ``(H, D)``."""
+    h, hkv, s, d = _check_masked("flash decode", q, cache_k, cache_v, mask,
+                                 block_kv)
+    out = _launch_masked(q, cache_k, cache_v, mask, None, None, h=h,
+                         hkv=hkv, s=s, d=d, nb=s // block_kv,
+                         what="flash decode kernel")
+    flash_decode_cuda.launches += 1
+    return out
+
+
+flash_decode_cuda.launches = 0
+
+
+def flash_decode_sparse_single_cuda(q, cache_k, cache_v, mask, *,
+                                    block_kv: int = 128) -> torch.Tensor:
+    """The table-walk token-mask instance of ``csrc/decode_attn.cu`` on CUDA
+    tensors (replaces the TPU kernel ``flash_decode_sparse``): stages the
+    union table on the device, then launches.  ``(H, D)``."""
+    h, hkv, s, d = _check_masked("sparse flash decode", q, cache_k, cache_v,
+                                 mask, block_kv)
+    idx, cnt = decode_block_table(mask, hkv, block_kv)
+    out = _launch_masked(q, cache_k, cache_v, mask, idx.contiguous(),
+                         cnt.contiguous(), h=h, hkv=hkv, s=s, d=d,
+                         nb=s // block_kv, what="sparse flash decode kernel")
+    flash_decode_sparse_single_cuda.launches += 1
+    return out
+
+
+flash_decode_sparse_single_cuda.launches = 0
+
+
+def flash_decode(q, cache_k, cache_v, mask, *, block_kv: int = 128
+                 ) -> torch.Tensor:
+    """Single-sample decode, q ``(H, D)`` against ``(Hkv, S, D)`` under the
+    token mask ``(H, S)``, every block streamed; ``(H, Dv)`` in q's dtype.
+    The kernel for CUDA tensors, its plain version for CPU tensors."""
+    fn = flash_decode_cuda if q.is_cuda else flash_decode_plain
+    return fn(q, cache_k, cache_v, mask, block_kv=block_kv)
+
+
+def flash_decode_sparse(q, cache_k, cache_v, mask, *, block_kv: int = 128
+                        ) -> torch.Tensor:
+    """:func:`flash_decode` skipping the kv blocks where no head of the
+    group keeps a token (a per-call block table).  The kernel for CUDA
+    tensors, its plain version for CPU tensors."""
+    fn = (flash_decode_sparse_single_cuda if q.is_cuda
+          else flash_decode_sparse_plain)
+    return fn(q, cache_k, cache_v, mask, block_kv=block_kv)

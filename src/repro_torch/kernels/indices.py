@@ -11,7 +11,9 @@ tables must equal the reference's exactly:
 
 The reference's ragged-schedule stats layout ``(B, T, H)`` and its
 ``scatter_schedule_stats`` inverse exist because the TPU grid runs in order;
-the port's CUDA kernel writes Ã in place, so neither is ported.
+the port's batched CUDA kernel writes Ã in place, so neither is ported.  The
+single-sample kernel returns its stats compact per table slot, and
+:func:`scatter_block_stats` is their inverse.
 """
 from __future__ import annotations
 
@@ -62,3 +64,20 @@ def table_block_mask(indices: torch.Tensor, counts: torch.Tensor,
     cols = torch.arange(nb_kv, device=indices.device)
     hit = (indices[..., None] == cols) & live[..., None]   # (…, W, NBkv)
     return hit.any(dim=-2)
+
+
+def build_block_tables(block_mask: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Lossless (uncapped) :func:`compact_block_mask`."""
+    return compact_block_mask(block_mask, width=None)
+
+
+def scatter_block_stats(stats_compact: torch.Tensor, indices: torch.Tensor,
+                        nb_kv: int) -> torch.Tensor:
+    """Compact per-slot stats ``(…, NBq, W)`` → the full ``(…, NBq, NBkv)``
+    f32 Ã with a −inf background.  A max-scatter: padded slots repeat the
+    last kept id and carry −inf, so they never overwrite its value."""
+    full = torch.full((*stats_compact.shape[:-1], nb_kv), float("-inf"),
+                      dtype=torch.float32, device=stats_compact.device)
+    return full.scatter_reduce(-1, indices.long(),
+                               stats_compact.to(torch.float32), reduce="amax")

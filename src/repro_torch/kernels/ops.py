@@ -1,14 +1,19 @@
-"""Wrappers around the attention kernels: table staging, GQA expansion."""
+"""Wrappers around the attention kernels: table staging, GQA expansion,
+and the per-sample AttentionFn behind ``attn_impl="kernel"`` / ``"ref"``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ref as ref_ops
 from repro_torch.kernels.block_sparse_attn import (
     block_sparse_attention_batched,
+    block_sparse_attention_kernel,
 )
-from repro_torch.kernels.indices import compact_block_mask
+from repro_torch.kernels.indices import compact_block_mask, scatter_block_stats
+
+BLOCK_SPARSE_IMPLS = ("kernel", "ref")
 
 
 def expand_kv(k: torch.Tensor, v: torch.Tensor, num_q_heads: int
@@ -43,3 +48,43 @@ def batched_block_sparse_attention(
         q, k, v, indices.contiguous(), counts.contiguous(),
         block_size=block_size, causal=causal, stats_gate=stats_gate,
         q_block_offset=q_block_offset)
+
+
+def block_sparse_attention(
+    q: torch.Tensor,            # (H, N, D)
+    k: torch.Tensor,            # (Hkv or H, N, D)
+    v: torch.Tensor,            # (Hkv or H, N, Dv)
+    block_mask: torch.Tensor,   # (H, NBq, NBkv) bool
+    *,
+    block_size: int,
+    causal: bool = True,
+    impl: str = "kernel",
+    width: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Block-sparse attention + Ã for one sample: ``(out (H, N, Dv), Ã (H,
+    NBq, NBkv))``.  ``kernel`` stages the mask's tables (capped at
+    ``width``), runs the single-sample kernel and scatters its compact
+    stats; ``ref`` expands K/V and runs the oracle (which, as in the
+    reference, takes no ``width``)."""
+    if impl == "ref":
+        k, v = expand_kv(k, v, q.shape[0])
+        return ref_ops.block_sparse_attention_ref(
+            q, k, v, block_mask, block_size=block_size, causal=causal)
+    if impl != "kernel":
+        raise ValueError(f"unknown block-sparse impl {impl!r}; expected one "
+                         f"of {BLOCK_SPARSE_IMPLS}")
+    indices, counts = compact_block_mask(block_mask, width=width)
+    out, stats = block_sparse_attention_kernel(
+        q, k, v, indices.contiguous(), counts.contiguous(),
+        block_size=block_size, causal=causal)
+    return out, scatter_block_stats(stats, indices, block_mask.shape[-1])
+
+
+def make_attention_fn(*, block_size: int, impl: str = "ref",
+                      causal: bool = True, width: Optional[int] = None):
+    """Bind :func:`block_sparse_attention` as a per-sample AttentionFn
+    ``(q, k, v, masks) -> (out, Ã)``."""
+    def fn(q, k, v, masks):
+        return block_sparse_attention(q, k, v, masks, block_size=block_size,
+                                      causal=causal, impl=impl, width=width)
+    return fn

@@ -1,16 +1,23 @@
 """GQA attention layer: prefill and decode (port of
 ``repro/models/attention.py`` for ``method in ("dense", "share")``).
 
-Prefill ``method="share"`` runs SharePrefill through the batched sparse
+Prefill ``method="share"`` runs SharePrefill through the block-sparse
 kernels whenever pattern sharing applies to the sequence length; ``dense``,
 and lengths it does not apply to, attend densely (plain PyTorch).  The
 baseline policies (``vertical_slash``, ``flex``) come with a later slice
 (ROADMAP.md queue A.3).
 
-``attn_impl="auto"`` resolves to the sparse path on every device: the CUDA
-kernels for CUDA tensors, their plain versions for CPU tensors.  (The
-reference's ``auto`` picks dense-chunked attention off the TPU, a different
-function; equivalence tests call the reference with ``attn_impl="sparse"``.)
+``attn_impl`` picks the attention function:
+  * ``auto`` and ``sparse``: the batched path, one launch per layer for the
+    whole batch.  ``auto`` resolves to it on every device: the CUDA kernels
+    for CUDA tensors, their plain versions for CPU tensors.  (The
+    reference's ``auto`` picks dense-chunked attention off the TPU, a
+    different function; equivalence tests call the reference with
+    ``attn_impl="sparse"``.)
+  * ``kernel``: the per-sample path through the single-sample kernel, one
+    launch per sample and layer;
+  * ``ref``: the per-sample path through the plain oracle on expanded K/V.
+``chunked`` is not ported yet (ROADMAP.md A.8).
 """
 from __future__ import annotations
 
@@ -21,23 +28,39 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
-from repro_torch.kernels import batched_sparse_attention_fn, expand_kv
+from repro_torch.kernels import (
+    batched_sparse_attention_fn,
+    cap_block_mask,
+    expand_kv,
+    make_attention_fn,
+)
 from repro_torch.kernels.chunked import chunked_attention
 from repro_torch.kernels.decode_attn import (
     DecodePlan, flash_decode_plan, flash_decode_plan_paged, gather_pages)
 from repro_torch.models import common
 
 PREFILL_METHODS = ("dense", "share")
-PREFILL_ATTN_IMPLS = ("auto", "sparse")
+PREFILL_ATTN_IMPLS = ("auto", "sparse", "ref", "kernel")
 
 
 def resolve_attention_fn(attn_impl: str, block_size: int,
                          width: Optional[int] = None) -> sa.AttentionFn:
-    """``auto`` and ``sparse`` → the batched sparse attention function."""
+    """``auto`` and ``sparse`` → the batched sparse attention function;
+    ``kernel`` and ``ref`` → the per-sample one, with the W cap applied as
+    the boolean :func:`cap_block_mask` (numerically the truncation the
+    sparse path's tables apply)."""
+    if attn_impl == "chunked":
+        raise NotImplementedError("attn_impl 'chunked' comes with chunked "
+                                  "prefill (ROADMAP.md A.8)")
     if attn_impl not in PREFILL_ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of "
                          f"{PREFILL_ATTN_IMPLS}")
-    return batched_sparse_attention_fn(block_size=block_size, width=width)
+    if attn_impl in ("auto", "sparse"):
+        return batched_sparse_attention_fn(block_size=block_size, width=width)
+    base = make_attention_fn(block_size=block_size, impl=attn_impl)
+    if width is None:
+        return base
+    return lambda q, k, v, masks: base(q, k, v, cap_block_mask(masks, width))
 
 
 class AttnStats(NamedTuple):

@@ -149,7 +149,8 @@ _NOT_PORTED = {
 class EngineConfig:
     max_batch: int = 8
     method: str = "share"               # prefill pattern policy
-    attn_impl: str = "auto"             # auto | sparse: the sparse kernels
+    attn_impl: str = "auto"             # auto | sparse (batched) | kernel |
+                                        # ref (per sample)
     seq_buckets: tuple = (512, 2048, 8192, 32768)
     decode_extra: int = 128             # decode headroom beyond the prompt
     decode_sparse: bool = False         # decode through a DecodePlan

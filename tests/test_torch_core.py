@@ -287,10 +287,19 @@ def test_share_prefill_api():
 
 
 def test_share_layer_refuses_unbatched_attention_fn():
-    tstate = sa.init_batched_state(1, H, NB)
-    z = torch.zeros(1, H, N, D)
-    zk = torch.zeros(1, HKV, N, D)
-    with pytest.raises(ValueError, match="batched"):
-        sa.batched_share_prefill_attention_layer(
-            z, zk, zk, tstate, torch.arange(H), SharePrefillConfig(
-                block_size=BS), attention_fn=lambda *a, **k: None)
+    """An unbatched (per-sample) attention function is never handed the
+    batch: the layer runs it once per sample, on that sample's tensors."""
+    calls = []
+
+    def per_sample(q, k, v, masks):
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(masks.shape)))
+        return torch.zeros_like(q), torch.full(masks.shape, float("-inf"))
+
+    tstate = sa.init_batched_state(2, H, NB)
+    z = torch.zeros(2, H, N, D)
+    zk = torch.zeros(2, HKV, N, D)
+    out, new_state, _ = sa.batched_share_prefill_attention_layer(
+        z, zk, zk, tstate, torch.arange(H), SharePrefillConfig(
+            block_size=BS), attention_fn=per_sample)
+    assert calls == [((H, N, D), (HKV, N, D), (H, NB, NB))] * 2
+    assert out.shape == z.shape and new_state.masks.shape[0] == 2

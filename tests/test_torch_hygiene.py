@@ -66,8 +66,12 @@ def test_auto_resolves_to_the_sparse_path_on_both_devices():
     fn = resolve_attention_fn("auto", 64)
     assert fn.batched
     assert resolve_attention_fn("sparse", 64).batched
-    with pytest.raises(ValueError, match="unknown attn_impl"):
+    for impl in ("kernel", "ref"):            # the per-sample path
+        assert not getattr(resolve_attention_fn(impl, 64), "batched", False)
+    with pytest.raises(NotImplementedError, match="A.8"):
         resolve_attention_fn("chunked", 64)
+    with pytest.raises(ValueError, match="unknown attn_impl"):
+        resolve_attention_fn("splash", 64)
     assert resolve_decode_impl("auto", torch.device("cpu")) == "einsum"
     assert resolve_decode_impl("auto", torch.device("cuda")) == "kernel"
     assert resolve_decode_impl("einsum", torch.device("cuda")) == "einsum"
@@ -75,7 +79,9 @@ def test_auto_resolves_to_the_sparse_path_on_both_devices():
 
 def test_launch_counters():
     assert set(KERNELS) == {"strip", "block_sparse_attn", "decode_attn",
-                            "decode_attn_paged"}
+                            "decode_attn_paged", "block_sparse_attn_single",
+                            "block_sparse_attn_paged", "decode_attn_dense",
+                            "decode_attn_sparse"}
     for fn in KERNELS.values():
         fn.launches = 7
     reset_launch_counts()
