@@ -12,7 +12,8 @@ run on error:
      the main path's shapes (llama3-8b-262k: H=32, Hkv=8, D=128, bs=128,
      N=8192, B=2), in bfloat16 and float32, on layer 0's real q/k/v and
      SharePrefill masks plus synthetic edge rows; time kernel, plain
-     version and a PyTorch library call;
+     version and a PyTorch library call (and, for the decode kernel, its
+     device time per call from the profiler and its split count);
   3. serve a small ragged batch through the kernels and through the plain
      versions on the CPU, and compare greedy tokens (near-tie aware);
   4. serve two full-width llama3-8b-262k requests (prompts of 8192 and 7937
@@ -118,6 +119,41 @@ PAGED_REQUESTS = ((8192, 16), (7937, 4), (2048, 24), (1990, 8), (8192, 12),
 NUM_PAGES = 148
 
 
+# the instances of the two templated kernel bodies, by their MODE argument
+# (csrc/block_sparse_attn.cu: the bf16 tensor-core body bsa_tc_kernel and the
+# float32 body bsa_f32_kernel; csrc/decode_attn.cu: decode_kernel and its
+# split combine decode_combine_kernel)
+INSTANCES = {("bsa", "0"): "block_sparse_attn",
+             ("bsa", "1"): "block_sparse_attn_paged",
+             ("bsa", "2"): "block_sparse_attn_single",
+             ("decode", "0"): "decode_attn",
+             ("decode", "1"): "decode_attn_paged",
+             ("decode", "2"): "decode_attn_dense",
+             ("decode", "3"): "decode_attn_sparse"}
+# bsa_*_kernel<BQ, D, MODE>, decode_kernel<T, MODE, GP, CH>,
+# decode_combine_kernel<T, MODE>
+_INSTANCE = re.compile(r"\b(?:(bsa)_(?:tc|f32)_kernel<\d+,\s*\d+,\s*(\d+)>"
+                       r"|(decode)_(?:combine_)?kernel<[^,<>]+,\s*(\d+)[,>])")
+_PORT_KERNEL = re.compile(r"\b(?:bsa|decode|strip)_\w*kernel\b")
+
+
+def kernel_group(name: str) -> str:
+    """The profile group of a device function: a port kernel's instance
+    (``KERNELS`` key), "gemm" for cuBLAS, else "other".  Raises on a port
+    kernel that maps to no instance."""
+    low = name.lower()
+    if "strip_kernel" in low:
+        return "strip"
+    mode = _INSTANCE.search(low)
+    if mode:
+        return INSTANCES[tuple(x for x in mode.groups() if x is not None)]
+    if _PORT_KERNEL.search(low):
+        raise AssertionError(f"port kernel {name!r} maps to no instance")
+    if any(t in low for t in ("gemm", "nvjet", "xmma", "cutlass", "matmul")):
+        return "gemm"
+    return "other"
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -138,6 +174,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(fn, reps: int):
+    """Device time per call of ``fn`` summed over the port's kernels it
+    launches (a decode call launches its split kernel and its combine), read
+    from ``torch.profiler``; None where the profiler traces no device time.
+    ``cuda_ms`` of back-to-back calls also counts the host's enqueue when
+    that is the longer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if kernel_group(e.key) in KERNELS)
+    return us / 1e3 / reps if us > 0 else None
 
 
 def library_ms(fn, reps: int):
@@ -261,7 +322,8 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
         compact_block_mask, decode_plan_einsum_sliced, expand_kv,
         flash_decode_sparse_cuda, strip_scores, strip_scores_cuda,
         table_block_mask)
-    from repro_torch.kernels.decode_attn import DecodePlan
+    from repro_torch.kernels.decode_attn import (
+        DecodePlan, decode_splits, sm_count)
     from repro_torch.models.transformer import decode_valid_mask
 
     cfg = model.cfg
@@ -421,11 +483,19 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
                 qd, ck, cv, idx, cnt, keep, valid), 50),
             plain_ms=cuda_ms(lambda: decode_plan_einsum_sliced(
                 qd, ck, cv, DecodePlan(idx, cnt, keep), valid), 10),
-            bound_ms=db[0], bound_by=db[1], library_ms=lib)
+            bound_ms=db[0], bound_by=db[1], library_ms=lib,
+            device_ms=device_ms(lambda: flash_decode_sparse_cuda(
+                qd, ck, cv, idx, cnt, keep, valid), 20),
+            splits=decode_splits(b, hkv, idx.shape[-1], sm_count(dev)))
         for name, r in res.items():
+            split = (f", {r['splits']} splits x {b * hkv} rows, device "
+                     f"{r['device_ms']} ms a call"
+                     if "splits" in r else "")
             print(f"  {name} bf16: {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
-                  f"{r['bound_by']}, library {r['library_ms']})", flush=True)
+                  f"{r['bound_by']}, bound_frac "
+                  f"{r['bound_ms'] / r['ms']:.4f}, library "
+                  f"{r['library_ms']}{split})", flush=True)
     return res
 
 
@@ -610,39 +680,22 @@ def profile_serve(label: str, serve) -> None:
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
     events = prof.key_averages()
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     on_device = lambda e: str(e.device_type).endswith("CUDA")
     # the spans appear on the device timeline too, as ranges around their
     # kernels: they are not kernels and are reported apart
     is_span = lambda e: e.key.startswith("serve.")
     spans = [e for e in events if is_span(e)]
     kernels = [e for e in events
-               if on_device(e) and dev_us(e) > 0 and not is_span(e)]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+               if on_device(e) and _device_us(e) > 0 and not is_span(e)]
+    busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     if busy_ms == 0:
         print(f"profile {label}: no device time traced (not measured)",
               flush=True)
         return
     groups = {g: [0.0, 0] for g in (*KERNELS, "gemm", "other")}
-    # the instances of the two templated kernels, by their MODE argument
-    # (csrc/block_sparse_attn.cu and csrc/decode_attn.cu)
-    instance = {("bsa", "0"): "block_sparse_attn",
-                ("bsa", "1"): "block_sparse_attn_paged",
-                ("bsa", "2"): "block_sparse_attn_single",
-                ("decode", "0"): "decode_attn",
-                ("decode", "1"): "decode_attn_paged",
-                ("decode", "2"): "decode_attn_dense",
-                ("decode", "3"): "decode_attn_sparse"}
     for e in kernels:
-        name = e.key.lower()
-        mode = re.search(r"(bsa|decode)_kernel<[^>]*?(\d+)>", name)
-        g = ("strip" if "strip_kernel" in name else
-             instance[mode.groups()] if mode else
-             "gemm" if any(t in name for t in ("gemm", "nvjet", "xmma",
-                                               "cutlass", "matmul"))
-             else "other")
-        groups[g][0] += dev_us(e) / 1e3
+        g = kernel_group(e.key)
+        groups[g][0] += _device_us(e) / 1e3
         groups[g][1] += e.count
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f} %, idle "
@@ -657,15 +710,15 @@ def profile_serve(label: str, serve) -> None:
     for e in spans:
         if on_device(e):
             print(f"  span {e.key}: {e.count} calls, device range "
-                  f"{dev_us(e) / 1e3:.1f} ms", flush=True)
+                  f"{_device_us(e) / 1e3:.1f} ms", flush=True)
         else:
             inner = getattr(e, "device_time_total",
                             getattr(e, "cuda_time_total", 0.0))
             print(f"  span {e.key}: {e.count} calls, host "
                   f"{e.cpu_time_total / 1e3:.1f} ms, torch-op kernels "
                   f"{inner / 1e3:.1f} ms", flush=True)
-    for e in sorted(kernels, key=dev_us, reverse=True)[:8]:
-        print(f"  kernel {dev_us(e) / 1e3:9.3f} ms x{e.count:5d} "
+    for e in sorted(kernels, key=_device_us, reverse=True)[:8]:
+        print(f"  kernel {_device_us(e) / 1e3:9.3f} ms x{e.count:5d} "
               f"{e.key[:90]}", flush=True)
 
 
@@ -681,8 +734,8 @@ def check_paged_decode(model, params, prompts) -> dict:
         compact_block_mask, expand_kv, flash_decode_sparse_cuda,
         table_block_mask)
     from repro_torch.kernels.decode_attn import (
-        DecodePlan, decode_plan_einsum_sliced_paged,
-        flash_decode_sparse_paged_cuda, gather_pages)
+        DecodePlan, decode_plan_einsum_sliced_paged, decode_splits,
+        flash_decode_sparse_paged_cuda, gather_pages, sm_count)
     from repro_torch.models.transformer import decode_valid_mask
     from repro_torch.serving import decode_plan as dplan
 
@@ -817,12 +870,17 @@ def check_paged_decode(model, params, prompts) -> dict:
                 valid), 10),
             contiguous_ms=cuda_ms(lambda: flash_decode_sparse_cuda(
                 q, gk, gv, idx, cnt, keep, valid), 50),
-            bound_ms=pb[0], bound_by=pb[1], library_ms=lib)
+            bound_ms=pb[0], bound_by=pb[1], library_ms=lib,
+            device_ms=device_ms(lambda: flash_decode_sparse_paged_cuda(
+                q, pool_k, pool_v, table, idx, cnt, keep, valid), 20),
+            splits=decode_splits(4, hkv, idx.shape[-1], sm_count(dev)))
         print(f"  decode_attn_paged bf16: {res['ms']:.4f} ms (contiguous "
               f"kernel on the gathered pages {res['contiguous_ms']:.4f}, "
               f"plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.5f} "
-              f"by {res['bound_by']}, library {res['library_ms']})",
-              flush=True)
+              f"by {res['bound_by']}, bound_frac "
+              f"{res['bound_ms'] / res['ms']:.4f}, library "
+              f"{res['library_ms']}, {res['splits']} splits x {4 * hkv} "
+              f"rows, device {res['device_ms']} ms a call)", flush=True)
     return res
 
 
@@ -1206,6 +1264,8 @@ def check_kernel_api(model, params, tokens, prompt) -> dict:
             out[name].update(
                 ms=cuda_ms(lambda: cuda_fn(qd, ck, cv, tok_mask,
                                            block_kv=bs), 50),
+                device_ms=device_ms(lambda: cuda_fn(qd, ck, cv, tok_mask,
+                                                    block_kv=bs), 20),
                 plain_ms=cuda_ms(lambda: plain_fn(qd, ck, cv, tok_mask,
                                                   block_kv=bs), 10),
                 bound_ms=db[0], bound_by=db[1], library_ms=lib)
@@ -1214,10 +1274,13 @@ def check_kernel_api(model, params, tokens, prompt) -> dict:
                      f"{r['contiguous_ms']:.4f}" if "contiguous_ms" in r
                      else f", of which table staging {r['staging_ms']:.4f}"
                      if "staging_ms" in r else "")
+            if "device_ms" in r:
+                extra += f", device {r['device_ms']} ms a call"
             print(f"  {name} bf16: {r['ms']:.4f} ms (plain "
                   f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.5f} by "
-                  f"{r['bound_by']}, library {r['library_ms']}{extra})",
-                  flush=True)
+                  f"{r['bound_by']}, bound_frac "
+                  f"{r['bound_ms'] / r['ms']:.4f}, library "
+                  f"{r['library_ms']}{extra})", flush=True)
 
         # ---- the public functions no serving path reaches, once each
         torch.cuda.synchronize()
@@ -1405,6 +1468,7 @@ def main() -> int:
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
+                     "bound_frac": r["bound_ms"] / r["ms"],
                      "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(nvidia_smi(), flush=True)

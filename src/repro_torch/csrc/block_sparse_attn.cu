@@ -1,5 +1,5 @@
 // Block-sparse prefill attention with fused block-mean QK stats: one kernel
-// body, three instances.
+// body per dtype, three instances each.
 //
 // Replaces the TPU kernels of repro/kernels/block_sparse_attn.py:
 //   BATCHED  block_sparse_attention_batched (_kernel_batched)
@@ -30,25 +30,47 @@
 // gate, and compact stats: step w of the row writes stats[h, row, w] (the
 // wrapper fills -inf, which stays for w >= n).  A listed block above the
 // diagonal is visited, contributes nothing to the output and gets -inf.
+// The per-row arithmetic does not depend on the instance.
 //
 // Bound on an H100: the products, 4 * bs^2 * D flops per visited block.  One
 // llama3-8b layer at N = 8192, B = 2 and ~0.93 block density visits ~124k
-// blocks of 8.4 MFLOP each, ~1 TFLOP, 1.05 ms at the bf16 tensor-core rate,
-// far above its bytes (q, out, K and V once: ~0.34 GB, 0.1 ms).  This first
-// version runs the products on CUDA cores in float32, so it is bound by
-// those operations at a lower rate; wgmma/TMA are later work.
-// Design: one CTA per (row, h, b), 2 * bs threads; the Q tile stays in
-// shared memory in float32; each kv block streams through in 32-key
-// sub-tiles (K, V and the probabilities P in shared memory, ~116 KB of
-// dynamic shared memory at bs = D = 128); each thread owns 4 query rows x 4
-// keys of S and 4 rows x D/8 columns of the output accumulator in registers.
-// The online-softmax guards are those of the TPU kernel: alpha = 0 while the
-// running max is -inf, p = 0 off the mask, and denominator max(l, 1e-30).
+// blocks of 8.4 MFLOP each, ~1 TFLOP, ~0.9 ms at the bf16 tensor-core rate,
+// far above its bytes (q, out, K and V once: ~0.34 GB, 0.1 ms).
+//
+// bfloat16 body (bsa_tc_kernel), the serving path: FlashAttention-2 on the
+// tensor cores.
+//   * QK^T and PV run as mma.sync.m16n8k16 bf16 products with float32
+//     accumulators; no product runs on CUDA cores.  One CTA per (row, h, b)
+//     of 2 * bs threads: warp w owns query rows [16w, 16w + 16), and the Q
+//     tile stays in registers as A fragments for the whole row.  wgmma (a
+//     64-row warpgroup tile fed from shared-memory descriptors) is the next
+//     step for this body.
+//   * K/V stream through a two-stage shared-memory ring of 64-key bf16
+//     sub-tiles, filled by 16-byte cp.async while the previous sub-tile is
+//     computed; rows are padded by 16 bytes so ldmatrix is conflict-free
+//     (~102 KB at bs = D = 128).
+//   * Online softmax in registers on the accumulator fragments, in base 2
+//     (exp2 of the logits times scale * log2 e), with the guards of the TPU
+//     kernel: alpha = 0 while the running max is -inf, p = 0 off the causal
+//     mask, denominator max(l, 1e-30).  P is rounded to bf16 only as the A
+//     operand of PV; l sums the float32 values.
+//   * Ã fused: each thread sums the raw logits of its causally valid
+//     entries and counts them; at the block's end a warp shuffle and one
+//     shared-memory slot per warp reduce them, and thread 0 writes the
+//     mean after the next pipeline barrier (no extra barrier per block).
+//   * Grid order: a 1-D grid whose fastest index is the G query heads of
+//     one kv head (their K/V tiles meet in the 50 MB L2), then kv head and
+//     batch, with the query block rows reversed so that the causal rows
+//     with the most blocks start first.
+// float32 body (bsa_f32_kernel): products as FMAs on CUDA cores, one CTA per
+// (row, h, b) of 2 * bs threads, Q, K, V and P in shared memory in float32,
+// each thread owning 4 query rows x 4 keys of S and 4 rows x D/8 columns of
+// the output.
 #include "common.cuh"
 
 namespace {
 
-constexpr int KT = 32;   // keys per sub-tile
+constexpr int KT = 32;   // keys per sub-tile of the float32 body
 
 enum Mode { BATCHED = 0, PAGED = 1, SINGLE = 2 };
 
@@ -72,14 +94,31 @@ struct Args {
   Dims d;
 };
 
-// The pointers stay __restrict__ kernel parameters (read-only loads).
-template <typename T, int BQ, int D, int MODE>
+// The blocks a row visits: uniform min(counts, W) for SINGLE; for BATCHED
+// and PAGED min(counts, steps), where steps is the row's budget in the TPU
+// kernel's ragged schedule (min(causal bound, W)), which keeps its exact
+// semantics.
+template <int MODE>
+__device__ __forceinline__ int visited(const Dims& a, int count, int row) {
+  if constexpr (MODE == SINGLE) {
+    return min(count, a.W);
+  } else {
+    int steps = a.causal ? min(a.q_block_offset + row + 1, a.W) : a.W;
+    steps = max(1, min(steps, a.NBkv));
+    return min(count, steps);
+  }
+}
+
+// The float32 body: products as FMAs on CUDA cores (TF32 would miss the
+// 1e-4 float32 tolerance, and float32 is on no serving path).
+template <int BQ, int D, int MODE>
 __global__ void __launch_bounds__(2 * BQ)
-bsa_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const int* __restrict__ page_table,
+bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const int* __restrict__ page_table,
            const int* __restrict__ indices, const int* __restrict__ counts,
-           const int* __restrict__ gate, T* __restrict__ out,
+           const int* __restrict__ gate, float* __restrict__ out,
            float* __restrict__ stats, Dims a, float scale) {
+  using T = float;
   constexpr int NT = 2 * BQ;          // threads
   constexpr int QS = D + 1;           // padded row stride of Q and K tiles
   constexpr int PS = KT + 1;          // padded row stride of P
@@ -102,19 +141,8 @@ bsa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // K/V of this (batch, kv head) in the contiguous instances
   const size_t kv0 = ((size_t)b * a.Hkv + hk) * (size_t)NBkv * BQ * D;
 
-  int n;
-  if constexpr (MODE == SINGLE) {
-    n = min(counts[trow], W);         // uniform W steps, no causal bound
-  } else {
-    // the TPU kernel's ragged schedule gave this row min(causal bound, W)
-    // steps; visiting min(counts, steps) keeps its exact semantics
-    int steps = a.causal ? min(a.q_block_offset + row + 1, W) : W;
-    steps = max(1, min(steps, NBkv));
-    n = min(counts[trow], steps);
-  }
-  bool emit;
-  if constexpr (MODE == SINGLE) emit = true;
-  else emit = gate[bh] != 0;
+  const int n = visited<MODE>(a, counts[trow], row);
+  const bool emit = MODE == SINGLE || gate[bh] != 0;
 
   for (int i = tid; i < BQ * D; i += NT)
     q_s[(i / D) * QS + (i % D)] = repro::to_f(qb[i]);
@@ -250,35 +278,308 @@ bsa_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int BQ, int D, int MODE>
-int launch(const Args& a, void* stream) {
+// The bfloat16 body (header comment).  The pointers stay __restrict__
+// kernel parameters (read-only loads).
+template <int BQ, int D, int MODE>
+__global__ void __launch_bounds__(2 * BQ, 1)
+bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
+              const __nv_bfloat16* __restrict__ k,
+              const __nv_bfloat16* __restrict__ v,
+              const int* __restrict__ page_table,
+              const int* __restrict__ indices,
+              const int* __restrict__ counts, const int* __restrict__ gate,
+              __nv_bfloat16* __restrict__ out, float* __restrict__ stats,
+              Dims a, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int NT = 2 * BQ;          // threads
+  constexpr int NW = NT / 32;         // warps, 16 query rows each
+  constexpr int KN = 64;              // keys per sub-tile
+  constexpr int TPB = BQ / KN;        // sub-tiles per kv block
+  constexpr int DP = D + 8;           // padded smem row (bf16)
+  constexpr int DK = D / 16;          // k-steps of QK^T
+  constexpr int NN = KN / 8;          // n-tiles of S
+  constexpr int DN = D / 8;           // n-tiles of O
+  constexpr int CPR = D / 8;          // 16-byte chunks per row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // BQ x DP
+  bf16* k_s = q_s + BQ * DP;                       // 2 stages x KN x DP
+  bf16* v_s = k_s + 2 * KN * DP;                   // 2 stages x KN x DP
+  __shared__ float red_sum[2][NW];
+  __shared__ int red_cnt[2][NW];
+
+  const int H = a.H, G = H / a.Hkv, W = a.W, NBkv = a.NBkv;
+  const int NBq = a.N / BQ;
+  // launch order: g fastest, then kv head, batch, and the rows reversed
+  int t = blockIdx.x;
+  const int g = t % G;
+  t /= G;
+  const int hk = t % a.Hkv;
+  t /= a.Hkv;
+  const int b = t % a.B;
+  const int row = NBq - 1 - t / a.B;
+  const int h = hk * G + g;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;   // fragment row / column group
+  const size_t bh = (size_t)b * H + h;
+  const size_t trow = bh * NBq + row;        // table row
+  const bf16* qb = q + (bh * a.N + (size_t)row * BQ) * D;
+  // K/V of this (batch, kv head) in the contiguous instances
+  const size_t kv0 = ((size_t)b * a.Hkv + hk) * (size_t)NBkv * BQ * D;
+
+  const int n = visited<MODE>(a, counts[trow], row);
+  const bool emit = MODE == SINGLE || gate[bh] != 0;
+  const int ntiles = n * TPB;
+
+  // sub-tile i: its block (rank w, id j) and K/V source; false for a block
+  // on a page outside [0, P) (uniform across the CTA)
+  auto source = [&](int i, int& j, size_t& off) -> bool {
+    j = indices[trow * W + i / TPB];
+    const int sub = i % TPB;
+    if constexpr (MODE == PAGED) {
+      const int page = page_table[(size_t)b * NBkv + j];
+      if (page < 0 || page >= a.P) return false;
+      off = (((size_t)page * a.Hkv + hk) * BQ + (size_t)sub * KN) * D;
+    } else {
+      off = kv0 + ((size_t)j * BQ + (size_t)sub * KN) * D;
+    }
+    return true;
+  };
+  auto prefetch = [&](int i) {
+    int j;
+    size_t off;
+    if (!source(i, j, off)) return;
+    bf16* ks = k_s + (i & 1) * KN * DP;
+    bf16* vs = v_s + (i & 1) * KN * DP;
+    for (int c = tid; c < KN * CPR; c += NT) {
+      const int r = c / CPR, cc = (c % CPR) * 8;
+      repro::cp_async16(ks + r * DP + cc, k + off + (size_t)r * D + cc);
+      repro::cp_async16(vs + r * DP + cc, v + off + (size_t)r * D + cc);
+    }
+  };
+
+  for (int c = tid; c < BQ * CPR; c += NT) {
+    const int r = c / CPR, cc = (c % CPR) * 8;
+    repro::cp_async16(q_s + r * DP + cc, qb + (size_t)r * D + cc);
+  }
+  if (ntiles > 0) prefetch(0);
+  repro::cp_async_commit();
+
+  float o[DN][4];
+#pragma unroll
+  for (int i = 0; i < DN; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  uint32_t qf[DK][4];
+  const float sl2 = scale * 1.4426950408889634f;   // logits in base 2
+  const int q0 = (a.q_block_offset + row) * BQ;     // first query position
+  const int qr = q0 + warp * 16 + gq;               // rows gq and gq + 8
+  float ssum = 0.f;                                 // this block's Ã terms
+  int scnt = 0;
+  int pend_w = -1, pend_j = 0;   // block whose per-warp stats await thread 0
+
+  auto flush = [&]() {           // thread 0, after a barrier
+    float sum = 0.f;
+    int cnt = 0;
+#pragma unroll
+    for (int x = 0; x < NW; ++x) {
+      sum += red_sum[pend_w & 1][x];
+      cnt += red_cnt[pend_w & 1][x];
+    }
+    const float mean = cnt > 0 ? sum * scale / (float)cnt : -CUDART_INF_F;
+    if constexpr (MODE == SINGLE) stats[trow * W + pend_w] = mean;
+    else stats[trow * NBkv + pend_j] = mean;
+  };
+
+  for (int i = 0; i < ntiles; ++i) {
+    repro::cp_async_wait<0>();
+    __syncthreads();            // sub-tile i landed; sub-tile i - 1 consumed
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+        repro::ldmatrix_x4(qf[kk],
+                           q_s + (warp * 16 + (lane & 7) +
+                                  ((lane >> 3) & 1) * 8) * DP +
+                               kk * 16 + (lane >> 4) * 8);
+    }
+    if (pend_w >= 0) {
+      if (tid == 0) flush();
+      pend_w = -1;
+    }
+    if (i + 1 < ntiles) prefetch(i + 1);
+    repro::cp_async_commit();
+    int j;
+    size_t off;
+    if (!source(i, j, off)) continue;
+    const int sub = i % TPB;
+    const bf16* ks = k_s + (i & 1) * KN * DP;
+    const bf16* vs = v_s + (i & 1) * KN * DP;
+
+    // S = Q K^T (16 rows x 64 keys per warp)
+    float s[NN][4];
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NN / 2; ++np) {
+        uint32_t kb[4];
+        repro::ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8)
+                                          * DP +
+                                   kk * 16 + ((lane >> 3) & 1) * 8);
+        repro::mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        repro::mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // causal mask, Ã terms, and the online softmax of rows gq, gq + 8
+    const int k0 = j * BQ + sub * KN;               // first key position
+    const bool full = !a.causal || k0 + KN - 1 <= q0;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rr = e >> 1;
+        const bool ok =
+            full || k0 + nt * 8 + 2 * tq + (e & 1) <= qr + 8 * rr;
+        if (emit && ok) { ssum += s[nt][e]; ++scnt; }
+        s[nt][e] = ok ? s[nt][e] * sl2 : -CUDART_INF_F;
+        mx[rr] = fmaxf(mx[rr], s[nt][e]);
+      }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m[rr], mx[rr]);
+      alpha[rr] = m[rr] == -CUDART_INF_F ? 0.f : exp2f(m[rr] - m_new);
+      m_use[rr] = m_new == -CUDART_INF_F ? 0.f : m_new;
+      m[rr] = m_new;
+      l[rr] *= alpha[rr];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NN; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[nt][e] - m_use[e >> 1]);   // 0 off the mask
+        s[nt][e] = p;
+        l[e >> 1] += p;
+      }
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[dn][e] *= alpha[e >> 1];
+
+    // O += P V, P rounded to bf16 as the A operand
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      const uint32_t pa[4] = {
+          repro::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          repro::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          repro::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          repro::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vb[4];
+        repro::ldmatrix_x4_trans(
+            vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP +
+                    dp * 16 + (lane >> 4) * 8);
+        repro::mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+        repro::mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+      }
+    }
+
+    if (emit && sub == TPB - 1) {     // the block's last sub-tile: uniform
+      ssum = repro::group_sum<32>(ssum);
+      scnt = repro::group_sum_int<32>(scnt);
+      const int w = i / TPB;
+      if (lane == 0) {
+        red_sum[w & 1][warp] = ssum;
+        red_cnt[w & 1][warp] = scnt;
+      }
+      ssum = 0.f;
+      scnt = 0;
+      pend_w = w;
+      pend_j = j;
+    }
+  }
+  repro::cp_async_wait<0>();
+  __syncthreads();
+  if (pend_w >= 0 && tid == 0) flush();
+
+  // out = O / max(l, 1e-30): a row with nothing visited writes zeros
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    inv[rr] = 1.f / fmaxf(l[rr], 1e-30f);
+  }
+  bf16* ob = out + (bh * a.N + (size_t)row * BQ + warp * 16 + gq) * D;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rr * 8 * D + dn * 8 +
+                                         2 * tq) =
+          __floats2bfloat162_rn(o[dn][2 * rr] * inv[rr],
+                                o[dn][2 * rr + 1] * inv[rr]);
+}
+
+template <int BQ, int D, int MODE>
+int launch_f32(const Args& a, void* stream) {
   constexpr int QS = D + 1;
   const size_t smem =
       (size_t)(BQ * QS + KT * QS + KT * D + BQ * (KT + 1)) * sizeof(float);
-  cudaFuncSetAttribute(bsa_kernel<T, BQ, D, MODE>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  const cudaError_t e = cudaFuncSetAttribute(
+      bsa_f32_kernel<BQ, D, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid(a.d.N / BQ, a.d.H, a.d.B);
-  bsa_kernel<T, BQ, D, MODE><<<grid, 2 * BQ, smem, (cudaStream_t)stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, a.page_table, a.indices,
-      a.counts, a.gate, (T*)a.out, a.stats, a.d, 1.0f / sqrtf((float)D));
+  bsa_f32_kernel<BQ, D, MODE><<<grid, 2 * BQ, smem, (cudaStream_t)stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, a.page_table,
+      a.indices, a.counts, a.gate, (float*)a.out, a.stats, a.d,
+      1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE>
-int by_shape(int bs, int D, const Args& a, void* stream) {
-  if (bs == 128 && D == 128) return launch<T, 128, 128, MODE>(a, stream);
-  if (bs == 64 && D == 128) return launch<T, 64, 128, MODE>(a, stream);
-  if (bs == 128 && D == 64) return launch<T, 128, 64, MODE>(a, stream);
-  if (bs == 64 && D == 64) return launch<T, 64, 64, MODE>(a, stream);
-  return (int)cudaErrorInvalidValue;
+template <int BQ, int D, int MODE>
+int launch_tc(const Args& a, void* stream) {
+  constexpr int DP = D + 8;
+  const size_t smem = (size_t)(BQ + 4 * 64) * DP * sizeof(__nv_bfloat16);
+  const cudaError_t e = cudaFuncSetAttribute(
+      bsa_tc_kernel<BQ, D, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned ctas = (unsigned)(a.d.N / BQ) * a.d.H * a.d.B;
+  bsa_tc_kernel<BQ, D, MODE><<<ctas, 2 * BQ, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+      (const __nv_bfloat16*)a.v, a.page_table, a.indices, a.counts, a.gate,
+      (__nv_bfloat16*)a.out, a.stats, a.d, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
 }
 
+// bfloat16 takes the tensor-core body, float32 the CUDA-core one; bs and D
+// in {64, 128}, anything else is refused.
 template <int MODE>
 int dispatch(int dtype, int bs, int D, const Args& a, void* stream) {
-  if (dtype == REPRO_BF16)
-    return by_shape<__nv_bfloat16, MODE>(bs, D, a, stream);
-  return by_shape<float, MODE>(bs, D, a, stream);
+  const bool tc = dtype == REPRO_BF16;
+  if (bs == 128 && D == 128)
+    return tc ? launch_tc<128, 128, MODE>(a, stream)
+              : launch_f32<128, 128, MODE>(a, stream);
+  if (bs == 64 && D == 128)
+    return tc ? launch_tc<64, 128, MODE>(a, stream)
+              : launch_f32<64, 128, MODE>(a, stream);
+  if (bs == 128 && D == 64)
+    return tc ? launch_tc<128, 64, MODE>(a, stream)
+              : launch_f32<128, 64, MODE>(a, stream);
+  if (bs == 64 && D == 64)
+    return tc ? launch_tc<64, 64, MODE>(a, stream)
+              : launch_f32<64, 64, MODE>(a, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

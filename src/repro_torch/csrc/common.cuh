@@ -1,6 +1,10 @@
 // Shared helpers of the port's CUDA kernels: element loads/stores in float32
-// or bfloat16, and warp reductions.  Every kernel computes in float32.
+// or bfloat16, warp reductions, cp.async copies, and the bf16 tensor-core
+// instructions (ldmatrix, mma.sync m16n8k16).  Every kernel accumulates in
+// float32.
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -37,6 +41,69 @@ __device__ __forceinline__ float group_sum(float x) {
   for (int o = WIDTH / 2; o > 0; o >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+template <int WIDTH>
+__device__ __forceinline__ int group_sum_int(int x) {
+#pragma unroll
+  for (int o = WIDTH / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// 16-byte asynchronous copy global -> shared (both 16-byte aligned).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N committed groups of this thread are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory; lanes 8i..8i+7 give the row
+// addresses of matrix i, and lane l gets row l/4, columns 2(l%4) and
+// 2(l%4)+1 of matrix i in r[i] (of its transpose with TRANS).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col) on the tensor
+// cores.  Fragments (g = lane / 4, t = lane % 4): a[0] row g cols 2t..2t+1,
+// a[1] row g+8, a[2] row g cols 2t+8.., a[3] row g+8 cols 2t+8..; b0 rows
+// 2t..2t+1 col g, b1 rows 2t+8..; c[0..1] row g cols 2t..2t+1, c[2..3] row
+// g+8.
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as one bf16x2 register, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 }  // namespace repro

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -97,6 +98,20 @@ def load(stem: str) -> ctypes.CDLL:
             libs = build_all()
             _LIBS[stem] = ctypes.CDLL(str(libs[stem]))
         return _LIBS[stem]
+
+
+def function(stem: str, name: str, n_ptr: int, n_int: int):
+    """The C function ``name`` of ``csrc/<stem>.cu`` that takes ``n_ptr``
+    pointers, ``n_int`` ints and the stream; its argtypes are set once."""
+    key = (stem, name)
+    fn = _FNS.get(key)
+    if fn is None:
+        fn = getattr(load(stem), name)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FNS[key] = fn
+    return fn
 
 
 def check(code: int, what: str) -> None:

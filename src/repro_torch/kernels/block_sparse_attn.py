@@ -19,7 +19,8 @@ so the semantics equal the TPU kernel's exactly.
     path for CPU tensors;
   * :func:`block_sparse_attention_cuda` — the hand-written kernel
     ``csrc/block_sparse_attn.cu`` (replaces the TPU kernel
-    ``repro/kernels/block_sparse_attn.py::block_sparse_attention_batched``);
+    ``repro/kernels/block_sparse_attn.py::block_sparse_attention_batched``):
+    bfloat16 runs its products on the tensor cores, float32 on CUDA cores;
   * :func:`block_sparse_attention_batched` — the dispatcher.
 
 All return ``(out (B, H, N, D) in q's dtype, Ã (B, H, NBq, NBkv) f32)``.
@@ -40,7 +41,6 @@ dispatcher:
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -169,6 +169,9 @@ def _check_tensors(what: str, q, kv, tables) -> None:
         raise ValueError(f"{what} kernel takes int32 tables")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{what} kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in (q, *kv)):
+        raise ValueError(f"{what} kernel streams q, k and v as 16-byte "
+                         "vectors: they must be 16-byte aligned")
 
 
 def _gate(stats_gate, b: int, h: int, device) -> torch.Tensor:
@@ -202,9 +205,8 @@ def block_sparse_attention_cuda(
     out = torch.empty_like(q)
     a_tilde = torch.full((b, h, nbq, nbkv), NEG_INF, dtype=torch.float32,
                          device=q.device)
-    fn = _build.load("block_sparse_attn").repro_block_sparse_attn
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 \
-        + [ctypes.c_void_p]
+    fn = _build.function("block_sparse_attn", "repro_block_sparse_attn", 8,
+                         11)
     code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
               _build.ptr(indices), _build.ptr(counts), _build.ptr(gate),
               _build.ptr(out), _build.ptr(a_tilde), _build.dtype_code(q),
@@ -280,9 +282,8 @@ def block_sparse_attention_single_cuda(
     out = torch.empty_like(q)
     stats = torch.full((h, nb, w), NEG_INF, dtype=torch.float32,
                        device=q.device)
-    fn = _build.load("block_sparse_attn").repro_block_sparse_attn_single
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    fn = _build.function("block_sparse_attn",
+                         "repro_block_sparse_attn_single", 7, 8)
     code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
               _build.ptr(indices), _build.ptr(counts), _build.ptr(out),
               _build.ptr(stats), _build.dtype_code(q), h, k.shape[0], n,
@@ -365,9 +366,8 @@ def block_sparse_attention_paged_cuda(
     out = torch.empty_like(q)
     a_tilde = torch.full((b, h, nbq, nbkv), NEG_INF, dtype=torch.float32,
                          device=q.device)
-    fn = _build.load("block_sparse_attn").repro_block_sparse_attn_paged
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 \
-        + [ctypes.c_void_p]
+    fn = _build.function("block_sparse_attn",
+                         "repro_block_sparse_attn_paged", 9, 12)
     code = fn(_build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v),
               _build.ptr(page_table), _build.ptr(indices), _build.ptr(counts),
               _build.ptr(gate), _build.ptr(out), _build.ptr(a_tilde),

@@ -18,7 +18,9 @@ coordinates; only the K/V address goes through ``page_table[b, j]``.
     it is the kernel's plain version;
   * :func:`flash_decode_sparse_cuda` — the hand-written kernel
     ``csrc/decode_attn.cu`` (replaces the TPU kernel
-    ``repro/kernels/decode_attn.py::flash_decode_sparse_batched``);
+    ``repro/kernels/decode_attn.py::flash_decode_sparse_batched``), which
+    splits each table row across :func:`decode_splits` CTAs and merges
+    their partials in a second launch;
   * :func:`flash_decode_sparse_batched` — kernel on CUDA tensors, its plain
     version on CPU tensors;
   * :func:`flash_decode_plan` — the dispatcher the model calls;
@@ -37,7 +39,7 @@ coordinates; only the K/V address goes through ``page_table[b, j]``.
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -48,6 +50,48 @@ from repro_torch.kernels.indices import compact_block_mask
 NEG_INF = float("-inf")
 
 DECODE_IMPLS = ("auto", "kernel", "einsum")
+
+# the decode kernel's grid aims at this many CTAs per SM
+SPLIT_CTAS_PER_SM = 4
+
+
+def decode_splits(b: int, hkv: int, w: int, sm_count: int) -> int:
+    """Splits of each (batch, kv head) table row of width ``w`` in the
+    decode kernels: enough CTAs (``splits · b · hkv``) to fill the card's
+    ``sm_count`` SMs :data:`SPLIT_CTAS_PER_SM` times over, at most one per
+    table entry and at least one.  Every instance (plan, paged, token mask)
+    takes this rule, so the paged kernel splits a row as the contiguous one
+    does and stays bitwise equal to it on the gathered pages."""
+    want = -(-SPLIT_CTAS_PER_SM * sm_count // max(b * hkv, 1))
+    return max(1, min(w, want))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (cached)."""
+    index = torch.device(device).index
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
+
+
+def _decode_scratch(q, b: int, h: int, hkv: int, w: int):
+    """The split count and the float32 scratch for the splits' partials
+    (m and l of ``(B, H, splits)``, acc of ``(B, H, splits, D)``)."""
+    splits = decode_splits(b, hkv, w, sm_count(q.device))
+    part = torch.empty(b * h * splits * (q.shape[-1] + 2),
+                       dtype=torch.float32, device=q.device)
+    return splits, part
+
+
+def _check_aligned(what: str, tensors) -> None:
+    """The kernel streams K/V as 16-byte vectors (rows of D % 8 == 0
+    elements): their base pointers must be 16-byte aligned."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what} needs 16-byte aligned K/V")
 
 
 class DecodePlan(NamedTuple):
@@ -201,22 +245,21 @@ def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
     g = h // hkv
     nb, w = _check_plan("sparse decode", b, hkv, g, s, indices, counts,
                         keep_heads, valid)
-    if s % nb or (s // nb) % 32 or g > 8 or d > 256:
+    if s % nb or (s // nb) % 32 or g > 8 or d > 256 or d % 8:
         raise ValueError(f"sparse decode kernel needs a block size that is "
-                         f"a multiple of 32, G <= 8 and D <= 256 "
-                         f"(S={s}, NB={nb}, G={g}, D={d})")
+                         f"a multiple of 32, G <= 8 and D <= 256 a multiple "
+                         f"of 8 (S={s}, NB={nb}, G={g}, D={d})")
     _check_launch("sparse decode kernel", q,
                   (cache_k, cache_v, indices, counts, keep_heads, valid))
+    _check_aligned("sparse decode kernel", (cache_k, cache_v))
     out = torch.empty_like(q)
-    lib = _build.load("decode_attn")
-    fn = lib.repro_decode_attn
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    splits, part = _decode_scratch(q, b, h, hkv, w)
+    fn = _build.function("decode_attn", "repro_decode_attn", 9, 9)
     code = fn(_build.ptr(q), _build.ptr(cache_k), _build.ptr(cache_v),
               _build.ptr(indices), _build.ptr(counts),
-              _build.ptr(keep_heads), _build.ptr(valid), _build.ptr(out),
-              _build.dtype_code(q), b, h, hkv, s, d, nb, w,
-              _build.stream_of(q))
+              _build.ptr(keep_heads), _build.ptr(valid), _build.ptr(part),
+              _build.ptr(out), _build.dtype_code(q), b, h, hkv, s, d, nb, w,
+              splits, _build.stream_of(q))
     _build.check(code, "sparse decode kernel")
     flash_decode_sparse_cuda.launches += 1
     return out
@@ -313,24 +356,24 @@ def flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table, indices,
     nb = page_table.shape[1]
     _, w = _check_plan("paged sparse decode", b, hkv, g, nb * ps, indices,
                        counts, keep_heads, valid)
-    if keep_heads.shape[2] != nb or ps % 32 or g > 8 or d > 256:
+    if keep_heads.shape[2] != nb or ps % 32 or g > 8 or d > 256 or d % 8:
         raise ValueError(f"paged sparse decode kernel needs NB table "
                          f"blocks, a page size that is a multiple of 32, "
-                         f"G <= 8 and D <= 256 (NB={nb}, plan NB="
-                         f"{keep_heads.shape[2]}, ps={ps}, G={g}, D={d})")
+                         f"G <= 8 and D <= 256 a multiple of 8 (NB={nb}, "
+                         f"plan NB={keep_heads.shape[2]}, ps={ps}, G={g}, "
+                         f"D={d})")
     _check_launch("paged sparse decode kernel", q,
                   (pool_k, pool_v, indices, counts, keep_heads, valid,
                    page_table))
+    _check_aligned("paged sparse decode kernel", (pool_k, pool_v))
     out = torch.empty_like(q)
-    lib = _build.load("decode_attn")
-    fn = lib.repro_decode_attn_paged
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 \
-        + [ctypes.c_void_p]
+    splits, part = _decode_scratch(q, b, h, hkv, w)
+    fn = _build.function("decode_attn", "repro_decode_attn_paged", 10, 10)
     code = fn(_build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v),
               _build.ptr(page_table), _build.ptr(indices),
               _build.ptr(counts), _build.ptr(keep_heads), _build.ptr(valid),
-              _build.ptr(out), _build.dtype_code(q), b, h, hkv, ps, d, nb,
-              w, p, _build.stream_of(q))
+              _build.ptr(part), _build.ptr(out), _build.dtype_code(q), b, h,
+              hkv, ps, d, nb, w, p, splits, _build.stream_of(q))
     _build.check(code, "paged sparse decode kernel")
     flash_decode_sparse_paged_cuda.launches += 1
     return out
@@ -453,10 +496,11 @@ def _check_masked(what, q, cache_k, cache_v, mask, block_kv):
                          f"mask {tuple(mask.shape)}")
     h, d = q.shape
     hkv, s = cache_k.shape[:2]
-    if s % block_kv or block_kv % 32 or h // hkv > 8 or d > 256:
+    if s % block_kv or block_kv % 32 or h // hkv > 8 or d > 256 or d % 8:
         raise ValueError(f"{what} kernel needs S % block_kv == 0, block_kv a "
-                         f"multiple of 32, G <= 8 and D <= 256 (S={s}, "
-                         f"block_kv={block_kv}, G={h // hkv}, D={d})")
+                         f"multiple of 32, G <= 8 and D <= 256 a multiple of "
+                         f"8 (S={s}, block_kv={block_kv}, G={h // hkv}, "
+                         f"D={d})")
     if not all(t.is_cuda and t.device == q.device
                for t in (q, cache_k, cache_v, mask)):
         raise ValueError(f"{what} kernel takes CUDA tensors on one device")
@@ -466,21 +510,21 @@ def _check_masked(what, q, cache_k, cache_v, mask, block_kv):
                          "a bool mask")
     if not all(t.is_contiguous() for t in (q, cache_k, cache_v, mask)):
         raise ValueError(f"{what} kernel takes contiguous tensors")
+    _check_aligned(f"{what} kernel", (cache_k, cache_v))
     return h, hkv, s, d
 
 
 def _launch_masked(q, cache_k, cache_v, mask, indices, counts, *, h, hkv,
                    s, d, nb, what):
     out = torch.empty_like(q)
-    fn = _build.load("decode_attn").repro_decode_attn_mask
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
+    splits, part = _decode_scratch(q, 1, h, hkv, nb)
+    fn = _build.function("decode_attn", "repro_decode_attn_mask", 8, 9)
     table = indices is not None
     code = fn(_build.ptr(q), _build.ptr(cache_k), _build.ptr(cache_v),
               _build.ptr(indices) if table else None,
               _build.ptr(counts) if table else None, _build.ptr(mask),
-              _build.ptr(out), _build.dtype_code(q), 1, h, hkv, s, d, nb,
-              int(table), _build.stream_of(q))
+              _build.ptr(part), _build.ptr(out), _build.dtype_code(q), 1, h,
+              hkv, s, d, nb, int(table), splits, _build.stream_of(q))
     _build.check(code, what)
     return out
 

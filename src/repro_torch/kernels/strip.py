@@ -18,7 +18,6 @@ N, and with it the causal row offsets, always come from ``k``.
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -63,12 +62,10 @@ def strip_scores_cuda(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("strip kernel takes contiguous q and k")
     out = torch.empty((b, h, block_size, n), dtype=torch.float32,
                       device=q.device)
-    lib = _build.load("strip")
-    lib.repro_strip.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 \
-        + [ctypes.c_void_p]
-    code = lib.repro_strip(_build.ptr(q), _build.ptr(k), _build.ptr(out),
-                           _build.dtype_code(q), b, h, hkv, nq, n, d,
-                           block_size, _build.stream_of(q))
+    fn = _build.function("strip", "repro_strip", 3, 8)
+    code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(out),
+              _build.dtype_code(q), b, h, hkv, nq, n, d, block_size,
+              _build.stream_of(q))
     _build.check(code, "strip kernel")
     strip_scores_cuda.launches += 1
     return out

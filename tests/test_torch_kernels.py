@@ -27,8 +27,10 @@ from repro_torch.kernels import (
     DecodePlan, batched_block_sparse_attention, batched_sparse_attention_fn,
     block_sparse_attention_cuda, cap_block_mask, compact_block_mask,
     compute_strips, decode_plan_einsum, decode_plan_einsum_sliced,
-    flash_decode_plan, flash_decode_sparse_batched, flash_decode_sparse_cuda,
-    strip_scores, strip_scores_cuda, table_block_mask)
+    flash_decode_cuda, flash_decode_plan, flash_decode_sparse_batched,
+    flash_decode_sparse_cuda, strip_scores, strip_scores_cuda,
+    table_block_mask)
+from repro_torch.kernels.decode_attn import flash_decode_sparse_paged_cuda
 from repro_torch.kernels import _build
 from repro_torch.kernels.chunked import chunked_attention
 
@@ -248,6 +250,27 @@ def test_cuda_wrappers_refuse_unsupported_shapes():
             torch.zeros(1, 2, 100, 64), torch.zeros(1, 2, 1, 1,
                                                     dtype=torch.int32),
             torch.zeros(1, 2, 1, dtype=torch.int32), block_size=64)
+    # the decode kernels stream K/V rows as 16-byte vectors: D % 8 == 0
+    d = 36
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_decode_sparse_cuda(
+            torch.zeros(1, 2, d), torch.zeros(1, 2, 128, d),
+            torch.zeros(1, 2, 128, d), torch.zeros(1, 2, 2, dtype=torch.int32),
+            torch.ones(1, 2, dtype=torch.int32),
+            torch.ones(1, 2, 2, 1, dtype=torch.bool),
+            torch.ones(1, 128, dtype=torch.bool))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_decode_sparse_paged_cuda(
+            torch.zeros(1, 2, d), torch.zeros(3, 2, 64, d),
+            torch.zeros(3, 2, 64, d), torch.ones(1, 2, dtype=torch.int32),
+            torch.zeros(1, 2, 2, dtype=torch.int32),
+            torch.ones(1, 2, dtype=torch.int32),
+            torch.ones(1, 2, 2, 1, dtype=torch.bool),
+            torch.ones(1, 128, dtype=torch.bool))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        flash_decode_cuda(torch.zeros(2, d), torch.zeros(2, 128, d),
+                          torch.zeros(2, 128, d),
+                          torch.ones(2, 128, dtype=torch.bool), block_kv=64)
 
 
 def test_build_dir_keyed_by_sources():
