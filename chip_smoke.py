@@ -13,7 +13,10 @@ run on error:
      N=8192, B=2), in bfloat16 and float32, on layer 0's real q/k/v and
      SharePrefill masks plus synthetic edge rows; time kernel, plain
      version and a PyTorch library call (and, for the decode kernel, its
-     device time per call from the profiler and its split count);
+     device time per call from the profiler and its split count); the
+     strip also at N = 2048, 512 and 8320 and at its other instances'
+     head widths, with sample 0 alone bitwise equal to the batch's slice,
+     and its device time at B = 2 and at B = 1;
   3. serve a small ragged batch through the kernels and through the plain
      versions on the CPU, and compare greedy tokens (near-tie aware);
   4. serve two full-width llama3-8b-262k requests (prompts of 8192 and 7937
@@ -135,6 +138,9 @@ INSTANCES = {("bsa", "0"): "block_sparse_attn",
 _INSTANCE = re.compile(r"\b(?:(bsa)_(?:tc|f32)_kernel<\d+,\s*\d+,\s*(\d+)>"
                        r"|(decode)_(?:combine_)?kernel<[^,<>]+,\s*(\d+)[,>])")
 _PORT_KERNEL = re.compile(r"\b(?:bsa|decode|strip)_\w*kernel\b")
+# csrc/strip.cu: strip_tc_kernel<D, PASS> (bf16, tensor cores) and
+# strip_f32_kernel<T, PASS>, two device kernels per call
+_STRIP = re.compile(r"\bstrip_\w*kernel\b")
 
 
 def kernel_group(name: str) -> str:
@@ -142,7 +148,7 @@ def kernel_group(name: str) -> str:
     (``KERNELS`` key), "gemm" for cuBLAS, else "other".  Raises on a port
     kernel that maps to no instance."""
     low = name.lower()
-    if "strip_kernel" in low:
+    if _STRIP.search(low):
         return "strip"
     mode = _INSTANCE.search(low)
     if mode:
@@ -312,6 +318,39 @@ def bsa_work(vis, group: int, bs: int, off: int) -> tuple:
     return entries, tiles
 
 
+def strip_cases(q, k, bs: int, gen):
+    """(label, q, k, bs) of the strip checks: q (B, H, N, D) and k of layer
+    0 at the phase-2 shape; its first 2048 and 512 positions (the
+    scheduler's short bucket; 64-key chunks, so the last chunk holds no
+    visible key for strip rows < 64); an 8320-token cache (the decode
+    cache: a shorter last chunk) extended by random rows at the scale of
+    q's and k's; then the body's other instances on random inputs: the
+    tensor-core body at D = 64 (bs = 16: N % 64 != 0, and row tiles only
+    partly filled) and D = 96, the CUDA-core body (bf16 at D = 80)."""
+    import torch
+    b, h, n, d = q.shape
+    hkv, dev, dtype = k.shape[1], q.device, q.dtype
+
+    def rand(shape, like):
+        x = torch.randn(shape, generator=gen, device=dev)
+        return (x * like.float().std()).to(dtype)
+
+    extra = lambda x: torch.cat(
+        [x, rand(x.shape[:2] + (bs, d), x)], dim=2).contiguous()
+    cases = [(q, k, bs),
+             (q[:, :, :2048].contiguous(), k[:, :, :2048].contiguous(), bs),
+             (q[:, :, :512].contiguous(), k[:, :, :512].contiguous(), bs),
+             (extra(q), extra(k), bs)]
+    for bb, hh, hk, nn, dd, bsz in ((2, 4, 2, 1040, 64, 16),
+                                    (2, 6, 2, 768, 96, 128),
+                                    (1, 4, 1, 512, 80, 64)):
+        cases.append((rand((bb, hh, nn, dd), q), rand((bb, hk, nn, dd), k),
+                      bsz))
+    return [(f"B={qs.shape[0]} H={qs.shape[1]} Hkv={ks.shape[1]} "
+             f"N={ks.shape[2]} D={ks.shape[3]} bs={bsz}", qs, ks, bsz)
+            for qs, ks, bsz in cases]
+
+
 def check_kernels(model, params, tokens, prompt_lens) -> dict:
     """Phase 2: each kernel against its plain version; returns the kernels'
     numbers for the JSON line (errors over every case, times at bf16)."""
@@ -354,10 +393,21 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
         q, k, v = (x.to(dtype) for x in (q16, k16, v16))
         print(f"[{dn}]", flush=True)
 
-        # strip
-        e = max_err(strip_scores_cuda(q, k, bs), strip_scores(q, k, bs))
-        check("strip", e, TOL[("strip", dn)])
-        res["strip"]["max_abs_err"] = max(res["strip"]["max_abs_err"], e)
+        # strip: the phase-2 shape and others of the main path, and the
+        # body's other instances; sample 0 alone bitwise the batch's slice
+        for label, qs, ks, sbs in strip_cases(q, k, bs, gen):
+            o = strip_scores_cuda(qs, ks, sbs)
+            e = max_err(o, strip_scores(qs, ks, sbs))
+            check(f"strip [{label}]", e, TOL[("strip", dn)])
+            res["strip"]["max_abs_err"] = max(res["strip"]["max_abs_err"], e)
+            # the key split depends on N alone: sample 0 alone is bitwise
+            # the batch's first strip
+            if not torch.equal(strip_scores_cuda(qs[:1], ks[:1], sbs), o[:1]):
+                raise AssertionError(f"strip [{label}]: sample 0 alone "
+                                     "differs from the batch's slice")
+        if dtype == torch.float32:
+            res["strip"]["f32_ms"] = cuda_ms(
+                lambda: strip_scores_cuda(q, k, bs), 10)
 
         # block-sparse prefill attention: real tables, synthetic rows, cap
         cases = [("real masks, real gate", masks, None, decision.use_dense),
@@ -431,8 +481,13 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
         pairs = bs * (n - bs) + bs * (bs + 1) // 2
         sb = bound(b * h * bs * d * elt + b * hkv * n * d * elt
                    + b * h * bs * n * 4, 2.0 * d * b * h * pairs, dtype)
+        q1, k1 = q[:1], k[:1]
         res["strip"].update(
             ms=cuda_ms(lambda: strip_scores_cuda(q, k, bs), 20),
+            device_ms=device_ms(lambda: strip_scores_cuda(q, k, bs), 10),
+            b1_ms=cuda_ms(lambda: strip_scores_cuda(q1, k1, bs), 20),
+            b1_device_ms=device_ms(lambda: strip_scores_cuda(q1, k1, bs),
+                                   10),
             plain_ms=cuda_ms(lambda: strip_scores(q, k, bs), 3),
             bound_ms=sb[0], bound_by=sb[1], library_ms=None)
 
@@ -491,6 +546,10 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
             split = (f", {r['splits']} splits x {b * hkv} rows, device "
                      f"{r['device_ms']} ms a call"
                      if "splits" in r else "")
+            if name == "strip":
+                split = (f", device {r['device_ms']} ms a call; B=1 "
+                         f"{r['b1_ms']:.4f} ms, device {r['b1_device_ms']}"
+                         f" ms; float32 {r['f32_ms']:.4f} ms")
             print(f"  {name} bf16: {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
                   f"{r['bound_by']}, bound_frac "

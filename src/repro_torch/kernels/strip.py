@@ -8,7 +8,9 @@ masked (strip row r is global query N − block_size + r).
     full (bs, N) logits in memory), and the path for CPU tensors;
   * :func:`strip_scores_cuda` — the hand-written kernel ``csrc/strip.cu``
     (replaces the TPU kernel ``repro/kernels/strip.py::strip_scores_pallas``),
-    one launch for the whole batch;
+    one call for the whole batch: two device kernels over a split of the
+    keys into :func:`strip_chunk`-sized chunks (partial row statistics per
+    chunk, then the merged, normalised write);
   * :func:`compute_strips` — the dispatcher: the kernel for CUDA tensors,
     the plain version for CPU tensors.
 
@@ -43,6 +45,29 @@ def strip_scores(q: torch.Tensor, k: torch.Tensor,
     return p.reshape(b, h, block_size, n)
 
 
+def strip_chunk(n: int) -> int:
+    """Keys per chunk of the kernel's key split for N = ``n`` keys: whole
+    64-key sub-tiles, at most 8 chunks (on an H100, 8 chunks took 8–9 %
+    less device time than 16 at N = 8192 and 28 % less at N = 2048:
+    ``scripts/torch_strip_variants.py``).  It depends on N alone (never
+    on the batch or the card), so a sample's strip is bitwise the same
+    alone or in a batch."""
+    return 64 * -(-n // 512)
+
+
+def _check_tensors(q: torch.Tensor, k: torch.Tensor) -> None:
+    """Device, dtype, layout and alignment rules of a launch."""
+    if not (q.is_cuda and k.is_cuda and q.device == k.device):
+        raise ValueError("strip kernel takes CUDA tensors on one device")
+    if q.dtype != k.dtype:
+        raise ValueError(f"strip: q {q.dtype} and k {k.dtype} differ")
+    if not (q.is_contiguous() and k.is_contiguous()):
+        raise ValueError("strip kernel takes contiguous q and k")
+    if q.data_ptr() % 16 or k.data_ptr() % 16:
+        raise ValueError("strip kernel streams q and k as 16-byte vectors: "
+                         "they must be 16-byte aligned")
+
+
 def strip_scores_cuda(q: torch.Tensor, k: torch.Tensor,
                       block_size: int) -> torch.Tensor:
     """The strip kernel (``csrc/strip.cu``) on CUDA tensors; raises on
@@ -54,17 +79,16 @@ def strip_scores_cuda(q: torch.Tensor, k: torch.Tensor,
     if n % block_size or nq < block_size or block_size % 16:
         raise ValueError(f"strip kernel needs N % bs == 0 and Nq >= bs "
                          f"(N={n}, Nq={nq}, bs={block_size})")
-    if not (q.is_cuda and k.is_cuda and q.device == k.device):
-        raise ValueError("strip kernel takes CUDA tensors on one device")
-    if q.dtype != k.dtype:
-        raise ValueError(f"strip: q {q.dtype} and k {k.dtype} differ")
-    if not (q.is_contiguous() and k.is_contiguous()):
-        raise ValueError("strip kernel takes contiguous q and k")
+    _check_tensors(q, k)
+    chunk = strip_chunk(n)
     out = torch.empty((b, h, block_size, n), dtype=torch.float32,
                       device=q.device)
-    fn = _build.function("strip", "repro_strip", 3, 8)
-    code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(out),
-              _build.dtype_code(q), b, h, hkv, nq, n, d, block_size,
+    # each row's (m, l) over each chunk, written by the first kernel
+    ml = torch.empty((2, b, h, block_size, -(-n // chunk)),
+                     dtype=torch.float32, device=q.device)
+    fn = _build.function("strip", "repro_strip", 4, 9)
+    code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(out), _build.ptr(ml),
+              _build.dtype_code(q), b, h, hkv, nq, n, d, block_size, chunk,
               _build.stream_of(q))
     _build.check(code, "strip kernel")
     strip_scores_cuda.launches += 1

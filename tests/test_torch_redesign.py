@@ -15,7 +15,8 @@ their arithmetic against the JAX package's Pallas kernels (interpret mode):
 
 and pin the wrappers' split rule and their argument plumbing to the C
 functions (counts of pointers and ints, one split rule for every decode
-instance).
+instance, the strip's chunk partials' scratch).  The strip body's own
+mirror is in ``tests/test_torch_strip.py``.
 """
 import importlib.util
 import math
@@ -34,6 +35,7 @@ from repro.kernels.ops import batched_block_sparse_attention as j_bbsa
 from repro_torch.kernels import _build
 from repro_torch.kernels import block_sparse_attn as bsa
 from repro_torch.kernels import decode_attn as da
+from repro_torch.kernels import strip as sk
 from repro_torch.kernels.indices import compact_block_mask
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -248,6 +250,7 @@ def fake_launch(monkeypatch):
                         (q.shape[0], ck.shape[0], ck.shape[1], q.shape[1]))
     monkeypatch.setattr(da, "sm_count", lambda device: 132)
     monkeypatch.setattr(bsa, "_check_tensors", lambda *a: None)
+    monkeypatch.setattr(sk, "_check_tensors", lambda *a: None)
     return fns
 
 
@@ -297,6 +300,24 @@ def test_block_sparse_wrappers_pass_every_argument(fake_launch):
     assert {k: len(v.calls) for k, v in fake_launch.items()} == {
         "repro_block_sparse_attn": 1, "repro_block_sparse_attn_single": 1,
         "repro_block_sparse_attn_paged": 1}
+
+
+def test_strip_wrapper_passes_every_argument(fake_launch, monkeypatch):
+    """The strip wrapper hands its C function q, k, the strip, float32
+    scratch (2, B, H, bs, C) for the chunk partials, and the chunk size of
+    the rule; N = 1088: 17 sub-tiles in 6 chunks of 192 keys, the last of
+    128."""
+    monkeypatch.setattr(_build, "ptr", lambda t: t)
+    b, h, hkv, nq, n, d, bs = 2, 8, 2, 1120, 1088, 64, 64
+    q, k = torch.zeros(b, h, nq, d), torch.zeros(b, hkv, n, d)
+    out = sk.strip_scores_cuda(q, k, bs)
+    (call,) = fake_launch["repro_strip"].calls
+    q_, k_, out_, ml, *ints, stream = call
+    assert q_ is q and k_ is k and out_ is out and stream is None
+    assert out.shape == (b, h, bs, n) and out.dtype == torch.float32
+    assert ml.shape == (2, b, h, bs, 6) and ml.dtype == torch.float32
+    assert ints == [_build.dtype_code(q), b, h, hkv, nq, n, d, bs,
+                    sk.strip_chunk(n)] and sk.strip_chunk(n) == 192
 
 
 # ------------------------------------------------ tensor-core block-sparse
@@ -405,6 +426,11 @@ def test_tensor_core_body_fits_the_bf16_tolerance(bs, width):
     ("void (anonymous namespace)::decode_combine_kernel<__nv_bfloat16, 3>"
      "(x)", "decode_attn_sparse"),
     ("void (anonymous namespace)::strip_kernel<__nv_bfloat16>(x)", "strip"),
+    ("void (anonymous namespace)::strip_tc_kernel<128, 1>(x)", "strip"),
+    ("void (anonymous namespace)::strip_tc_kernel<96, 2>(x)", "strip"),
+    ("void (anonymous namespace)::strip_f32_kernel<float, 1>(x)", "strip"),
+    ("void (anonymous namespace)::strip_f32_kernel<__nv_bfloat16, 2>(x)",
+     "strip"),
     ("nvjet_hsh_128x256_64x4_2x1_v_bz_coopA_TNT", "gemm"),
     ("void at::native::elementwise_kernel<128, 4>(x)", "other"),
 ])
