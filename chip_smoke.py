@@ -11,9 +11,12 @@ run on error:
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes (llama3-8b-262k: H=32, Hkv=8, D=128, bs=128,
      N=8192, B=2), in bfloat16 and float32, on layer 0's real q/k/v and
-     SharePrefill masks plus synthetic edge rows; time kernel, plain
-     version and a PyTorch library call (and, for the decode kernel, its
-     device time per call from the profiler and its split count); the
+     SharePrefill masks plus synthetic edge rows, the block-sparse kernel
+     also at head dim 96 (phi3-mini) and as a 16-block chunk launch at q
+     block 48 (chunked prefill's shape: bitwise the full launch's rows);
+     time kernel, plain version and a PyTorch library call (and, for the
+     decode kernel, its device time per call from the profiler and its
+     split count); the
      strip also at N = 2048, 512 and 8320 and at its other instances'
      head widths, with sample 0 alone bitwise equal to the batch's slice,
      and its device time at B = 2 and at B = 1;
@@ -46,10 +49,25 @@ run on error:
      real plan's token mask over an 8320-token cache with one all-false
      head; time them; then call each public function that no serve
      reaches once, launch counts reset just before and read just after;
+     then hold the four decode kernels against their plain versions at
+     mistral-large's GQA group (G = 12: H = 96, Hkv = 8, D = 128);
   8. serve phase 4's requests through the per-sample path
      (``attn_impl="kernel"``), launch counts reset just before and read
      just after, and compare greedy tokens and first-step logits with
-     phase 4's; then profile it.
+     phase 4's; then profile it;
+  9. serve phase 6's requests, pool and buckets through chunked admission
+     (``prefill_chunk=1024``: 8 chunks at the 8192 bucket, 2 at 2048),
+     launch counts reset just before and read just after: greedy tokens
+     equal to phase 6's and first-step logits bitwise equal; then with
+     ``prefill_pack=2`` (the 2048-bucket requests packed in pairs), tokens
+     near-tie aware; print prefill, TTFT and prefill stall per request
+     beside phase 6's, and profile the chunked serve;
+ 10. serve the configs the head-dim-96 and GQA-group-12 kernels exist for
+     at full width: phi3-mini-3.8b (all 32 layers) and mistral-large-123b
+     (2 of its 88 layers: 123B parameters do not fit one card), two
+     requests each through the batch server, launch counts reset just
+     before and read just after, against the same serve with the decode's
+     plain versions.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -385,6 +403,16 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
     syn[1, 2, nb - 1, nb - 1] = True
     gate = decision.use_dense ^ (torch.arange(h, device=dev) % 3 == 0)
     width_cap = nb // 4
+    ridx, rcnt = (x.contiguous() for x in compact_block_mask(masks))
+    # C.1: head dim 96 (phi3-mini) on layer 0's tables, random q/k/v at the
+    # scale of the model's
+    d96 = [torch.randn(x.shape[:3] + (96,), generator=gen, device=dev)
+           * x.float().std() for x in (q16, k16, v16)]
+    # the chunk launch: q blocks [OFFSET, OFFSET + 16) of the 64
+    off = API_OFFSET
+    cidx, ccnt = (x.contiguous() for x in
+                  compact_block_mask(masks[:, :, off:off + 16]))
+    rows = slice(off * bs, (off + 16) * bs)
 
     res = {name: {"max_abs_err": 0.0}
            for name in ("strip", "block_sparse_attn", "decode_attn")}
@@ -436,6 +464,44 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
             check("  a_tilde", ea, TOL[("a_tilde", dn)])
             res["block_sparse_attn"]["max_abs_err"] = max(
                 res["block_sparse_attn"]["max_abs_err"], e)
+
+        # C.1: the same tables at head dim 96
+        q96, k96, v96 = (x.to(dtype) for x in d96)
+        kw96 = dict(block_size=bs, stats_gate=decision.use_dense)
+        o1, a1 = block_sparse_attention_cuda(q96, k96, v96, ridx, rcnt,
+                                             **kw96)
+        o2, a2 = block_sparse_attention_plain(q96, k96, v96, ridx, rcnt,
+                                              **kw96)
+        print("  block_sparse_attn [real masks, D=96]", flush=True)
+        e = max_err(o1, o2)
+        check("  out", e, TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+        res["block_sparse_attn"]["max_abs_err"] = max(
+            res["block_sparse_attn"]["max_abs_err"], e)
+
+        # the chunk launch at q block OFFSET (chunked prefill's shape):
+        # against its plain version, and bitwise the full launch's rows
+        kwc = dict(block_size=bs, stats_gate=decision.use_dense)
+        qc = q[:, :, rows].contiguous()
+        oc, ac = block_sparse_attention_cuda(qc, k, v, cidx, ccnt,
+                                             q_block_offset=off, **kwc)
+        op, ap = block_sparse_attention_plain(qc, k, v, cidx, ccnt,
+                                              q_block_offset=off, **kwc)
+        of, af = block_sparse_attention_cuda(q, k, v, ridx, rcnt, **kwc)
+        torch.cuda.synchronize()
+        same = (torch.equal(oc, of[:, :, rows])
+                and torch.equal(ac, af[:, :, off:off + 16]))
+        print(f"  block_sparse_attn [16-block chunk at q block {off}]: "
+              f"bitwise the full launch's rows (out and a_tilde) {same}",
+              flush=True)
+        if not same:
+            raise AssertionError("the chunk launch differs from the full "
+                                 "launch's rows")
+        e = max_err(oc, op)
+        check("  out", e, TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(ac, ap), TOL[("a_tilde", dn)])
+        res["block_sparse_attn"]["max_abs_err"] = max(
+            res["block_sparse_attn"]["max_abs_err"], e)
 
         # sparse decode over the grown cache: partly false keep bits, an
         # empty (counts == 0) slot, ragged valid (the shorter prompt's pad)
@@ -516,6 +582,23 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
             plain_ms=cuda_ms(lambda: block_sparse_attention_plain(
                 q, k, v, bidx, bcnt, block_size=bs, stats_gate=dg), 2),
             bound_ms=bb[0], bound_by=bb[1], library_ms=lib)
+        # the same work at D = 96, and the chunk launch at its offset
+        b96 = bound(2 * b * h * n * 96 * elt + 2 * kv_blocks * bs * 96 * elt
+                    + bidx.numel() * 4 + bcnt.numel() * 4
+                    + b * h * nb * nb * 4, 4.0 * 96 * entries, dtype)
+        cvis = table_block_mask(cidx, ccnt, nb)
+        centries, ctiles = bsa_work(cvis, g, bs, off)
+        bc = bound(2 * qc.numel() * elt + 2 * ctiles * bs * d * elt
+                   + cidx.numel() * 4 + ccnt.numel() * 4 + cvis.numel() * 4,
+                   4.0 * d * centries, dtype)
+        res["block_sparse_attn"].update(
+            d96_ms=cuda_ms(lambda: block_sparse_attention_cuda(
+                q96, k96, v96, bidx, bcnt, block_size=bs, stats_gate=dg),
+                10),
+            d96_bound_ms=b96[0],
+            chunk_ms=cuda_ms(lambda: block_sparse_attention_cuda(
+                qc, k, v, cidx, ccnt, q_block_offset=off, **kwc), 10),
+            chunk_bound_ms=bc[0])
 
         # decode: the table's blocks of K and V, q, out and the tables
         # moved once; QK and PV products over the kept, valid keys
@@ -550,6 +633,13 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
                 split = (f", device {r['device_ms']} ms a call; B=1 "
                          f"{r['b1_ms']:.4f} ms, device {r['b1_device_ms']}"
                          f" ms; float32 {r['f32_ms']:.4f} ms")
+            if name == "block_sparse_attn":
+                split = (f"; D=96 {r['d96_ms']:.3f} ms, bound "
+                         f"{r['d96_bound_ms']:.4f}, bound_frac "
+                         f"{r['d96_bound_ms'] / r['d96_ms']:.4f}; 16-block "
+                         f"chunk at q block {off} {r['chunk_ms']:.3f} ms, "
+                         f"bound {r['chunk_bound_ms']:.4f}, bound_frac "
+                         f"{r['chunk_bound_ms'] / r['chunk_ms']:.4f}")
             print(f"  {name} bf16: {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
                   f"{r['bound_by']}, bound_frac "
@@ -952,6 +1042,8 @@ class PrefillProbe(LogitProbe):
     def __init__(self, model):
         super().__init__(model)
         self.first = {}
+        self.segments = {}      # key → prompts in its chunked run
+        self.packed = []        # (seq, prompts, logits) of each packed run
 
     def prefill(self, params, tokens, sp, **kwargs):
         result = super().prefill(params, tokens, sp, **kwargs)
@@ -978,13 +1070,27 @@ def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
             for i, (p, m) in enumerate(zip(prompts, news))]
     allocs = []
     summary = SlotScheduler._pool_summary
+    complete = SlotScheduler._complete_run
 
     def audited(self):
         summary(self)
         if self.paged:
             allocs.append(self.alloc)
 
+    def completed(self, run):
+        # a chunked run's first-token logits, keyed as the probe keys a
+        # one-shot prefill's
+        for j, plen in enumerate(run.plens):
+            key = (int(plen), int(run.tokens[0, j * run.seq]))
+            probe.first[key] = run.logits[j].float()
+            probe.segments[key] = run.P
+        if run.P > 1:
+            probe.packed.append((run.seq, [r.prompt for r in run.requests],
+                                 run.logits.float()))
+        complete(self, run)
+
     SlotScheduler._pool_summary = audited
+    SlotScheduler._complete_run = completed
     try:
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -995,22 +1101,18 @@ def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
         counts = launch_counts()
     finally:
         SlotScheduler._pool_summary = summary
+        SlotScheduler._complete_run = complete
     return dict(eng=eng, reqs=reqs, probe=probe, counts=counts, wall=wall,
                 allocs=allocs)
 
 
-def serve_paged(model, params, prompts, layers: int) -> dict:
-    """Phase 6: the continuous-batching serve on the paged pool, checked,
-    then the same requests through the contiguous scheduler."""
-    import torch
-
-    news = [m for _, m in PAGED_REQUESTS]
-    run = scheduler_serve(model, params, prompts, news, paged=True,
-                          num_pages=NUM_PAGES)
-    eng, reqs, counts = run["eng"], run["reqs"], run["counts"]
+def report_scheduler_serve(label: str, run: dict) -> int:
+    """Print a scheduler serve's per-request metrics, phase clocks and
+    pool; returns its decode steps."""
+    eng, reqs = run["eng"], run["reqs"]
     steps = eng.slot_steps // eng.ecfg.max_batch
-    print(f"paged serve: {len(reqs)} requests in {run['wall']:.3f} s, "
-          f"{steps} decode steps; launches {counts}", flush=True)
+    print(f"{label}: {len(reqs)} requests in {run['wall']:.3f} s, "
+          f"{steps} decode steps; launches {run['counts']}", flush=True)
     for r in reqs:
         m = r.metrics()
         bucket = eng._bucket(len(r.prompt))
@@ -1022,31 +1124,54 @@ def serve_paged(model, params, prompts, layers: int) -> dict:
               f"{m['decode_tokens_per_s']:.3f} plan_traffic_fraction "
               f"{m['plan_traffic_fraction']:.4f} waiting_deferred_steps "
               f"{m['waiting_deferred_steps']}", flush=True)
-    pool = eng.page_pool_stats
     print(f"  slot_occupancy {eng.slot_occupancy():.4f}; phase_s "
           + json.dumps({k: round(v, 4) for k, v in eng.phase_s.items()})
-          + f"; decode step {1e3 * eng.phase_s['decode'] / steps:.2f} ms "
-          f"(mean over 4 slots); pages_exhausted_steps "
-          f"{eng.pages_exhausted_steps}; pool {json.dumps(pool)}",
-          flush=True)
+          + f"; decode step {1e3 * eng.phase_s['decode'] / max(steps, 1):.2f}"
+          f" ms (mean over 4 slots); pages_exhausted_steps "
+          f"{eng.pages_exhausted_steps}; pool "
+          f"{json.dumps(eng.page_pool_stats)}", flush=True)
+    return steps
 
-    for r in reqs:
+
+def check_paged_run(run: dict, what: str) -> None:
+    """Every request finished whole, logits finite, no page leaked and
+    each allocator consistent."""
+    import torch
+    for r in run["reqs"]:
         if r.finish_reason not in ("length", "stop") or (
                 r.finish_reason == "length"
                 and len(r.output_tokens) != r.max_new_tokens):
-            raise AssertionError(f"request {r.uid}: {r.finish_reason} with "
+            raise AssertionError(f"{what}: request {r.uid}: "
+                                 f"{r.finish_reason} with "
                                  f"{len(r.output_tokens)} tokens")
     finite = all(bool(torch.isfinite(x).all()) for x in run["probe"].logits)
+    finite &= all(bool(torch.isfinite(x).all())
+                  for x in run["probe"].first.values())
     print(f"  logits: {len(run['probe'].logits)} calls, all finite {finite}",
           flush=True)
     if not finite:
-        raise AssertionError("non-finite logits in the paged serve")
-    if eng.pages_exhausted_steps < 1:
-        raise AssertionError("no admission waited on pool headroom")
+        raise AssertionError(f"non-finite logits in the {what}")
+    pool = run["eng"].page_pool_stats
     if pool["pages_in_use_at_end"] != 0:
-        raise AssertionError(f"pages leaked: {pool}")
+        raise AssertionError(f"{what}: pages leaked: {pool}")
     for alloc in run["allocs"]:
         alloc.check_consistency()
+
+
+def serve_paged(model, params, prompts, layers: int) -> dict:
+    """Phase 6: the continuous-batching serve on the paged pool, checked,
+    then the same requests through the contiguous scheduler.  Returns the
+    paged serve."""
+    import torch
+
+    news = [m for _, m in PAGED_REQUESTS]
+    run = scheduler_serve(model, params, prompts, news, paged=True,
+                          num_pages=NUM_PAGES)
+    eng, reqs, counts = run["eng"], run["reqs"], run["counts"]
+    steps = report_scheduler_serve("paged serve", run)
+    check_paged_run(run, "paged serve")
+    if eng.pages_exhausted_steps < 1:
+        raise AssertionError("no admission waited on pool headroom")
     need = {"strip": layers * len(reqs),
             "block_sparse_attn": layers * len(reqs),
             "decode_attn_paged": layers * steps}
@@ -1080,7 +1205,7 @@ def serve_paged(model, params, prompts, layers: int) -> dict:
             logits = torch.stack([x[0] for x in solo["probe"].logits])
             verdict = greedy_agree(ref, logits.cpu().numpy(), got, TIE_TOL)
         print(f"  request {a.uid}: {verdict}", flush=True)
-    return counts
+    return run
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1375,6 +1500,112 @@ def check_kernel_api(model, params, tokens, prompt) -> dict:
     return out, counts
 
 
+def check_group12(dev) -> dict:
+    """Phase 7, C.2: the four decode kernels at mistral-large's G = 12
+    (H = 96 over Hkv = 8, D = 128) against their plain versions in
+    bfloat16 and float32, on random inputs at a 65-block cache of
+    128-token blocks: B.3 over 2 slots (an empty one, partly false keep
+    bits, a right-pad range), B.4 on the same plan through a shuffled
+    pool (also bitwise B.3 on the gathered pages), B.7 and B.8 on a token
+    mask with an all-false head; then B.3's device time at G = 12 against
+    G = 8 on the same K/V and tables (G = 8 keeps the first 8 heads of
+    each group).  Returns each kernel's largest error."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.decode_attn import (
+        DecodePlan, decode_plan_einsum_sliced_paged, gather_pages)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    b, hkv, g, d, bs, nb = 2, 8, 12, 128, 128, 65
+    h, s = hkv * g, nb * bs
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    keep = torch.rand((b, hkv, nb, g), generator=gen, device=dev) < 0.6
+    keep[..., -1, :] = True
+    union = keep.any(-1)
+    union[1, 5] = False                         # an empty (b, kv head) row
+    keep &= union[..., None]
+    idx, cnt = (x.contiguous() for x in K.compact_block_mask(union))
+    keep = keep.contiguous()
+    valid = torch.ones((b, s), dtype=torch.bool, device=dev)
+    valid[1, 7937:8192] = False                 # right-pad
+    valid[:, 8192 + 6:] = False                 # past the decode position
+    plan = DecodePlan(idx, cnt, keep)
+    num_pages = 1 + b * nb + 4
+    perm = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)
+            ).to(torch.int32)
+    table = perm[:b * nb].reshape(b, nb).contiguous()
+    tok_mask = (keep[0].movedim(-1, 1).reshape(h, nb)
+                .repeat_interleave(bs, 1) & valid[0]).contiguous()
+    tok_mask[7] = False                         # an all-false head
+    print(f"G=12 decode shapes: B={b} H={h} Hkv={hkv} D={d} bs={bs} "
+          f"NB={nb}, live blocks per row {cnt.float().mean():.1f}",
+          flush=True)
+    out = {name: 0.0 for name in ("decode_attn", "decode_attn_paged",
+                                  "decode_attn_dense", "decode_attn_sparse")}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q = (rnd(b, h, d)).to(dtype)
+        ck, cv = ((rnd(b, hkv, s, d) * 0.5).to(dtype) for _ in range(2))
+        pool_k, pool_v = ((rnd(num_pages, hkv, bs, d) * 0.5).to(dtype)
+                          for _ in range(2))
+        for pool, x in ((pool_k, ck), (pool_v, cv)):
+            pool[table.reshape(-1).long()] = x.reshape(
+                b, hkv, nb, bs, d).transpose(1, 2).reshape(-1, hkv, bs, d)
+        print(f"[{dn}]", flush=True)
+        o3 = K.flash_decode_sparse_cuda(q, ck, cv, idx, cnt, keep, valid)
+        p3 = K.decode_plan_einsum_sliced(q, ck, cv, plan, valid)
+        o4 = K.flash_decode_sparse_paged_cuda(q, pool_k, pool_v, table, idx,
+                                              cnt, keep, valid)
+        p4 = decode_plan_einsum_sliced_paged(q, pool_k, pool_v, table, plan,
+                                             valid)
+        og = K.flash_decode_sparse_cuda(q, gather_pages(pool_k, table),
+                                        gather_pages(pool_v, table), idx,
+                                        cnt, keep, valid)
+        torch.cuda.synchronize()
+        zeros = bool((o3[1, 5 * g:6 * g] == 0).all())
+        bitwise = max_err(o4, og)
+        print(f"  decode_attn / decode_attn_paged: empty row exact zeros "
+              f"{zeros}; max |paged - contiguous kernel on gathered pages| "
+              f"{bitwise:.3e}", flush=True)
+        if not zeros or bitwise != 0.0:
+            raise AssertionError("G=12 decode: empty row not zeros, or the "
+                                 "paged kernel differs from the contiguous "
+                                 "one on gathered pages")
+        for name, got, ref in (("decode_attn", o3, p3),
+                               ("decode_attn_paged", o4, p4)):
+            e = max_err(got, ref)
+            check(f"  {name} out", e, TOL[("out", dn)])
+            out[name] = max(out[name], e)
+        for name, cuda_fn, plain_fn in (
+                ("decode_attn_dense", K.flash_decode_cuda,
+                 K.flash_decode_plain),
+                ("decode_attn_sparse", K.flash_decode_sparse_single_cuda,
+                 K.flash_decode_sparse_plain)):
+            o1 = cuda_fn(q[0], ck[0], cv[0], tok_mask, block_kv=bs)
+            o2 = plain_fn(q[0], ck[0], cv[0], tok_mask, block_kv=bs)
+            if not bool((o1[7] == 0).all()):
+                raise AssertionError(f"{name}: all-false head not zeros")
+            e = max_err(o1, o2)
+            check(f"  {name} out", e, TOL[("out", dn)])
+            out[name] = max(out[name], e)
+        if dtype != torch.bfloat16:
+            continue
+        # device time at G = 12 against G = 8: the same K/V bytes and
+        # tables, 2/3 of the query heads
+        q8 = q.reshape(b, hkv, g, d)[:, :, :8].reshape(b, hkv * 8, d)
+        q8 = q8.contiguous()
+        keep8 = keep[..., :8].contiguous()
+        t12 = device_ms(lambda: K.flash_decode_sparse_cuda(
+            q, ck, cv, idx, cnt, keep, valid), 20)
+        t8 = device_ms(lambda: K.flash_decode_sparse_cuda(
+            q8, ck, cv, idx, cnt, keep8, valid), 20)
+        ratio = t12 / t8 if t12 and t8 else None
+        print(f"  decode_attn bf16 device ms a call: G=12 {t12}, G=8 {t8}, "
+              f"ratio {ratio}", flush=True)
+        out["g12_device_ms"], out["g8_device_ms"] = t12, t8
+    return out
+
+
 # ---------------------------------------------------------------- phase 8
 
 # first-step logits of the per-sample serve against phase 4's: at most this
@@ -1414,6 +1645,306 @@ def serve_per_sample(model, params, prompts, layers: int, batch: dict
         verdict = greedy_agree(a.output_tokens, logits, c.output_tokens, tol)
         print(f"  request {a.uid}: {verdict}", flush=True)
     return counts
+
+
+# ---------------------------------------------------------------- phase 9
+
+CHUNK = 1024        # phase 9's prefill chunk: 8 chunks at 8192, 2 at 2048
+
+
+def serve_chunked(model, params, prompts, layers: int, oneshot: dict
+                  ) -> dict:
+    """Phase 9: phase 6's requests, pool and buckets through chunked
+    admission (``prefill_chunk=CHUNK``): greedy tokens equal to phase 6's
+    one-shot paged serve and first-step logits bitwise equal (every gemm
+    runs at the one-shot shapes, and a chunk launch's rows are the full
+    launch's); then packed (``prefill_pack=2``): a request that ran alone
+    is held to phase 6 the same way, each packed run of the serve bitwise
+    to a one-shot prefill of the same packed row, a packed run bitwise to
+    itself unchunked (:func:`check_packed_run`), and its segments'
+    agreement with phase 6 (solo prefills) is reported.  Prints each serve's metrics beside phase 6's;
+    returns the chunked serve's launch counts."""
+    import torch
+    from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
+
+    news = [m for _, m in PAGED_REQUESTS]
+    eng6 = oneshot["eng"]
+    chunks = [eng6._bucket(len(p)) // CHUNK for p in prompts]
+    runs = {}
+    quanta = []                 # (kind, host seconds) of every quantum
+    step = ChunkedPrefillRun.step
+
+    def timed(self):
+        kind, t = self._phase, time.time()
+        ev = step(self)         # ends in a device synchronisation
+        quanta.append((kind, time.time() - t))
+        return ev
+
+    for label, extra in (("chunked", {}), ("chunked+packed",
+                                           {"prefill_pack": 2})):
+        quanta.clear()
+        ChunkedPrefillRun.step = timed
+        try:
+            run = scheduler_serve(model, params, prompts, news, paged=True,
+                                  num_pages=NUM_PAGES, prefill_chunk=CHUNK,
+                                  **extra)
+        finally:
+            ChunkedPrefillRun.step = step
+        report_scheduler_serve(f"{label} paged serve (chunk {CHUNK})", run)
+        kinds = {}
+        for kind, dt in quanta:
+            kinds.setdefault(kind, []).append(dt * 1e3)
+        print(f"  {label}: {len(quanta)} quanta; ms by kind (count, mean, "
+              f"max): " + json.dumps(
+                  {k: [len(v), round(sum(v) / len(v), 3), round(max(v), 3)]
+                   for k, v in kinds.items()}), flush=True)
+        check_paged_run(run, f"{label} serve")
+        counts = run["counts"]
+        admissions = counts["strip"] // layers
+        print(f"  {label}: {admissions} admissions, block_sparse_attn "
+              f"launches {counts['block_sparse_attn']} (one-shot: "
+              f"{oneshot['counts']['block_sparse_attn']})", flush=True)
+        if counts["decode_attn"] or counts["decode_attn_paged"] < layers:
+            raise AssertionError(f"{label}: the serve did not decode "
+                                 "through the paged kernel alone")
+        runs[label] = run
+
+    # chunked: one admission per request, one B.2 launch per chunk and
+    # layer; tokens and first-step logits bitwise phase 6's
+    counts = runs["chunked"]["counts"]
+    want = {"strip": layers * len(prompts),
+            "block_sparse_attn": layers * sum(chunks)}
+    if any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"chunked serve launched {counts}, expected "
+                             f"{want}")
+    first, ref_first = runs["chunked"]["probe"].first, oneshot["probe"].first
+    if set(first) != set(ref_first):
+        raise AssertionError("chunked serve: first-step logits of other "
+                             "requests than phase 6's")
+    delta = max(max_err(first[k], ref_first[k]) for k in first)
+    bitwise = all(torch.equal(first[k], ref_first[k]) for k in first)
+    print(f"  chunked: first-step logits bitwise phase 6's {bitwise} "
+          f"(max |delta| {delta:.3e})", flush=True)
+    for a, c in zip(oneshot["reqs"], runs["chunked"]["reqs"]):
+        if a.output_tokens.tolist() != c.output_tokens.tolist():
+            raise AssertionError(f"chunked serve: request {a.uid} tokens "
+                                 f"{c.output_tokens.tolist()} != phase 6's "
+                                 f"{a.output_tokens.tolist()}")
+    if not bitwise:
+        raise AssertionError("chunked first-step logits differ from the "
+                             "one-shot serve's")
+    print("  chunked: greedy tokens identical to phase 6's", flush=True)
+
+    # packed: a request that ran alone is held to phase 6 as above.  A
+    # packed run shares one strip estimate and one dictionary across its
+    # segments (the reference's packing does the same), so its segments'
+    # masks, and so their tokens, may differ from a solo prefill's: their
+    # agreement with phase 6 is reported, and each packed run is held
+    # bitwise to a one-shot prefill of its own packed row
+    packed = runs["chunked+packed"]
+    seg = packed["probe"].segments
+    if max(seg.values()) < 2:
+        raise AssertionError("the packed serve packed no run")
+    for a, c in zip(oneshot["reqs"], packed["reqs"]):
+        key = (len(a.prompt), int(a.prompt[0]))
+        same = a.output_tokens.tolist() == c.output_tokens.tolist()
+        if seg[key] == 1:
+            if not (same and torch.equal(packed["probe"].first[key],
+                                         ref_first[key])):
+                raise AssertionError(f"packed serve: request {a.uid} ran "
+                                     "alone but differs from phase 6")
+            print(f"  packed serve, request {a.uid} (alone): identical, "
+                  "first-step logits bitwise", flush=True)
+            continue
+        verdict = "identical"
+        if not same:
+            t = next(i for i, (x, y) in enumerate(
+                zip(a.output_tokens, c.output_tokens)) if x != y)
+            solo = scheduler_serve(model, params, [a.prompt],
+                                   [a.max_new_tokens], paged=True,
+                                   num_pages=NUM_PAGES)
+            top2 = np.sort(solo["probe"].logits[t][0].cpu().numpy())[-2:]
+            verdict = (f"differs from token {t} on (phase 6's top-2 margin "
+                       f"there {float(top2[1] - top2[0]):.3e})")
+        delta = max_err(packed["probe"].first[key], ref_first[key])
+        print(f"  packed serve, request {a.uid} (packed in a run of "
+              f"{seg[key]}): {verdict}; first-step logits max |delta| "
+              f"against phase 6 {delta:.3e} (reported, not held)",
+              flush=True)
+    check_packed_oneshot(packed["eng"], packed["probe"].packed)
+    check_packed_run(packed["eng"], [oneshot["reqs"][i].prompt
+                                     for i in (0, 1)])
+
+    print("  per request (prefill_s / ttft_s / prefill_stall_s): one-shot "
+          "| chunked | packed", flush=True)
+    for i, r in enumerate(oneshot["reqs"]):
+        cells = [f"{x.prefill_s:.4f} / {x.ttft_s:.4f} / "
+                 f"{x.prefill_stall_s:.4f}"
+                 for x in (r, runs["chunked"]["reqs"][i],
+                           packed["reqs"][i])]
+        print(f"  request {r.uid} ({len(r.prompt)} tokens, "
+              f"{chunks[i]} chunks): " + " | ".join(cells), flush=True)
+    for label, run in (("one-shot", oneshot), *runs.items()):
+        e = run["eng"]
+        steps = e.slot_steps // e.ecfg.max_batch
+        stall = sum(r.prefill_stall_s for r in run["reqs"])
+        print(f"  {label}: makespan {run['wall']:.3f} s, {steps} decode "
+              f"steps of {1e3 * e.phase_s['decode'] / max(steps, 1):.2f} ms,"
+              f" prefill {e.phase_s['prefill']:.3f} s, total "
+              f"prefill_stall_s {stall:.4f}, block_sparse_attn launches "
+              f"{run['counts']['block_sparse_attn']}", flush=True)
+    return counts
+
+
+def check_packed_oneshot(eng, runs) -> None:
+    """Phase 9: the first-step logits of each packed run of the packed
+    serve (chunk CHUNK, decode steps between its quanta) bitwise equal to a
+    one-shot prefill of the same packed row, its own positions and segment
+    mask: the same quanta with one chunk a layer, which is the one-shot
+    layer's code (begin, every query block's rows, end)."""
+    import torch
+    from repro_torch.serving import Request
+    from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
+
+    for seq, prompts, logits in runs:
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=1)
+                for i, p in enumerate(prompts)]
+        run = ChunkedPrefillRun(eng, reqs, list(range(len(reqs))), seq,
+                                len(reqs) * seq, None)
+        while not run.done:
+            run.step()
+        same = torch.equal(run.logits.float(), logits)
+        print(f"  packed run of {len(reqs)} x {seq} tokens (prompts "
+              f"{[len(p) for p in prompts]}): serve's first-step logits "
+              f"bitwise a one-shot prefill of the packed row {same} (max "
+              f"|delta| {max_err(run.logits.float(), logits):.3e})",
+              flush=True)
+        if not same:
+            raise AssertionError("a packed run of the serve differs from a "
+                                 "one-shot prefill of its packed row")
+
+
+def check_packed_run(eng, prompts) -> None:
+    """Phase 9: one packed admission (two 8192-bucket prompts in a
+    16384-token row) driven to its end at CHUNK and as one chunk a layer:
+    logits and every layer's K/V bitwise equal, and one B.2 launch per
+    chunk and layer."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import Request
+    from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
+
+    out = {}
+    for chunk in (CHUNK, 2 * SEQ):
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=1)
+                for i, p in enumerate(prompts)]
+        run = ChunkedPrefillRun(eng, reqs, [0, 1], SEQ, chunk, None)
+        reset_launch_counts()
+        kv = []
+        while not run.done:
+            if run.step() == "kv":
+                kv.append(run.kv)
+        n = launch_counts()["block_sparse_attn"]
+        if n != eng.model.cfg.num_layers * len(run.chunks):
+            raise AssertionError(f"packed run at chunk {chunk}: {n} "
+                                 "block-sparse launches")
+        out[chunk] = (run.logits, kv, len(run.chunks))
+    (la, kva, ca), (lb, kvb, cb) = out[CHUNK], out[2 * SEQ]
+    same = torch.equal(la, lb) and all(
+        torch.equal(x, y) for a, b in zip(kva, kvb) for x, y in zip(a, b))
+    print(f"  packed run of 2 x {SEQ} tokens: {ca} chunks a layer bitwise "
+          f"{cb} chunk (logits and every layer's K/V) {same}", flush=True)
+    if not same:
+        raise AssertionError("a packed run's result depends on its chunks")
+
+
+# ---------------------------------------------------------------- phase 10
+
+# the repaired configs at full width: (arch, layers kept or None for all,
+# prompt lengths, new tokens)
+REPAIRED = (("phi3-mini-3.8b", None, (8192, 7937), 8),
+            ("mistral-large-123b", 2, (8192, 8192), 8))
+
+
+def serve_repaired(arch: str, depth, prompt_lens, new_tokens: int) -> dict:
+    """Phase 10: a batch serve of one repaired config at full width (D = 96
+    for phi3-mini, G = 12 for mistral-large), launch counts reset just
+    before and read just after, then the same serve with the decode's
+    plain versions (``decode_impl="einsum"``): logits finite, first-step
+    logits equal (the same prefill), greedy tokens near-tie aware."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.checkpoint import num_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg = get_config(arch)
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, num_layers=depth)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    hd = cfg.resolved_head_dim
+    cut = ("" if depth is None else f" (depth cut: {depth} of "
+           f"{get_config(arch).num_layers} layers)")
+    print(f"{arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads (G = "
+          f"{cfg.num_heads // cfg.num_kv_heads}), head dim {hd}, "
+          f"{num_params(params) / 1e9:.3f} B params in bf16", flush=True)
+    rng = np.random.default_rng(SEED + 6)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens]
+    runs = {}
+    for impl in ("auto", "einsum"):
+        probe = LogitProbe(model)
+        eng = ServingEngine(probe, params, model.default_share_prefill(),
+                            EngineConfig(method="share", decode_sparse=True,
+                                         decode_impl=impl, max_batch=2,
+                                         seq_buckets=(SEQ,)))
+        reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.time()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+        st = reqs[0].pattern_stats
+        print(f"  decode_impl={impl}: {wall:.3f} s, prefill_s "
+              f"{reqs[0].prefill_s:.4f}, decode_tokens_per_s "
+              f"{reqs[0].decode_tokens_per_s:.3f}, block density "
+              f"{st['block_density']:.4f}, shared/dense/vs "
+              f"{st['num_shared']:.1f}/{st['num_dense']:.1f}/"
+              f"{st['num_vs']:.1f}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"launches {counts}", flush=True)
+        logits = torch.stack(probe.logits, 1)       # (B, steps, V)
+        if not bool(torch.isfinite(logits).all()) or logits.shape != (
+                len(prompts), new_tokens, cfg.vocab_size):
+            raise AssertionError(f"{arch}: non-finite or misshapen logits")
+        runs[impl] = (reqs, logits, counts)
+    layers = cfg.num_layers
+    kc, pc = runs["auto"][2], runs["einsum"][2]
+    want = {"strip": layers, "block_sparse_attn": layers,
+            "decode_attn": layers * (new_tokens - 1)}
+    if any(kc[k] != n for k, n in want.items()) or pc["decode_attn"] or \
+            pc["block_sparse_attn"] != layers:
+        raise AssertionError(f"{arch}: launches {kc} / plain decode "
+                             f"{pc}, expected {want} / no decode kernel")
+    (kr, kl, _), (pr, pl, _) = runs["auto"], runs["einsum"]
+    if not torch.equal(kl[:, 0], pl[:, 0]):
+        raise AssertionError(f"{arch}: the two serves' prefills differ")
+    tol = PER_SAMPLE_RTOL * float(pl[:, 0].abs().max())
+    for i, (a, c) in enumerate(zip(pr, kr)):
+        verdict = greedy_agree(a.output_tokens, pl[i].cpu().numpy(),
+                               c.output_tokens, tol)
+        print(f"  request {a.uid}: kernel {c.output_tokens.tolist()} plain "
+              f"{a.output_tokens.tolist()} -> {verdict}; max |logit "
+              f"kernel - plain| {max_err(kl[i], pl[i]):.3e}", flush=True)
+    del model, params, runs, probe, logits
+    torch.cuda.empty_cache()
+    return kc
 
 
 def main() -> int:
@@ -1487,10 +2018,10 @@ def main() -> int:
     paged_prompts = [rng.integers(0, cfg.vocab_size, n)
                      for n, _ in PAGED_REQUESTS]
     torch.cuda.reset_peak_memory_stats()
-    paged_counts = serve_paged(model, params, paged_prompts, layers)
+    paged = serve_paged(model, params, paged_prompts, layers)
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
-    counts["decode_attn_paged"] = paged_counts["decode_attn_paged"]
+    counts["decode_attn_paged"] = paged["counts"]["decode_attn_paged"]
     profile_serve("(phase 6, paged scheduler)", lambda wrap: scheduler_serve(
         wrap(model), params, paged_prompts,
         [m for _, m in PAGED_REQUESTS], paged=True, num_pages=NUM_PAGES))
@@ -1502,6 +2033,10 @@ def main() -> int:
     for name in ("block_sparse_attn_paged", "decode_attn_dense",
                  "decode_attn_sparse"):
         counts[name] = api_counts[name]
+    g12 = check_group12(torch.device("cuda"))
+    for name in ("decode_attn", "decode_attn_paged", "decode_attn_dense",
+                 "decode_attn_sparse"):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"], g12[name])
     torch.cuda.empty_cache()
     print("== phase 8: full-width serve through the per-sample path",
           flush=True)
@@ -1518,6 +2053,23 @@ def main() -> int:
                                    seq_buckets=(SEQ,))).serve(
                       [Request(uid=i, prompt=p, max_new_tokens=4)
                        for i, p in enumerate(prompts)]))
+    torch.cuda.empty_cache()
+    print("== phase 9: chunked prefill through the paged scheduler",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    serve_chunked(model, params, paged_prompts, layers, paged)
+    print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+          " GiB", flush=True)
+    profile_serve("(phase 9, chunked paged scheduler)",
+                  lambda wrap: scheduler_serve(
+                      wrap(model), params, paged_prompts,
+                      [m for _, m in PAGED_REQUESTS], paged=True,
+                      num_pages=NUM_PAGES, prefill_chunk=CHUNK))
+    del model, params, batch, paged
+    torch.cuda.empty_cache()
+    print("== phase 10: the repaired configs at full width", flush=True)
+    for arch, depth, lens, new in REPAIRED:
+        serve_repaired(arch, depth, lens, new)
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,7 +9,8 @@ checkout's kernels, times its strip at the phase-2 shape (layer 0's q and
 k of the two phase-4 prompts, B = 2 and B = 1, CUDA events), serves phase
 4's two full-width llama3-8b-262k requests twice (the first serve warms
 cuBLAS and the allocator; the second is the one to read), then phase 6's
-six requests through the paged and the contiguous scheduler.  Every line
+six requests through the paged and the contiguous scheduler, and, where
+the checkout has them, phase 9's chunked and packed serves.  Every line
 the serves print is kept, prefixed by the checkout's path.  Alternate the
 order (parent, change, change, parent) so that drift on the machine does
 not favour one side.  Needs a CUDA card; prints its name and power limit.
@@ -56,7 +57,9 @@ def one(tree: str) -> int:
     torch.cuda.empty_cache()
     rng = np.random.default_rng(cs.SEED + 2)
     paged = [rng.integers(0, cfg.vocab_size, n) for n, _ in cs.PAGED_REQUESTS]
-    cs.serve_paged(model, params, paged, layers)
+    run = cs.serve_paged(model, params, paged, layers)
+    if hasattr(cs, "serve_chunked"):
+        cs.serve_chunked(model, params, paged, layers, run)
     return 0
 
 

@@ -11,12 +11,14 @@ from repro_torch.configs.base import ModelConfig, reduced_config
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.internlm2_1_8b import CONFIG as _internlm2
 from repro_torch.configs.llama3_8b_262k import CONFIG as _llama3_262k
+from repro_torch.configs.mistral_large_123b import CONFIG as _mistral_large
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen2_5_7b import CONFIG as _qwen2_5
 
 REGISTRY: Dict[str, ModelConfig] = {
     "granite-3-2b": _granite,
     "internlm2-1.8b": _internlm2,
+    "mistral-large-123b": _mistral_large,
     "phi3-mini-3.8b": _phi3,
     "llama3-8b-262k": _llama3_262k,
     "qwen2.5-7b": _qwen2_5,

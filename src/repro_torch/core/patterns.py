@@ -29,6 +29,28 @@ def causal_block_mask(nb_q: int, nb_kv: Optional[int] = None, *,
     return j <= i + (nb_kv - nb_q)
 
 
+def sliding_window_block_mask(nb: int, window_blocks: int,
+                              sink_blocks: int = 1, *,
+                              device=None) -> torch.Tensor:
+    """Causal sliding window of ``window_blocks`` diagonals (0 … w−1) plus
+    the first ``sink_blocks`` kv-block columns (attention sinks)."""
+    i = torch.arange(nb, device=device)[:, None]
+    j = torch.arange(nb, device=device)[None, :]
+    return (j <= i) & (((i - j) < window_blocks) | (j < sink_blocks))
+
+
+def segment_block_mask(nb: int, seg_blocks: int, *,
+                       device=None) -> torch.Tensor:
+    """Block-diagonal isolation mask of a packed prefill: ``nb`` blocks in
+    contiguous segments of ``seg_blocks``, and a q block sees only the kv
+    blocks of its own segment."""
+    if seg_blocks <= 0 or nb % seg_blocks:
+        raise ValueError(
+            f"segment of {seg_blocks} blocks does not tile {nb} blocks")
+    seg = torch.arange(nb, device=device) // seg_blocks
+    return seg[:, None] == seg[None, :]
+
+
 def vertical_block_mask(nb: int, col_active: torch.Tensor) -> torch.Tensor:
     """Active kv-block columns ``(…, NB)`` → causal ``(…, NB, NB)`` mask."""
     causal = causal_block_mask(nb, device=col_active.device)

@@ -86,9 +86,11 @@ def build_share_masks(
     state: pdict.PivotalState,
     cluster_ids: torch.Tensor,      # (H,)
     cfg: SharePrefillConfig,
+    extra_mask: Optional[torch.Tensor] = None,    # (NB, NB)
 ) -> Tuple[torch.Tensor, PatternDecision]:
     """Algorithms 3-5: estimate, decide, and build the per-head causal
-    block masks ``(B, H, NB, NB)``."""
+    block masks ``(B, H, NB, NB)``, ANDed with ``extra_mask`` (a packed
+    prefill's segment isolation) where given."""
     bs = cfg.block_size
     nb = q.shape[2] // bs
     strips = compute_strips(q, k, block_size=bs)         # (B, H, bs, N)
@@ -102,7 +104,10 @@ def build_share_masks(
     masks = torch.where(decision.use_shared[..., None, None], pivot_masks,
                         vs_masks)
     masks = torch.where(decision.use_dense[..., None, None], causal, masks)
-    return masks & causal, decision
+    masks = masks & causal
+    if extra_mask is not None:
+        masks = masks & extra_mask
+    return masks, decision
 
 
 def update_share_state(a_tilde: torch.Tensor, state: pdict.PivotalState,
@@ -155,6 +160,22 @@ def _take_heads(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return x[rows, perm]
 
 
+def head_permuted_attention(
+    attention_fn: AttentionFn, q: torch.Tensor, k: torch.Tensor,
+    v: torch.Tensor, masks: torch.Tensor, gate: torch.Tensor,
+    perm: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A batched ``attention_fn`` launched with the heads in ``perm``'s
+    order (:func:`pattern_sharing_head_perm`); out and Ã come back in the
+    original order.  q and masks may hold a chunk of the query rows (the
+    gather copies q's rows contiguous)."""
+    out_p, a_p = attention_fn(
+        _take_heads(q, perm).contiguous(), k, v,
+        _take_heads(masks, perm), stats_gate=_take_heads(gate, perm))
+    inv = torch.argsort(perm, dim=1)
+    return _take_heads(out_p, inv), _take_heads(a_p, inv)
+
+
 def share_prefill_attention_layer(
     q: torch.Tensor,                # (H, N, D)
     k: torch.Tensor,                # (Hkv, N, D)
@@ -163,6 +184,7 @@ def share_prefill_attention_layer(
     cluster_ids: torch.Tensor,      # (H,)
     cfg: SharePrefillConfig,
     attention_fn: Optional[AttentionFn] = None,
+    extra_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, pdict.PivotalState, LayerStats]:
     """One layer of SharePrefill for a single sample.  A batched
     ``attention_fn`` gets the sample as a batch of one, with the stats
@@ -173,7 +195,7 @@ def share_prefill_attention_layer(
         attention_fn = sparse_attention_fn(block_size=cfg.block_size)
     state_b = pdict.PivotalState(*(x[None] for x in state))
     masks, decision = build_share_masks(q[None], k[None], state_b,
-                                        cluster_ids, cfg)
+                                        cluster_ids, cfg, extra_mask)
     if getattr(attention_fn, "batched", False):
         out, a_tilde = attention_fn(q[None], k[None], v[None], masks,
                                     stats_gate=decision.use_dense)
@@ -202,6 +224,7 @@ def batched_share_prefill_attention_layer(
     cluster_ids: torch.Tensor,      # (H,)
     cfg: SharePrefillConfig,
     attention_fn: Optional[AttentionFn] = None,
+    extra_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, pdict.PivotalState, LayerStats]:
     """One layer of SharePrefill over a batch (module docstring).  A
     per-sample ``attention_fn`` runs the layer sample by sample, each
@@ -213,7 +236,7 @@ def batched_share_prefill_attention_layer(
         for i in range(q.shape[0]):
             o, st, ls = share_prefill_attention_layer(
                 q[i], k[i], v[i], pdict.PivotalState(*(x[i] for x in state)),
-                cluster_ids, cfg, attention_fn)
+                cluster_ids, cfg, attention_fn, extra_mask)
             outs.append(o)
             states.append(st)
             stats.append(ls)
@@ -221,14 +244,11 @@ def batched_share_prefill_attention_layer(
                 pdict.PivotalState(*(torch.stack(f) for f in zip(*states))),
                 _reduce_layer_stats(stats))
     group = q.shape[1] // k.shape[1]
-    masks, decision = build_share_masks(q, k, state, cluster_ids, cfg)
-    gate = decision.use_dense                              # (B, H)
+    masks, decision = build_share_masks(q, k, state, cluster_ids, cfg,
+                                        extra_mask)
     perm = pattern_sharing_head_perm(decision, cluster_ids, group)
-    out_p, a_p = attention_fn(
-        _take_heads(q, perm).contiguous(), k, v,
-        _take_heads(masks, perm), stats_gate=_take_heads(gate, perm))
-    inv = torch.argsort(perm, dim=1)
-    out, a_tilde = _take_heads(out_p, inv), _take_heads(a_p, inv)
+    out, a_tilde = head_permuted_attention(attention_fn, q, k, v, masks,
+                                           decision.use_dense, perm)
     new_state = update_share_state(a_tilde, state, cluster_ids, decision,
                                    cfg)
     return out, new_state, layer_pattern_stats(masks, decision)

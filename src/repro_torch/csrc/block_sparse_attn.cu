@@ -562,23 +562,31 @@ int launch_tc(const Args& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// bfloat16 takes the tensor-core body, float32 the CUDA-core one; bs and D
-// in {64, 128}, anything else is refused.
+// bfloat16 takes the tensor-core body, float32 the CUDA-core one; bs in
+// {64, 128} and D in {64, 96, 128}, anything else is refused.  D = 96
+// (phi3-mini) divides both bodies' tiles: 6 k-steps of QK^T and 12 n-tiles
+// of O on the tensor cores, 12 output columns a thread on CUDA cores; its
+// padded row of 104 bf16 (208 bytes) keeps ldmatrix's 16-byte row
+// addresses aligned and its eight rows on distinct bank quads.
+template <int BQ, int MODE>
+int by_dim(bool tc, int D, const Args& a, void* stream) {
+  if (D == 128)
+    return tc ? launch_tc<BQ, 128, MODE>(a, stream)
+              : launch_f32<BQ, 128, MODE>(a, stream);
+  if (D == 96)
+    return tc ? launch_tc<BQ, 96, MODE>(a, stream)
+              : launch_f32<BQ, 96, MODE>(a, stream);
+  if (D == 64)
+    return tc ? launch_tc<BQ, 64, MODE>(a, stream)
+              : launch_f32<BQ, 64, MODE>(a, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <int MODE>
 int dispatch(int dtype, int bs, int D, const Args& a, void* stream) {
   const bool tc = dtype == REPRO_BF16;
-  if (bs == 128 && D == 128)
-    return tc ? launch_tc<128, 128, MODE>(a, stream)
-              : launch_f32<128, 128, MODE>(a, stream);
-  if (bs == 64 && D == 128)
-    return tc ? launch_tc<64, 128, MODE>(a, stream)
-              : launch_f32<64, 128, MODE>(a, stream);
-  if (bs == 128 && D == 64)
-    return tc ? launch_tc<128, 64, MODE>(a, stream)
-              : launch_f32<128, 64, MODE>(a, stream);
-  if (bs == 64 && D == 64)
-    return tc ? launch_tc<64, 64, MODE>(a, stream)
-              : launch_f32<64, 64, MODE>(a, stream);
+  if (bs == 128) return by_dim<128, MODE>(tc, D, a, stream);
+  if (bs == 64) return by_dim<64, MODE>(tc, D, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -44,7 +44,10 @@
 //     end.  G is padded to a power of 2 at compile time so that the
 //     per-head loops unroll without branches and the heads' dependency
 //     chains interleave: at decode sizes the body's compute latency, not
-//     its loads, is what this saves.
+//     its loads, is what this saves.  GP runs up to 16 (mistral-large's
+//     G = 12); at GP = 16 a logit lane holds 16 query slices of one
+//     16-byte vector (128 registers at D = 128 in bfloat16), and ptxas's
+//     report (<stem>.ptxas.txt beside the library) shows what spills.
 //
 // Paged instance (PAGED): K/V live in a pool (P, Hkv, ps, D) and the
 // tile of table entry j for slot b, kv head hk starts at
@@ -74,7 +77,7 @@ constexpr int STAGES = 3;  // tiles in the shared-memory ring
 constexpr int NT = 128;    // threads
 constexpr int NW = NT / 32;
 constexpr int LPK = 16;    // lanes per key in the logit dot product
-constexpr int GMAX = 8;    // largest GQA group
+constexpr int GMAX = 16;   // largest GQA group
 constexpr int DMAX = 256;  // largest head dim
 
 enum Mode { PLAN = 0, PAGED = 1, MASK_DENSE = 2, MASK_TABLE = 3 };
@@ -418,7 +421,8 @@ int by_group(int G, const void* q, const void* ck, const void* cv,
   if (G == 1) REPRO_LAUNCH(1);
   if (G == 2) REPRO_LAUNCH(2);
   if (G <= 4) REPRO_LAUNCH(4);
-  REPRO_LAUNCH(8);
+  if (G <= 8) REPRO_LAUNCH(8);
+  REPRO_LAUNCH(16);
 #undef REPRO_LAUNCH
 }
 

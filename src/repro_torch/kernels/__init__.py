@@ -8,7 +8,8 @@ its plain PyTorch version.
                         contiguous cache or a block-paged pool, and the
                         single-sample decodes under a token mask
   indices.py            mask ⇄ (indices, counts) staging + Ã scatter
-  chunked.py            dense attention in plain PyTorch
+  chunked.py            dense attention in plain PyTorch (with block
+                        masks and Ã: the ``attn_impl="chunked"`` path)
   ops.py                table staging, GQA helpers, per-sample AttentionFn
   ref.py                plain oracles (``attn_impl="ref"``)
   _build.py             nvcc build of ``csrc/*.cu`` and ctypes loading
@@ -125,15 +126,21 @@ def sparse_attention_fn(*, block_size: int, causal: bool = True,
 
 
 def batched_sparse_attention_fn(*, block_size: int,
-                                width: Optional[int] = None):
+                                width: Optional[int] = None,
+                                q_block_offset: Optional[int] = None):
     """Bind the batched causal sparse execution path as a batched
-    AttentionFn: ``(q (B,H,N,D), k (B,Hkv,N,D), v (B,Hkv,N,Dv), masks
+    AttentionFn: ``(q (B,H,N,D), k (B,Hkv,Nkv,D), v (B,Hkv,Nkv,Dv), masks
     (B,H,NBq,NBkv), stats_gate=None) -> (out (B,H,N,Dv), Ã
     (B,H,NBq,NBkv))``, marked ``fn.batched = True``.  The mask grid must
     tile q and k/v at exactly ``block_size``; anything else raises
     ``ValueError`` (the reference's dense-chunked fallback for misaligned
     grids is not ported: on the main path ``SharePrefill.applicable``
-    guarantees alignment)."""
+    guarantees alignment).
+
+    ``q_block_offset`` binds a rectangular chunk launch (chunked prefill):
+    q holds only the chunk's rows, k/v the full prefix, ``NBq < NBkv``,
+    and the causal bounds anchor at the chunk's first block.  Without it,
+    q ends where k/v end (``NBkv − NBq``; the one-shot launch)."""
 
     def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            masks: torch.Tensor, stats_gate: Optional[torch.Tensor] = None
@@ -142,7 +149,7 @@ def batched_sparse_attention_fn(*, block_size: int,
                     block_size)
         return batched_block_sparse_attention(
             q, k, v, masks, block_size=block_size, width=width,
-            stats_gate=stats_gate)
+            stats_gate=stats_gate, q_block_offset=q_block_offset)
 
     fn.batched = True
     return fn

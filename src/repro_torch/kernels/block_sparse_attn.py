@@ -144,9 +144,9 @@ def _check_shapes(what: str, q: torch.Tensor, hkv: int, nkv: int, d_kv: int,
     if n % bs or nkv % bs:
         raise ValueError(f"{what} kernel needs block-aligned lengths "
                          f"(N={n}, Nkv={nkv}, bs={bs})")
-    if bs not in (64, 128) or d not in (64, 128):
-        raise ValueError(f"{what} kernel takes bs, D in (64, 128); "
-                         f"got bs={bs}, D={d}")
+    if bs not in (64, 128) or d not in (64, 96, 128):
+        raise ValueError(f"{what} kernel takes bs in (64, 128) and D in "
+                         f"(64, 96, 128); got bs={bs}, D={d}")
 
 
 def _check_tables(indices, counts, grid: tuple) -> int:

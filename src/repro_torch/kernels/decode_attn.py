@@ -54,6 +54,10 @@ DECODE_IMPLS = ("auto", "kernel", "einsum")
 # the decode kernel's grid aims at this many CTAs per SM
 SPLIT_CTAS_PER_SM = 4
 
+# the largest GQA group the decode kernel takes (``GMAX`` in
+# ``csrc/decode_attn.cu``: the group is padded to 1, 2, 4, 8 or 16)
+GMAX = 16
+
 
 def decode_splits(b: int, hkv: int, w: int, sm_count: int) -> int:
     """Splits of each (batch, kv head) table row of width ``w`` in the
@@ -245,10 +249,10 @@ def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
     g = h // hkv
     nb, w = _check_plan("sparse decode", b, hkv, g, s, indices, counts,
                         keep_heads, valid)
-    if s % nb or (s // nb) % 32 or g > 8 or d > 256 or d % 8:
+    if s % nb or (s // nb) % 32 or g > GMAX or d > 256 or d % 8:
         raise ValueError(f"sparse decode kernel needs a block size that is "
-                         f"a multiple of 32, G <= 8 and D <= 256 a multiple "
-                         f"of 8 (S={s}, NB={nb}, G={g}, D={d})")
+                         f"a multiple of 32, G <= {GMAX} and D <= 256 a "
+                         f"multiple of 8 (S={s}, NB={nb}, G={g}, D={d})")
     _check_launch("sparse decode kernel", q,
                   (cache_k, cache_v, indices, counts, keep_heads, valid))
     _check_aligned("sparse decode kernel", (cache_k, cache_v))
@@ -356,12 +360,13 @@ def flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table, indices,
     nb = page_table.shape[1]
     _, w = _check_plan("paged sparse decode", b, hkv, g, nb * ps, indices,
                        counts, keep_heads, valid)
-    if keep_heads.shape[2] != nb or ps % 32 or g > 8 or d > 256 or d % 8:
+    if keep_heads.shape[2] != nb or ps % 32 or g > GMAX or d > 256 \
+            or d % 8:
         raise ValueError(f"paged sparse decode kernel needs NB table "
                          f"blocks, a page size that is a multiple of 32, "
-                         f"G <= 8 and D <= 256 a multiple of 8 (NB={nb}, "
-                         f"plan NB={keep_heads.shape[2]}, ps={ps}, G={g}, "
-                         f"D={d})")
+                         f"G <= {GMAX} and D <= 256 a multiple of 8 "
+                         f"(NB={nb}, plan NB={keep_heads.shape[2]}, "
+                         f"ps={ps}, G={g}, D={d})")
     _check_launch("paged sparse decode kernel", q,
                   (pool_k, pool_v, indices, counts, keep_heads, valid,
                    page_table))
@@ -496,11 +501,12 @@ def _check_masked(what, q, cache_k, cache_v, mask, block_kv):
                          f"mask {tuple(mask.shape)}")
     h, d = q.shape
     hkv, s = cache_k.shape[:2]
-    if s % block_kv or block_kv % 32 or h // hkv > 8 or d > 256 or d % 8:
+    if s % block_kv or block_kv % 32 or h // hkv > GMAX or d > 256 \
+            or d % 8:
         raise ValueError(f"{what} kernel needs S % block_kv == 0, block_kv a "
-                         f"multiple of 32, G <= 8 and D <= 256 a multiple of "
-                         f"8 (S={s}, block_kv={block_kv}, G={h // hkv}, "
-                         f"D={d})")
+                         f"multiple of 32, G <= {GMAX} and D <= 256 a "
+                         f"multiple of 8 (S={s}, block_kv={block_kv}, "
+                         f"G={h // hkv}, D={d})")
     if not all(t.is_cuda and t.device == q.device
                for t in (q, cache_k, cache_v, mask)):
         raise ValueError(f"{what} kernel takes CUDA tensors on one device")

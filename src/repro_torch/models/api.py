@@ -6,6 +6,8 @@
     result = model.prefill(params, tokens, sp, method="share")
     logits, cache = model.decode(params, token, cache, pos, plan=plan)
     # the slot scheduler: per-slot pos (B,), and page_table= for the pool
+    # chunked admission runs repro_torch.models.chunked_prefill's quanta
+    # where model.prefill_chunk is True
 
 ``build_model`` runs on CUDA unless the caller passes ``device="cpu"``; with
 no device and no GPU it raises rather than run quietly on the CPU.
@@ -21,6 +23,7 @@ from repro_torch import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
 from repro_torch.models import transformer
+from repro_torch.models.chunked_prefill import chunk_prefill_supported
 
 
 def resolve_device(device=None) -> torch.device:
@@ -38,6 +41,8 @@ class Model:
     cfg: ModelConfig
     device: torch.device
     dtype: torch.dtype
+    # whether chunked admission (models/chunked_prefill.py) can serve it
+    prefill_chunk: bool = False
 
     def init(self, generator: torch.Generator):
         return checkpoint.init_params(self.cfg, generator,
@@ -87,4 +92,5 @@ def build_model(cfg: ModelConfig, dtype=torch.float32,
         raise NotImplementedError(
             "sliding-window attention comes with the Mixtral slice "
             "(ROADMAP.md queue A.10)")
-    return Model(cfg, resolve_device(device), dtype)
+    return Model(cfg, resolve_device(device), dtype,
+                 prefill_chunk=chunk_prefill_supported(cfg))

@@ -16,8 +16,10 @@ baseline policies (``vertical_slash``, ``flex``) come with a later slice
     ``attn_impl="sparse"``.)
   * ``kernel``: the per-sample path through the single-sample kernel, one
     launch per sample and layer;
-  * ``ref``: the per-sample path through the plain oracle on expanded K/V.
-``chunked`` is not ported yet (ROADMAP.md A.8).
+  * ``ref``: the per-sample path through the plain oracle on expanded K/V;
+  * ``chunked``: the per-sample path through dense attention under the
+    block masks, Ã included (:func:`repro_torch.kernels.chunked.
+    chunked_attention_fn`; plain PyTorch, as in the reference).
 """
 from __future__ import annotations
 
@@ -28,36 +30,36 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
+from repro_torch.core.patterns import segment_block_mask
 from repro_torch.kernels import (
     batched_sparse_attention_fn,
     cap_block_mask,
     expand_kv,
     make_attention_fn,
 )
-from repro_torch.kernels.chunked import chunked_attention
+from repro_torch.kernels.chunked import chunked_attention, chunked_attention_fn
 from repro_torch.kernels.decode_attn import (
     DecodePlan, flash_decode_plan, flash_decode_plan_paged, gather_pages)
 from repro_torch.models import common
 
 PREFILL_METHODS = ("dense", "share")
-PREFILL_ATTN_IMPLS = ("auto", "sparse", "ref", "kernel")
+PREFILL_ATTN_IMPLS = ("auto", "sparse", "chunked", "ref", "kernel")
 
 
 def resolve_attention_fn(attn_impl: str, block_size: int,
                          width: Optional[int] = None) -> sa.AttentionFn:
     """``auto`` and ``sparse`` → the batched sparse attention function;
-    ``kernel`` and ``ref`` → the per-sample one, with the W cap applied as
-    the boolean :func:`cap_block_mask` (numerically the truncation the
-    sparse path's tables apply)."""
-    if attn_impl == "chunked":
-        raise NotImplementedError("attn_impl 'chunked' comes with chunked "
-                                  "prefill (ROADMAP.md A.8)")
+    ``kernel``, ``ref`` and ``chunked`` → a per-sample one, with the W cap
+    applied as the boolean :func:`cap_block_mask` (numerically the
+    truncation the sparse path's tables apply)."""
     if attn_impl not in PREFILL_ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of "
                          f"{PREFILL_ATTN_IMPLS}")
     if attn_impl in ("auto", "sparse"):
         return batched_sparse_attention_fn(block_size=block_size, width=width)
-    base = make_attention_fn(block_size=block_size, impl=attn_impl)
+    base = (chunked_attention_fn(block_size=block_size)
+            if attn_impl == "chunked"
+            else make_attention_fn(block_size=block_size, impl=attn_impl))
     if width is None:
         return base
     return lambda q, k, v, masks: base(q, k, v, cap_block_mask(masks, width))
@@ -90,6 +92,140 @@ def rope_qk(q, k, positions, cfg: ModelConfig):
             common.apply_rope(k, pos, cfg.rope_theta))
 
 
+def prefill_block_size(sp: SharePrefill, n: int) -> int:
+    """The prefill block size at length ``n``: the pattern config's (128
+    with pattern sharing off), capped at ``n``."""
+    return min(sp.cfg.block_size if sp.cfg.enabled else 128, n)
+
+
+def resolved_attn_impl(attn_impl: str) -> str:
+    """``auto`` is the batched sparse path on every device in the port."""
+    return "sparse" if attn_impl == "auto" else attn_impl
+
+
+# the attention functions with a launch over a run of query rows at an
+# offset (chunked prefill); ``kernel``/``ref`` attend whole samples
+ROW_ATTN_IMPLS = ("sparse", "chunked")
+
+
+class LayerStage(NamedTuple):
+    """What :func:`attention_prefill_begin` stages for the attention rows
+    and :func:`attention_prefill_end`: post-rope q ``(B, H, S, D)``, k/v
+    ``(B, Hkv, S, D)`` and, where pattern sharing applies, the masks
+    ``(B, H, NB, NB)``, the decision, the stats gate ``(B, H)`` and, for
+    the batched kernel, the head permutation."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    masks: Optional[torch.Tensor] = None
+    decision: object = None
+    gate: Optional[torch.Tensor] = None
+    perm: Optional[torch.Tensor] = None
+
+
+def _qkv_rope(params, x, cfg: ModelConfig, positions, method: str):
+    if method not in PREFILL_METHODS:
+        raise ValueError(f"unknown prefill method {method!r}; the port has "
+                         f"{PREFILL_METHODS} (baselines: ROADMAP.md A.3)")
+    q, k, v = common.gqa_qkv(params, x)
+    q, k = rope_qk(q, k, positions, cfg)
+    return q, k, v
+
+
+def attention_prefill_begin(
+    params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
+    method: str, sp: SharePrefill, sp_state,
+    cluster_ids: Optional[torch.Tensor], attn_impl: str = "auto",
+    seg_blocks: Optional[int] = None,
+) -> LayerStage:
+    """QKV, rope and the full-length mask staging (strips, decision,
+    dictionary lookup, head permutation) of one layer: the ops whose inputs
+    cannot be cut into query rows without changing the masks.
+    ``seg_blocks`` ANDs the block-diagonal segment mask of a packed row of
+    ``seg_blocks``-block segments into the masks."""
+    q, k, v = _qkv_rope(params, x, cfg, positions, method)
+    n = x.shape[1]
+    if method == "dense" or not sp.applicable(n):
+        return LayerStage(q, k, v)
+    extra = (None if seg_blocks is None else segment_block_mask(
+        n // prefill_block_size(sp, n), seg_blocks, device=x.device))
+    masks, decision = sa.build_share_masks(q, k, sp_state, cluster_ids,
+                                           sp.cfg, extra)
+    perm = None
+    if resolved_attn_impl(attn_impl) == "sparse":
+        perm = sa.pattern_sharing_head_perm(decision, cluster_ids,
+                                            q.shape[1] // k.shape[1])
+    return LayerStage(q, k, v, masks, decision, decision.use_dense, perm)
+
+
+def attention_prefill_rows(
+    sp: SharePrefill, stage: LayerStage, *, attn_impl: str = "auto",
+    attn_width: Optional[int] = None, chunk_start: int = 0,
+    chunk_blocks: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Attention output of the query blocks ``[chunk_start, chunk_start +
+    chunk_blocks)`` (to the end when ``chunk_blocks`` is None) against the
+    FULL K/V, with their Ã rows where masks are staged.  The batched
+    kernel launches at ``q_block_offset = chunk_start`` with the staged
+    head permutation and stats gate; its per-row arithmetic depends on the
+    row's tables alone, so chunks assemble bitwise into the whole launch.
+    Returns ``(out (B, H, cn, Dv), Ã (B, H, cnb, NB) | None)``."""
+    q, k, v = stage.q, stage.k, stage.v
+    bs = prefill_block_size(sp, q.shape[2])
+    off = chunk_start * bs
+    stop = None if chunk_blocks is None else chunk_start + chunk_blocks
+    q_c = q[:, :, off:None if stop is None else stop * bs]
+    if stage.masks is None:
+        kx, vx = expand_kv(k, v, q.shape[1])
+        return chunked_attention(q_c, kx, vx, block_size=bs, causal=True,
+                                 q_offset=off), None
+    impl = resolved_attn_impl(attn_impl)
+    if impl not in ROW_ATTN_IMPLS:
+        raise ValueError(
+            f"attention over query rows supports attn_impl "
+            f"{ROW_ATTN_IMPLS}, got {impl!r}")
+    m_c = stage.masks[:, :, chunk_start:stop]
+    if impl == "sparse":
+        fn = batched_sparse_attention_fn(block_size=bs, width=attn_width,
+                                         q_block_offset=chunk_start)
+        return sa.head_permuted_attention(fn, q_c, k, v, m_c, stage.gate,
+                                          stage.perm)
+    # "chunked": dense attention under the masks, sample by sample, every
+    # head's Ã (no gate)
+    if attn_width is not None:
+        m_c = cap_block_mask(m_c, attn_width)
+    outs, ats = [], []
+    for i in range(q.shape[0]):
+        ks, vs = expand_kv(k[i], v[i], q.shape[1])
+        o, at = chunked_attention(
+            q_c[i][None], ks[None], vs[None], block_size=bs, causal=True,
+            block_mask=m_c[i][None], collect_stats=True, q_offset=off)
+        outs.append(o[0])
+        ats.append(at[0])
+    return torch.stack(outs), torch.stack(ats)
+
+
+def _attn_stats(ls: sa.LayerStats) -> AttnStats:
+    return AttnStats(ls.num_shared, ls.num_dense, ls.num_vs,
+                     ls.block_density, ls.max_row_pop)
+
+
+def attention_prefill_end(
+    stage: LayerStage, a_tilde: Optional[torch.Tensor], *,
+    sp: SharePrefill, sp_state, cluster_ids: Optional[torch.Tensor],
+) -> Tuple[object, AttnStats]:
+    """The dictionary update from the assembled Ã and the layer's stats:
+    ``(new sp_state, stats)``.  Many small ops: a caller that synchronises
+    after the layer enqueues the layer's gemms first, so the device runs
+    them while the host issues these."""
+    if stage.masks is None:
+        return sp_state, AttnStats.zero(stage.q.device)
+    sp_state = sa.update_share_state(a_tilde, sp_state, cluster_ids,
+                                     stage.decision, sp.cfg)
+    return sp_state, _attn_stats(
+        sa.layer_pattern_stats(stage.masks, stage.decision))
+
+
 def attention_prefill(
     params,
     x: torch.Tensor,                    # (B, S, d)
@@ -104,28 +240,30 @@ def attention_prefill(
     attn_width: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor], object,
            AttnStats]:
-    """Returns ``(out (B, S, d), (k, v) (B, Hkv, S, hd), new sp_state,
-    stats)``."""
-    if method not in PREFILL_METHODS:
-        raise ValueError(f"unknown prefill method {method!r}; the port has "
-                         f"{PREFILL_METHODS} (baselines: ROADMAP.md A.3)")
+    """One-shot prefill attention: :func:`attention_prefill_begin`, the
+    rows of every query block, :func:`attention_prefill_end` (the pieces
+    chunked prefill runs in quanta); the per-sample ``kernel``/``ref``
+    paths run the layer sample by sample instead.  Returns ``(out (B, S,
+    d), (k, v) (B, Hkv, S, hd), new sp_state, stats)``."""
     n = x.shape[1]
-    q, k, v = common.gqa_qkv(params, x)
-    q, k = rope_qk(q, k, positions, cfg)
-
-    bs = min(sp.cfg.block_size if sp.cfg.enabled else 128, n)
-    if method == "dense" or not sp.applicable(n):
-        kx, vx = expand_kv(k, v, q.shape[1])
-        out = chunked_attention(q, kx, vx, block_size=bs, causal=True)
-        return (common.gqa_out(params, out), (k, v), sp_state,
-                AttnStats.zero(x.device))
-
-    attention_fn = resolve_attention_fn(attn_impl, bs, width=attn_width)
-    out, new_state, lstats = sa.batched_share_prefill_attention_layer(
-        q, k, v, sp_state, cluster_ids, sp.cfg, attention_fn)
-    stats = AttnStats(lstats.num_shared, lstats.num_dense, lstats.num_vs,
-                      lstats.block_density, lstats.max_row_pop)
-    return common.gqa_out(params, out), (k, v), new_state, stats
+    if (resolved_attn_impl(attn_impl) not in ROW_ATTN_IMPLS
+            and method == "share" and sp.applicable(n)):
+        attention_fn = resolve_attention_fn(
+            attn_impl, prefill_block_size(sp, n), width=attn_width)
+        q, k, v = _qkv_rope(params, x, cfg, positions, method)
+        out, new_state, ls = sa.batched_share_prefill_attention_layer(
+            q, k, v, sp_state, cluster_ids, sp.cfg, attention_fn)
+        return common.gqa_out(params, out), (k, v), new_state, \
+            _attn_stats(ls)
+    stage = attention_prefill_begin(
+        params, x, cfg, positions, method=method, sp=sp, sp_state=sp_state,
+        cluster_ids=cluster_ids, attn_impl=attn_impl)
+    out, a_tilde = attention_prefill_rows(sp, stage, attn_impl=attn_impl,
+                                          attn_width=attn_width)
+    sp_state, stats = attention_prefill_end(stage, a_tilde, sp=sp,
+                                            sp_state=sp_state,
+                                            cluster_ids=cluster_ids)
+    return common.gqa_out(params, out), (stage.k, stage.v), sp_state, stats
 
 
 def row_positions(pos, b: int, device) -> torch.Tensor:

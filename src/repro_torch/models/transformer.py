@@ -38,9 +38,38 @@ def logits_from_hidden(params, cfg: ModelConfig,
     return x @ params["lm_head"]
 
 
+def num_prefix_layers(cfg: ModelConfig) -> int:
+    """Layers outside the uniform stack (DeepSeek-V2's dense-FFN first
+    layer in the reference); 0 for every family the port serves."""
+    return 1 if (cfg.moe.enabled and cfg.mla.enabled) else 0
+
+
+def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
+                 ) -> torch.Tensor:
+    return params["embed"][tokens]
+
+
+def _ffn_apply(layer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """One layer's FFN on its ln2-normed input (the dense family's MLP)."""
+    return common.mlp(layer["ffn"], h)
+
+
 def _ffn_block(layer, x, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(layer["ln2"], x, cfg.rms_norm_eps)
-    return x + common.mlp(layer["ffn"], h)
+    return x + _ffn_apply(layer, h, cfg)
+
+
+def layer_prefill(layer, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, sp: SharePrefill, sp_state,
+                  cluster_ids: Optional[torch.Tensor], *, method: str,
+                  attn_impl: str, attn_width: Optional[int] = None):
+    """One layer of prefill: ``(x, (k, v), sp_state, stats)``."""
+    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+    a, cache, sp_state, stats = attn.attention_prefill(
+        layer["attn"], h, cfg, positions, method=method, sp=sp,
+        sp_state=sp_state, cluster_ids=cluster_ids, attn_impl=attn_impl,
+        attn_width=attn_width)
+    return _ffn_block(layer, x + a, cfg), cache, sp_state, stats
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -49,11 +78,13 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
             prompt_lens: Optional[torch.Tensor] = None) -> PrefillResult:
     """Prefill the padded batch ``tokens (B, S)``.  ``prompt_lens`` gathers
     each row's last logits at its real last token (``prompt_len − 1``)
-    instead of the padded final position."""
+    instead of the padded final position.  Chunked prefill
+    (:mod:`repro_torch.models.chunked_prefill`) runs the same pieces in
+    quanta."""
     b, s = tokens.shape
     device = tokens.device
     positions = torch.arange(s, device=device)[None].expand(b, s)
-    x = params["embed"][tokens]
+    x = embed_tokens(params, cfg, tokens)
 
     sharing = sp.cfg.enabled and sp.applicable(s)
     sp_state = sp.init_state(b, s, device=device) if sharing else None
@@ -65,14 +96,11 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     cache_v = torch.empty(shape, dtype=x.dtype, device=device)
     stats = []
     for li, layer in enumerate(params["layers"]):
-        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
         ids = cluster_arr[li] if cluster_arr is not None else None
-        a, (k, v), sp_state, st = attn.attention_prefill(
-            layer["attn"], h, cfg, positions, method=method, sp=sp,
-            sp_state=sp_state, cluster_ids=ids, attn_impl=attn_impl,
-            attn_width=attn_width)
+        x, (k, v), sp_state, st = layer_prefill(
+            layer, x, cfg, positions, sp, sp_state, ids, method=method,
+            attn_impl=attn_impl, attn_width=attn_width)
         cache_k[li], cache_v[li] = k, v
-        x = _ffn_block(layer, x + a, cfg)
         stats.append(st)
 
     if prompt_lens is None:
@@ -122,7 +150,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                                        and pos.dim()):
         raise ValueError("paged decode requires per-slot (vector) pos")
     positions = attn.row_positions(pos, b, token.device)
-    x = params["embed"][token]
+    x = embed_tokens(params, cfg, token)
     valid = None
     if prompt_lens is not None:
         s = (page_table.shape[1] * cache_k.shape[3] if page_table is not None

@@ -31,10 +31,15 @@ from repro_torch.serving.sparse_decode import decode_keep_blocks
 
 def build_decode_plan(sp: SharePrefill, sp_state, cfg: ModelConfig, *,
                       prefill_len: int, cache_len: int,
-                      width: Optional[int] = None) -> DecodePlan:
+                      width: Optional[int] = None,
+                      keep_blocks: Optional[torch.Tensor] = None
+                      ) -> DecodePlan:
     """Post-prefill dictionaries → a DecodePlan with ``(L, B, Hkv, …)``
     leaves.  ``width`` caps each table row at its W most recent blocks (the
-    prefill kernel's truncation)."""
+    prefill kernel's truncation).  ``keep_blocks (L, B, H, prefill_len /
+    bs)`` replaces the dictionaries' keep-sets (one segment of a packed
+    prefill: :func:`~repro_torch.serving.sparse_decode.
+    packed_decode_keep_blocks`)."""
     bs = sp.cfg.block_size
     if prefill_len % bs or cache_len % bs:
         raise ValueError(
@@ -44,7 +49,8 @@ def build_decode_plan(sp: SharePrefill, sp_state, cfg: ModelConfig, *,
     num_layers, num_heads = cfg.num_layers, cfg.num_heads
     hkv = max(cfg.num_kv_heads, 1)
     g = num_heads // hkv
-    keep = decode_keep_blocks(sp, sp_state, num_layers, num_heads)
+    keep = (decode_keep_blocks(sp, sp_state, num_layers, num_heads)
+            if keep_blocks is None else keep_blocks)
     batch = keep.shape[1]
     kh = keep.reshape(num_layers, batch, hkv, g, nbp)
     if nb > nbp:                         # dense recent tail absorbs growth

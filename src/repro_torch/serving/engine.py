@@ -23,10 +23,20 @@ waits on pool headroom.  Requests are validated first
 (:meth:`ServingEngine.validate_request`); a malformed one finishes
 ``rejected`` with its :class:`~repro_torch.serving.errors.RequestError`.
 
-Chunked admission, prefill packing, prefix sharing, plan refresh,
-preemption, deadlines, cancellation, fault injection and the
-``auto``/``count`` width policies are not ported yet; asking for them
-raises ``NotImplementedError`` naming the ROADMAP.md item.
+``prefill_chunk > 0`` makes the scheduler admit through chunked prefill
+(:class:`~repro_torch.serving.chunked_prefill.ChunkedPrefillRun`): each
+admission runs as quanta (one layer's mask staging, one chunk of its
+attention rows, one layer's FFN), one quantum between two decode steps, so
+an admission stalls the occupied slots for one quantum at a time; each
+layer's K/V lands in the slot as soon as it is final
+(:meth:`ServingEngine.cache_insert_layer`,
+:func:`~repro_torch.serving.paged_cache.insert_prefill_layer`).
+``prefill_pack > 1`` packs up to that many same-bucket prompts into one
+run under a block-diagonal segment mask.
+
+Prefix sharing, plan refresh, preemption, deadlines, cancellation, fault
+injection and the ``auto``/``count`` width policies are not ported yet;
+asking for them raises ``NotImplementedError`` naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -40,6 +50,9 @@ import torch
 
 from repro_torch.core.api import SharePrefill
 from repro_torch.models.api import Model
+from repro_torch.models.attention import (ROW_ATTN_IMPLS,
+                                         prefill_block_size,
+                                         resolved_attn_impl)
 from repro_torch.serving import cache_ops
 from repro_torch.serving import decode_plan as dplan
 from repro_torch.serving.errors import RequestError
@@ -128,8 +141,6 @@ class Request:
 # EngineConfig fields of the reference that are not ported yet: a value
 # other than the default raises, naming the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "prefill_chunk": (0, "A.8 (chunked prefill)"),
-    "prefill_pack": (1, "A.8 (prefill packing)"),
     "preempt_after_steps": (0, "A.9 (preemption)"),
     "prefix_sharing": (False, "A.9 (prefix sharing)"),
     "prefix_max_entries": (32, "A.9 (prefix sharing)"),
@@ -150,7 +161,7 @@ class EngineConfig:
     max_batch: int = 8
     method: str = "share"               # prefill pattern policy
     attn_impl: str = "auto"             # auto | sparse (batched) | kernel |
-                                        # ref (per sample)
+                                        # ref | chunked (per sample)
     seq_buckets: tuple = (512, 2048, 8192, 32768)
     decode_extra: int = 128             # decode headroom beyond the prompt
     decode_sparse: bool = False         # decode through a DecodePlan
@@ -160,8 +171,9 @@ class EngineConfig:
     width_percentile: float = 95.0
     width_safety: float = 1.25
     scheduler: bool = False             # continuous batching over slots
-    prefill_chunk: int = 0
-    prefill_pack: int = 1
+    prefill_chunk: int = 0              # tokens per admission quantum
+                                        # (0: one-shot admission)
+    prefill_pack: int = 1               # prompts per chunked run
     paged: bool = False                 # one block-paged pool, one
                                         # scheduler for every bucket
     num_pages: int = 0                  # pool pages incl. the null page;
@@ -328,6 +340,44 @@ class ServingEngine:
         for dst, src in zip(cache, new):
             cache_ops.write_slot(dst, src, {1: slot})
         return cache
+
+    @staticmethod
+    def cache_insert_layer(cache, layer: int, slot: int, k, v, *,
+                           offset: int = 0, length: Optional[int] = None):
+        """Write ONE layer's prefill K/V (``(1, Hkv, S, hd)`` each) into
+        row ``slot`` of the running ``(L, B, Hkv, S', hd)`` cache, in place:
+        the incremental insert of chunked admission, made as each layer's
+        K/V becomes final while the other slots keep decoding.  A packed
+        segment ``[offset, offset + length)`` is cut out first and lands at
+        the start of its slot's row.  Decode validity keeps the row dark
+        until its plan row is spliced."""
+        if length is not None:
+            k = cache_ops.slice_segment(k, offset, length, axis=2)
+            v = cache_ops.slice_segment(v, offset, length, axis=2)
+        for dst, src in zip(cache, (k, v)):
+            cache_ops.write_slot(dst, src[None], {0: layer, 1: slot})
+        return cache
+
+    def _chunk_tokens(self, seq: int) -> int:
+        """Tokens per prefill quantum for a bucket; 0 means one-shot
+        admission.  Chunked admission needs a model it can serve
+        (``Model.prefill_chunk``), a chunk-capable attention (the batched
+        sparse path or the dense ``chunked`` one: the per-sample
+        ``kernel``/``ref`` paths have no rectangular launch) and a
+        block-aligned bucket; the chunk is rounded up to whole blocks and
+        capped at the bucket."""
+        c = self.ecfg.prefill_chunk
+        if c <= 0 or not self._supports_scheduler():
+            return 0
+        if not self.model.prefill_chunk:
+            return 0
+        if resolved_attn_impl(self.ecfg.attn_impl) not in ROW_ATTN_IMPLS:
+            return 0
+        bs = prefill_block_size(self.sp, seq)
+        if seq % bs:
+            return 0
+        c = max(((c + bs - 1) // bs) * bs, bs)
+        return min(c, seq)
 
     def _pad_prompt(self, r: Request, seq: int, row: np.ndarray) -> int:
         """Left-align one prompt into ``row``; flag and warn on clipping.

@@ -186,6 +186,26 @@ def insert_prefill(cache: Pool, new: Pool, pages) -> Pool:
     return cache
 
 
+def insert_prefill_layer(cache: Pool, layer: int, k: torch.Tensor,
+                         v: torch.Tensor, pages, *, offset: int = 0,
+                         length: Optional[int] = None) -> Pool:
+    """Write one layer's prefill K/V (``(1, Hkv, S, hd)`` each) into its
+    ``S // page_size`` pages, in place: chunked admission's counterpart of
+    :func:`insert_prefill`, called as each layer's K/V becomes final.  A
+    packed segment is cut out with ``offset``/``length`` first."""
+    if length is not None:
+        k = k.narrow(2, offset, length)
+        v = v.narrow(2, offset, length)
+    pages = torch.as_tensor(np.asarray(pages), dtype=torch.long,
+                            device=cache[0].device)
+    for pool, val in zip(cache, (k, v)):
+        _, hkv, s, hd = val.shape
+        ps = pool.shape[3]
+        tiles = val[0].reshape(hkv, s // ps, ps, hd).transpose(0, 1)
+        pool[layer, pages] = tiles.to(pool.dtype)
+    return cache
+
+
 def page_bytes(cfg, page_size: int, itemsize: int = 4) -> int:
     """Bytes one page holds across all layers, K and V."""
     return (2 * cfg.num_layers * cfg.num_kv_heads * page_size

@@ -19,7 +19,10 @@ fixed set of ``max_batch`` decode *slots*:
     next admission.
   * **Inert slots** keep decoding with the empty plan row, and validity
     hides whatever their cache rows hold, so occupied rows do not depend on
-    slot churn: greedy tokens match the batch path's.
+    slot churn: greedy tokens match the batch path's.  Their appends land
+    at ``pos[slot]``: in the null page once a vacated slot's pages are
+    returned, and while a chunked run fills the slot, at the run's first
+    decode position, which its first decode step overwrites.
   * **Block-paged pool** (``paged=True``): one pool ``(L, P, Hkv, ps, hd)``
     with page 0 reserved null and a per-slot page table ``(nslots,
     table_blocks)``.  Admission takes ``(bucket + decode tail) / ps`` pages
@@ -28,22 +31,35 @@ fixed set of ``max_batch`` decode *slots*:
     paged scheduler serves every bucket: each slot keeps its own prefill
     length (``pflens``), and its plan row, built at its own allocation, is
     padded to the shared table width.
+  * **Chunked admission** (``EngineConfig.prefill_chunk > 0``,
+    :meth:`SlotScheduler._run_chunked`): the admission runs as a
+    :class:`~repro_torch.serving.chunked_prefill.ChunkedPrefillRun`, one
+    quantum per scheduler step followed by one decode step; each layer's
+    K/V is written into the admitted slot(s) as it becomes final
+    (:meth:`_insert_kv`), and the run's completion samples the first
+    tokens and splices the plan rows (:meth:`_complete_run`).  A quantum
+    that runs while slots are occupied is charged to the admitting
+    request(s) as ``prefill_stall_s``.  With ``prefill_pack > 1`` up to
+    that many arrived same-bucket prompts share one run
+    (:meth:`_pack_limit`, :meth:`_assemble_run`).
   * **Quarantine**: a prefill that raises or gives non-finite logits fails
-    only its request, and so do non-finite decode logits in one row
-    (``finish_reason="failed"``, the :class:`RequestError` in
+    only its request (a raising quantum fails its whole run: packed
+    segments share the launch), and so do non-finite decode logits in one
+    row (``finish_reason="failed"``, the :class:`RequestError` in
     ``Request.error``, the slot vacated).
 
 Sampled (temperature > 0) streams draw from one ``torch.Generator`` per
 request, seeded from ``(seed, uid)``; they are not held against the
-reference, whose JAX key chains cannot be reproduced.  Chunked admission
-and packing (ROADMAP.md A.8), cancellation, deadlines, preemption, fault
-injection, prefix sharing and plan refresh (A.9) are not ported.
+reference, whose JAX key chains cannot be reproduced.  Cancellation,
+deadlines, preemption, fault injection, prefix sharing and plan refresh
+(ROADMAP.md A.9) are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
 import time
+import types
 from collections import deque
 from typing import List, Optional
 
@@ -51,7 +67,8 @@ import numpy as np
 import torch
 
 from repro_torch.serving import decode_plan as dplan
-from repro_torch.serving import paged_cache
+from repro_torch.serving import paged_cache, sparse_decode
+from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
 from repro_torch.serving.errors import RequestError
 from repro_torch.serving.sampling import sample_token
 
@@ -137,9 +154,17 @@ class SlotScheduler:
             self._empty_row = dplan.empty_decode_plan(
                 engine.model.cfg, batch=1, **kw)
 
+        # step-cadence chunked admission (0: one-shot)
+        self.chunk = engine._chunk_tokens(seq)
+        self.run_: Optional[ChunkedPrefillRun] = None
+        self._run_wall = 0.0
+
     # -- lifecycle ------------------------------------------------------
     def run(self) -> None:
         try:
+            if self.chunk:
+                self._run_chunked()
+                return
             while self.queue or any(s is not None for s in self.slots):
                 self._admit()
                 self._flush_stale_slots()
@@ -148,6 +173,24 @@ class SlotScheduler:
             self._flush_stale_slots()   # unoccupied slots' rows are empty
         finally:
             self._pool_summary()
+
+    def _run_chunked(self) -> None:
+        """The chunked loop: one prefill quantum, then one decode step."""
+        while (self.queue or self.run_ is not None
+               or any(s is not None for s in self.slots)):
+            self._prefill_step()
+            if (self.run_ is not None and self.paged and self.queue
+                    and (self.t0 + self.queue[0].arrival_s) <= time.time()
+                    and self.alloc.free_pages
+                    < self._pages_needed(self.queue[0])):
+                # the arrived head would wait on pages even once the run
+                # in flight lands: the deferral counts as in the one-shot
+                # loop
+                self._note_starved(self.queue[0])
+            self._flush_stale_slots()
+            if any(s is not None for s in self.slots):
+                self._decode_step()
+        self._flush_stale_slots()
 
     def _request_generator(self, uid: int) -> torch.Generator:
         gen = torch.Generator(device=self.eng.device)
@@ -355,6 +398,234 @@ class SlotScheduler:
         self.pflens[slot] = seq
         self.slots[slot] = s
         r.state = "decode"
+
+    # -- chunked admission ----------------------------------------------
+    def _pack_limit(self, seq: int) -> int:
+        """The most prompts one chunked run may pack at segment length
+        ``seq``: packing needs a mask-carrying prefill (the segment mask
+        has nowhere to go on the dense path) and a pattern config
+        applicable at the packed length."""
+        eng = self.eng
+        p = max(eng.ecfg.prefill_pack, 1)
+        if p <= 1 or eng.ecfg.method == "dense" or not eng.sp.cfg.enabled:
+            return 1
+        if seq % max(eng.sp.cfg.block_size, 1):
+            return 1
+        while p > 1 and not eng.sp.applicable(seq * p):
+            p -= 1
+        return p
+
+    def _assemble_run(self) -> Optional[ChunkedPrefillRun]:
+        """The next chunked run from the arrived queue heads: one segment
+        per free slot, up to the pack limit.  The paged pool's FIFO
+        headroom gate and the arrival wait are the one-shot loop's."""
+        eng = self.eng
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        if not free or not self.queue:
+            return None
+        if self.paged and (self.alloc.free_pages
+                           < self._pages_needed(self.queue[0])):
+            self._note_starved(self.queue[0])
+            return None
+        wait = (self.t0 + self.queue[0].arrival_s) - time.time()
+        if wait > 0:
+            if any(s is not None for s in self.slots):
+                return None             # keep decoding, admit it later
+            time.sleep(wait)            # fully idle: jump to next arrival
+            eng.phase_s["idle"] += wait
+
+        seq = self._bucket_of(self.queue[0])
+        chunk = self.chunk if not self.paged else eng._chunk_tokens(seq)
+        if self.paged and not chunk:
+            # this bucket has no chunked decomposition: admit it one-shot
+            self._start(self.queue.popleft(), free[0])
+            return None
+        limit = min(self._pack_limit(seq), len(free))
+        group, now = [], time.time()
+        reserve = self.alloc.free_pages if self.paged else 0
+        while (self.queue and len(group) < limit
+               and (self.t0 + self.queue[0].arrival_s) <= now):
+            if self.paged:
+                r = self.queue[0]
+                if self._bucket_of(r) != seq:
+                    break       # packing needs one segment length
+                need = self._pages_needed(r)
+                if need > reserve:
+                    break       # the rest of the group waits for headroom
+                reserve -= need
+            group.append(self.queue.popleft())
+        if not group:
+            return None
+        for r in group:
+            r.queue_s = max(now - (self.t0 + r.arrival_s), 0.0)
+            r.state = "prefilling"
+        # a packed run prefills uncapped: a width is chosen for one bucket
+        # geometry, not the packed grid
+        width = eng.ecfg.prefill_width if len(group) == 1 else None
+        for r, slot in zip(group, free):
+            if self.paged:
+                # granted now, so the run's per-layer inserts have
+                # somewhere to land; an early finish at completion returns
+                # them
+                self._alloc_slot_pages(slot, self._pages_needed(r))
+            # the decode steps between quanta append the inert slot's K/V
+            # at pos[slot] in every layer: park it at the run's first
+            # decode position, which decode overwrites before reading it,
+            # not where the slot's last occupant (of another bucket) left it
+            self.pos[slot] = seq
+        self._run_wall = 0.0
+        return ChunkedPrefillRun(eng, group, free[: len(group)], seq, chunk,
+                                 width)
+
+    def _prefill_step(self) -> None:
+        """Advance admission by ONE quantum (assembling a run first if none
+        is in flight): the prefill share of a chunked scheduler step."""
+        if self.run_ is None:
+            self.run_ = self._assemble_run()
+            if self.run_ is None:
+                return
+        run = self.run_
+        occupied = any(s is not None for s in self.slots)
+        tq = time.time()
+        try:
+            ev = run.step()
+        except Exception as e:          # noqa: BLE001 — quarantine wall
+            self.eng.phase_s["prefill"] += time.time() - tq
+            self._quarantine_run(run, e)
+            return
+        dt = time.time() - tq
+        self._run_wall += dt
+        self.eng.phase_s["prefill"] += dt
+        if occupied:
+            # this quantum ran instead of a decode step: the stall is
+            # charged to the admitting request(s), split across segments
+            for r in run.requests:
+                r.prefill_stall_s += dt / len(run.requests)
+        if ev == "kv":
+            self._insert_kv(run)
+        elif ev == "done":
+            self._complete_run(run)
+            self.run_ = None
+
+    def _insert_kv(self, run: ChunkedPrefillRun) -> None:
+        """Write the layer just finalised into the admitted slot(s), while
+        the other slots keep decoding."""
+        eng = self.eng
+        k, v = run.kv
+        if self.cache is None:
+            self.cache = (paged_cache.init_paged_pool(
+                              eng.model.cfg, num_pages=self.num_pages,
+                              page_size=self.page_size, dtype=k.dtype,
+                              device=eng.device)
+                          if self.paged else
+                          eng.model.init_cache(self.nslots, self.cache_len,
+                                               dtype=k.dtype))
+        for j, slot in enumerate(run.slot_ids):
+            # a packed run's segment j is cut out of the packed row
+            seg = (dict(offset=j * run.seq, length=run.seq) if run.P > 1
+                   else {})
+            if self.paged:
+                pages = self.slot_pages[slot][: run.seq // self.page_size]
+                paged_cache.insert_prefill_layer(
+                    self.cache, run.kv_layer, k, v, pages, **seg)
+            else:
+                eng.cache_insert_layer(self.cache, run.kv_layer, slot, k, v,
+                                       **seg)
+
+    def _plan_row(self, run: ChunkedPrefillRun, j: int):
+        """One slot's DecodePlan row for segment ``j`` of a finished run,
+        at the run's own allocation."""
+        eng = self.eng
+        cfg = eng.model.cfg
+        alloc_len = run.seq + self.extra_len
+        if run.sp_state is None:        # the per-request dense row
+            return dplan.dense_decode_plan(
+                cfg, cache_len=alloc_len, block_size=self.page_size,
+                device=eng.device)
+        keep = None
+        if run.P > 1:
+            keep = sparse_decode.packed_decode_keep_blocks(
+                eng.sp, run.sp_state, cfg.num_layers, cfg.num_heads,
+                num_segs=run.P, seg_blocks=run.seg_blocks, segment=j)
+        return dplan.build_decode_plan(
+            eng.sp, run.sp_state, cfg, prefill_len=run.seq,
+            cache_len=alloc_len, keep_blocks=keep)
+
+    def _complete_run(self, run: ChunkedPrefillRun) -> None:
+        """The last quantum ran: sample each segment's first token, splice
+        its plan row and occupy its slot (prefilling → decode).  The K/V
+        rows are in the cache already, inserted layer by layer."""
+        eng, seq = self.eng, run.seq
+        stats = eng._record_prefill_stats(
+            types.SimpleNamespace(stats=run.attn_stats), run.width)
+        logits_h = run.logits.float().cpu().numpy()
+        for j, (r, slot) in enumerate(zip(run.requests, run.slot_ids)):
+            r.prefill_s = self._run_wall
+            rstats = dict(stats)
+            r.pattern_stats = rstats
+            done = None
+            if not np.isfinite(logits_h[j]).all():
+                # a poisoned segment fails alone; its neighbours go on
+                done = ("failed", RequestError(
+                    r.uid, "non-finite prefill logits", kind="prefill"))
+                logger.warning("quarantined: %s", done[1])
+            elif r.max_new_tokens <= 0:   # prefill-only: no token
+                done = ("length", None)
+            if done is not None:
+                if self.paged:
+                    self._release_pages(slot)
+                self._finish_inert(r, done[0], error=done[1])
+                continue
+
+            gen = self._request_generator(r.uid)
+            tok0 = int(sample_token(run.logits[j: j + 1], r.sampling,
+                                    gen)[0])
+            t_first = time.time()
+            r.ttft_s = max(t_first - (self.t0 + r.arrival_s), 0.0)
+            s = _Slot(req=r, gen=gen, outs=[tok0], last_tok=tok0,
+                      t_first=t_first)
+            reason = ("stop" if r.sampling.is_stop(tok0) else "length"
+                      if len(s.outs) >= r.max_new_tokens else None)
+            if reason is not None:
+                if self.paged:
+                    self._release_pages(slot)
+                self._finish(s, reason)
+                continue                # the slot stays free
+            if self.use_sparse:
+                rplan = self._plan_row(run, j)
+                rstats.update(eng._plan_stats(rplan, seq + self.extra_len))
+                r.tail_fraction, r.plan_traffic_fraction = \
+                    dplan.plan_row_tail_stats(
+                        rplan, prefill_blocks=seq // self.page_size)
+                if self.paged:
+                    rplan = dplan.pad_plan_row(rplan, self.table_blocks)
+                self._splice_row(slot, rplan)
+                self._stale_slots.discard(slot)
+            self.pos[slot] = seq
+            self.plens[slot] = run.plens[j]
+            self.pflens[slot] = seq
+            self.slots[slot] = s
+            r.state = "decode"
+
+    def _quarantine_run(self, run: ChunkedPrefillRun, exc: Exception
+                        ) -> None:
+        """A quantum raised: every segment of the run fails (packed
+        segments share the launch), its pages return and its device state
+        is dropped; the rest of the serve goes on."""
+        for r in run.requests:
+            if isinstance(exc, RequestError) and exc.uid == r.uid:
+                err = exc
+            else:
+                err = RequestError(
+                    r.uid, f"prefill quantum raised {type(exc).__name__}: "
+                    f"{exc}", kind="prefill")
+            logger.warning("quarantined: %s", err)
+            self._finish_inert(r, "failed", error=err)
+        if self.paged:
+            for slot in run.slot_ids:
+                self._release_pages(slot)
+        run.abort()
+        self.run_ = None
 
     # -- decode ----------------------------------------------------------
     def _decode_step(self) -> None:

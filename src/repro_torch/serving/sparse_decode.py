@@ -1,5 +1,6 @@
 """Decode-phase pattern sharing (port of
-``repro/serving/sparse_decode.py::decode_keep_blocks``).
+``repro/serving/sparse_decode.py::decode_keep_blocks`` and
+``packed_decode_keep_blocks``).
 
 A head whose cluster has a pivot keeps, during decode, the pivot's last
 query-block row (a decode query is a "future last row") plus the final
@@ -29,3 +30,27 @@ def decode_keep_blocks(sp: SharePrefill, sp_state: PivotalState,
     ok = sp_state.valid[:, safe] & (ids >= 0)                    # (B, L, H)
     out = torch.where(ok[..., None], keep, True)
     return out.transpose(0, 1)                                   # (L, B, H, NB)
+
+
+def packed_decode_keep_blocks(sp: SharePrefill, sp_state: PivotalState,
+                              num_layers: int, num_heads: int, *,
+                              num_segs: int, seg_blocks: int,
+                              segment: int) -> torch.Tensor:
+    """Keep-sets of ONE segment of a packed prefill, ``(L, B, H, NBseg)``
+    (B the packed batch, 1).  The dictionary's masks live on the packed
+    ``(P · NBseg)²`` grid; segment ``j``'s decode queries sit at its own
+    tail, so its keep-set is the pivot's row ``(j + 1) · NBseg − 1``
+    restricted to its own kv-block columns, with its final block kept."""
+    del num_segs                        # the grid's extent, implied
+    device = sp_state.masks.device
+    ids = torch.as_tensor(sp.cluster_ids[:num_layers, :num_heads],
+                          device=device).long()                  # (L, H)
+    safe = ids.clamp(0, sp_state.masks.shape[1] - 1)
+    row = (segment + 1) * seg_blocks - 1
+    lo = segment * seg_blocks
+    cover = sp_state.masks[:, :, row, lo:lo + seg_blocks].clone()
+    cover[..., -1] = True                                   # (B, C, NBseg)
+    keep = cover[:, safe]                                   # (B, L, H, NBseg)
+    ok = sp_state.valid[:, safe] & (ids >= 0)               # (B, L, H)
+    out = torch.where(ok[..., None], keep, True)
+    return out.transpose(0, 1)                              # (L, B, H, NBseg)

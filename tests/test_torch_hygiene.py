@@ -68,8 +68,9 @@ def test_auto_resolves_to_the_sparse_path_on_both_devices():
     assert resolve_attention_fn("sparse", 64).batched
     for impl in ("kernel", "ref"):            # the per-sample path
         assert not getattr(resolve_attention_fn(impl, 64), "batched", False)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        resolve_attention_fn("chunked", 64)
+    # the dense per-sample path under block masks (chunked prefill's
+    # attn_impl="chunked"), as in the reference
+    assert not getattr(resolve_attention_fn("chunked", 64), "batched", False)
     with pytest.raises(ValueError, match="unknown attn_impl"):
         resolve_attention_fn("splash", 64)
     assert resolve_decode_impl("auto", torch.device("cpu")) == "einsum"
@@ -111,8 +112,8 @@ def test_input_shapes_copy_the_reference():
 
 def test_registry_holds_the_dense_family():
     assert set(configs.REGISTRY) == {
-        "granite-3-2b", "internlm2-1.8b", "phi3-mini-3.8b",
-        "llama3-8b-262k", "qwen2.5-7b"}
+        "granite-3-2b", "internlm2-1.8b", "mistral-large-123b",
+        "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b"}
     assert all(c.family == "dense" for c in configs.REGISTRY.values())
     with pytest.raises(KeyError, match="unknown arch"):
         configs.get_config("mixtral-8x22b")

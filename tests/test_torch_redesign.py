@@ -442,3 +442,242 @@ def test_profile_refuses_an_unattributed_port_kernel():
     with pytest.raises(AssertionError, match="no instance"):
         _chip_smoke().kernel_group(
             "void (anonymous namespace)::bsa_wgmma_kernel<128, 128, 0>(x)")
+
+
+# ------------------------------------- repairs: head dim 96 and G up to 16
+#
+# phi3-mini has D = 96 and mistral-large G = 12 (96 heads over 8 kv heads);
+# the reference's kernels take any D and G.  The plain versions (what the
+# card's checks hold the kernels against) against the Pallas kernels at
+# those shapes, and the CUDA wrappers' shape gates through the fake C
+# function.  ``reduced_config`` caps the smoke models at G = 1, so these
+# shapes are built here.
+
+@pytest.mark.parametrize("offset", [None, 2], ids=["one_shot", "chunk"])
+def test_block_sparse_plain_at_head_dim_96_matches_pallas(offset):
+    """B.2 (batched), B.5 (paged) and B.6 (single-sample) plain versions
+    at D = 96 against the reference's kernels; the chunk case is a 2-block
+    q chunk at q block 2 of a 4-block prefix."""
+    from repro.kernels.block_sparse_attn import (
+        block_sparse_attention_batched as j_batched,
+        block_sparse_attention_batched_paged as j_paged,
+        block_sparse_attention_kernel as j_single, ragged_schedule)
+    rng = np.random.default_rng(21)
+    b, h, hkv, s, d, bs = 2, 4, 2, 256, 96, 64
+    n = s if offset is None else 2 * bs
+    nbq, nbkv = n // bs, s // bs
+    off = nbkv - nbq if offset is None else offset
+    q = rng.standard_normal((b, h, n, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+            for _ in range(2))
+    mask = rng.random((b, h, nbq, nbkv)) < 0.6
+    mask &= np.tril(np.ones((nbq, nbkv), bool), k=off)
+    mask[:, :, np.arange(nbq), off + np.arange(nbq)] = True
+    idx, cnt = (np.array(x) for x in
+                jidx.compact_block_mask(jnp.asarray(mask)))
+    gate = rng.random((b, h)) < 0.5
+    kw = dict(block_size=bs, stats_gate=T(gate), q_block_offset=offset)
+    row_map, slot_map = ragged_schedule(nbq, nbkv, width=nbkv,
+                                        q_block_offset=offset)
+    scatter = lambda st: np.asarray(jidx.scatter_schedule_stats(
+        st, jnp.asarray(idx), row_map, slot_map, nbkv))
+
+    jo, js = j_batched(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       jnp.asarray(idx), jnp.asarray(cnt), block_size=bs,
+                       stats_gate=jnp.asarray(gate), q_block_offset=offset,
+                       interpret=True)
+    to, ta = bsa.block_sparse_attention_plain(T(q), T(k), T(v), T(idx),
+                                              T(cnt), **kw)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5,
+                               rtol=0)
+    ja = scatter(js)
+    assert (np.isneginf(ja) == np.isneginf(ta.numpy())).all()
+    fin = np.isfinite(ja)
+    np.testing.assert_allclose(ta.numpy()[fin], ja[fin], atol=1e-5, rtol=0)
+
+    # B.5: the same launch through a page table over a shuffled pool
+    nb = s // bs
+    pages = 1 + rng.permutation(b * nb + 2)[: b * nb].reshape(b, nb)
+    pool_k, pool_v = (np.zeros((b * nb + 3, hkv, bs, d), np.float32)
+                      for _ in range(2))
+    for pool, x in ((pool_k, k), (pool_v, v)):
+        pool[pages.reshape(-1)] = np.moveaxis(
+            x.reshape(b, hkv, nb, bs, d), 1, 2).reshape(-1, hkv, bs, d)
+    table = pages.astype(np.int32)
+    jo, js = j_paged(jnp.asarray(q), jnp.asarray(pool_k),
+                     jnp.asarray(pool_v), jnp.asarray(table),
+                     jnp.asarray(idx), jnp.asarray(cnt), block_size=bs,
+                     stats_gate=jnp.asarray(gate), q_block_offset=offset,
+                     interpret=True)
+    po, pa = bsa.block_sparse_attention_paged_plain(
+        T(q), T(pool_k), T(pool_v), T(table), T(idx), T(cnt), **kw)
+    np.testing.assert_allclose(po.numpy(), np.asarray(jo), atol=1e-5,
+                               rtol=0)
+    assert torch.equal(po, to) and torch.equal(pa, ta)
+
+    if offset is None:              # B.6: sample 0, uniform W steps
+        jo, js = j_single(jnp.asarray(q[0]), jnp.asarray(k[0]),
+                          jnp.asarray(v[0]), jnp.asarray(idx[0]),
+                          jnp.asarray(cnt[0]), block_size=bs,
+                          interpret=True)
+        so, ss = bsa.block_sparse_attention_single_plain(
+            T(q[0]), T(k[0]), T(v[0]), T(idx[0]), T(cnt[0]), block_size=bs)
+        np.testing.assert_allclose(so.numpy(), np.asarray(jo), atol=1e-5,
+                                   rtol=0)
+        js = np.asarray(js)
+        assert (np.isneginf(js) == np.isneginf(ss.numpy())).all()
+        fin = np.isfinite(js)
+        np.testing.assert_allclose(ss.numpy()[fin], js[fin], atol=1e-5,
+                                   rtol=0)
+
+
+def _group12_case(rng, paged: bool):
+    """A G = 12 plan (12 query heads over one kv head, 2 slots), partly
+    false keep bits, a counts == 0 slot and a right-pad range; K/V
+    contiguous, or in a shuffled pool through a page table."""
+    b, h, hkv, nb, bs, d = 2, 24, 2, 6, 64, 32
+    g, s = h // hkv, nb * bs
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    ck, cv = (rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+              for _ in range(2))
+    keep = rng.random((b, hkv, nb, g)) < 0.6
+    keep[..., -1, :] = True
+    union = keep.any(-1)
+    union[1, 1] = False                          # counts == 0 slot
+    keep &= union[..., None]
+    valid = np.ones((b, s), bool)
+    valid[1, 200:300] = False                    # right-pad
+    idx, cnt = (np.array(x) for x in
+                jidx.compact_block_mask(jnp.asarray(union)))
+    if not paged:
+        return q, ck, cv, None, idx, cnt, keep, valid
+    pages = 1 + rng.permutation(b * nb + 2)[: b * nb].reshape(b, nb)
+    pools = []
+    for x in (ck, cv):
+        pool = rng.standard_normal((b * nb + 3, hkv, bs, d)).astype(
+            np.float32)
+        pool[pages.reshape(-1)] = np.moveaxis(
+            x.reshape(b, hkv, nb, bs, d), 1, 2).reshape(-1, hkv, bs, d)
+        pools.append(pool)
+    return (q, pools[0], pools[1], pages.astype(np.int32), idx, cnt, keep,
+            valid)
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["B.3", "B.4"])
+def test_plan_decode_plain_at_group_12_matches_pallas(paged):
+    from repro.kernels.decode_attn import (
+        flash_decode_sparse_batched_paged as j_decode_paged)
+    q, ck, cv, table, idx, cnt, keep, valid = _group12_case(
+        np.random.default_rng(22), paged)
+    plan = da.DecodePlan(T(idx), T(cnt), T(keep))
+    j = lambda x: jnp.asarray(x)
+    if paged:
+        ref = j_decode_paged(j(q), j(ck), j(cv), j(table), j(idx), j(cnt),
+                             j(keep), j(valid), interpret=True)
+        got = da.decode_plan_einsum_sliced_paged(T(q), T(ck), T(cv),
+                                                 T(table), plan, T(valid))
+    else:
+        ref = j_decode(j(q), j(ck), j(cv), j(idx), j(cnt), j(keep),
+                       j(valid), interpret=True)
+        got = da.decode_plan_einsum_sliced(T(q), T(ck), T(cv), plan,
+                                           T(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    assert (got[1, 12:24] == 0).all()            # counts == 0: exact zeros
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["B.7", "B.8"])
+def test_token_mask_decode_plain_at_group_12_matches_pallas(sparse):
+    from repro.kernels.decode_attn import flash_decode_sparse as j_sparse
+    rng = np.random.default_rng(23)
+    h, hkv, s, d, bs = 24, 2, 384, 32, 64
+    q = rng.standard_normal((h, d)).astype(np.float32)
+    ck, cv = (rng.standard_normal((hkv, s, d)).astype(np.float32)
+              for _ in range(2))
+    mask = np.repeat(rng.random((h, s // bs)) < 0.5, bs, axis=1)
+    mask &= rng.random((h, s)) < 0.9
+    mask[:, -bs:] = True
+    mask[7] = False                              # an all-false head
+    jfn, tfn = ((j_sparse, da.flash_decode_sparse_plain) if sparse
+                else (j_flash_decode, da.flash_decode_plain))
+    ref = jfn(jnp.asarray(q), jnp.asarray(ck), jnp.asarray(cv),
+              jnp.asarray(mask), block_kv=bs, interpret=True)
+    got = tfn(T(q), T(ck), T(cv), T(mask), block_kv=bs)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=0)
+    assert (got[7] == 0).all()
+
+
+@pytest.mark.parametrize("d,ok", [(64, True), (96, True), (128, True),
+                                  (80, False), (48, False)])
+def test_block_sparse_wrappers_take_head_dim_96(fake_launch, d, ok):
+    """The three block-sparse wrappers launch at D in {64, 96, 128} with
+    their declared argument counts, and raise at any other D."""
+    b, h, hkv, n, bs = 1, 4, 2, 256, 64
+    q, kv = torch.zeros(b, h, n, d), torch.zeros(b, hkv, n, d)
+    m = torch.tril(torch.ones(n // bs, n // bs, dtype=torch.bool))
+    idx, cnt = compact_block_mask(m.expand(b, h, -1, -1))
+    pool = torch.zeros(5, hkv, bs, d)
+    table = torch.arange(1, 5, dtype=torch.int32)[None]
+    calls = (
+        lambda: bsa.block_sparse_attention_cuda(q, kv, kv, idx, cnt,
+                                                block_size=bs),
+        lambda: bsa.block_sparse_attention_single_cuda(
+            q[0], kv[0], kv[0], idx[0], cnt[0], block_size=bs),
+        lambda: bsa.block_sparse_attention_paged_cuda(
+            q, pool, pool, table, idx, cnt, block_size=bs))
+    for call in calls:
+        if ok:
+            call()
+        else:
+            with pytest.raises(ValueError, match=r"D in \(64, 96, 128\)"):
+                call()
+    want = 1 if ok else 0
+    assert {k: len(v.calls) for k, v in fake_launch.items()} == (
+        dict.fromkeys(["repro_block_sparse_attn",
+                       "repro_block_sparse_attn_single",
+                       "repro_block_sparse_attn_paged"], want) if ok
+        else {})
+
+
+_check_masked = da._check_masked       # the real gate, before any stub
+
+
+@pytest.mark.parametrize("g,ok", [(8, True), (12, True), (16, True),
+                                  (17, False)])
+def test_decode_wrappers_take_groups_up_to_16(fake_launch, monkeypatch, g,
+                                              ok):
+    """The four decode wrappers launch at G <= 16 with their declared
+    argument counts and raise above it (the token-mask wrappers in their
+    shape gate, which the fixture stubs, so it is put back here)."""
+    b, hkv, nb, ps, d = 2, 2, 4, 64, 32
+    h, s = g * hkv, nb * ps
+    q = torch.zeros(b, h, d)
+    cache = torch.zeros(b, hkv, s, d)
+    idx, cnt = compact_block_mask(torch.ones(b, hkv, nb, dtype=torch.bool))
+    keep = torch.ones(b, hkv, nb, g, dtype=torch.bool)
+    valid = torch.ones(b, s, dtype=torch.bool)
+    pool = torch.zeros(b * nb + 1, hkv, ps, d)
+    table = torch.arange(1, b * nb + 1, dtype=torch.int32).reshape(b, nb)
+    mask = torch.ones(h, s, dtype=torch.bool)
+    calls = (
+        lambda: da.flash_decode_sparse_cuda(q, cache, cache, idx, cnt, keep,
+                                            valid),
+        lambda: da.flash_decode_sparse_paged_cuda(q, pool, pool, table, idx,
+                                                  cnt, keep, valid),
+        lambda: da.flash_decode_cuda(q[0], cache[0], cache[0], mask,
+                                     block_kv=ps),
+        lambda: da.flash_decode_sparse_single_cuda(q[0], cache[0], cache[0],
+                                                   mask, block_kv=ps))
+    if ok:
+        for call in calls:
+            call()
+        assert {k: len(v.calls) for k, v in fake_launch.items()} == {
+            "repro_decode_attn": 1, "repro_decode_attn_paged": 1,
+            "repro_decode_attn_mask": 2}
+        return
+    monkeypatch.setattr(da, "_check_masked", _check_masked)
+    for call in calls:
+        with pytest.raises(ValueError, match="G <= 16"):
+            call()
+    assert not fake_launch

@@ -165,12 +165,18 @@ def test_stop_token_and_prefill_only_rows():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("preempt_after_steps", 4, "A.9"), ("prefill_pack", 2, "A.8"),
-    ("prefill_chunk", 128, "A.8"), ("prefix_sharing", True, "A.9"),
+    ("preempt_after_steps", 4, "A.9"), ("refresh_mass", 0.5, "A.9"),
+    ("width_percentile", 50.0, "A.5"), ("prefix_sharing", True, "A.9"),
     ("refresh_every", 64, "A.9"), ("width_policy", "auto", "A.5")])
 def test_unported_engine_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue {item}"):
         EngineConfig(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [("prefill_chunk", 128),
+                                         ("prefill_pack", 2)])
+def test_chunked_prefill_options_are_ported(field, value):
+    assert getattr(EngineConfig(**{field: value}), field) == value
 
 
 def test_bucket_and_grow_cache():
