@@ -19,9 +19,15 @@ run on error:
      split count); the
      strip also at N = 2048, 512 and 8320 and at its other instances'
      head widths, with sample 0 alone bitwise equal to the batch's slice,
-     and its device time at B = 2 and at B = 1;
+     and its device time at B = 2 and at B = 1; the block-sparse kernel
+     also under each baseline's masks (MInference vertical-slash and
+     FlexPrefill, built on the card) with a stats gate of zeros (Ã all
+     −inf), with the mask blocks the card's masks and the CPU's differ by
+     on the same float32 q/k;
   3. serve a small ragged batch through the kernels and through the plain
-     versions on the CPU, and compare greedy tokens (near-tie aware);
+     versions on the CPU, and compare greedy tokens (near-tie aware), for
+     SharePrefill and both baselines; count the baselines' mask blocks
+     that differ between the card and the CPU in a traced prefill;
   4. serve two full-width llama3-8b-262k requests (prompts of 8192 and 7937
      tokens, 16 greedy tokens each) through ``ServingEngine`` with
      SharePrefill prefill and plan-driven sparse decode, with every kernel's
@@ -67,7 +73,21 @@ run on error:
      (2 of its 88 layers: 123B parameters do not fit one card), two
      requests each through the batch server, launch counts reset just
      before and read just after, against the same serve with the decode's
-     plain versions.
+     plain versions;
+ 11. the paper's baselines on llama3-8b-262k at full width, launch counts
+     reset just before and read just after each run: phase 4's requests
+     through ``EngineConfig(method=m)`` for ``vertical_slash`` and ``flex``
+     (the strip 32 / 0 times, the block-sparse kernel 32 times, no decode
+     kernel) beside phase 4's ``share`` serve and a ``dense`` one; the
+     ``vertical_slash`` serve through the per-sample path (64 single-
+     sample launches, first-step logits against the batch serve's); two of
+     phase 6's requests through chunked admission with ``flex``
+     (first-step logits bitwise the unchunked serve's); the traced prefill
+     (``core/profile.py``) of one 8192-token prompt for the four methods
+     and its block attention maps; ``Model.prefill`` of one 32768-token
+     prompt for the four methods (the second of two runs each); one
+     layer's dense attention at 8192 through the plain chunked path and
+     through ``scaled_dot_product_attention``.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -138,6 +158,10 @@ SHORT = 2048
 PAGED_REQUESTS = ((8192, 16), (7937, 4), (2048, 24), (1990, 8), (8192, 12),
                   (2000, 6))
 NUM_PAGES = 148
+
+# the paper's baselines (core/baselines.py) and the four prefill methods
+BASELINES = ("vertical_slash", "flex")
+METHODS = ("share", "dense") + BASELINES
 
 
 # the instances of the two templated kernel bodies, by their MODE argument
@@ -369,6 +393,60 @@ def strip_cases(q, k, bs: int, gen):
             for qs, ks, bsz in cases]
 
 
+def check_baseline_masks(q, k, v, bs: int, gamma: float, out: dict
+                         ) -> dict:
+    """Phase 2, the baselines: each baseline's masks built on the card from
+    q (B,H,N,D) and k (B,Hkv,N,D), the block-sparse kernel on them with a
+    stats gate of zeros against its plain version (out within ``TOL``, Ã
+    all −inf on both sides); in float32 also the mask blocks that differ
+    from the same masks built on the CPU, counted and not bounded; in
+    bfloat16 the kernel's time.  Updates and returns ``out`` (per method:
+    error, density, flips, ms)."""
+    import torch
+    from repro_torch.core.baselines import baseline_block_masks
+    from repro_torch.core.patterns import block_mask_density
+    from repro_torch.kernels import (block_sparse_attention_cuda,
+                                     block_sparse_attention_plain,
+                                     compact_block_mask)
+    dn = str(q.dtype).replace("torch.", "")
+    b, h, n, _ = q.shape
+    nb = n // bs
+    gate = torch.zeros((b, h), dtype=torch.int32, device=q.device)
+    causal = torch.ones(nb, nb, dtype=torch.bool, device=q.device).tril()
+    for method in BASELINES:
+        r = out.setdefault(method, {"max_abs_err": 0.0})
+        masks = baseline_block_masks(method, q, k, gamma=gamma,
+                                     block_size=bs) & causal
+        idx, cnt = (x.contiguous() for x in compact_block_mask(masks))
+        kw = dict(block_size=bs, stats_gate=gate)
+        o1, a1 = block_sparse_attention_cuda(q, k, v, idx, cnt, **kw)
+        o2, a2 = block_sparse_attention_plain(q, k, v, idx, cnt, **kw)
+        neg_inf = bool(torch.isneginf(a1).all() and torch.isneginf(a2).all())
+        r["density"] = float(block_mask_density(masks).mean())
+        extra = ""
+        if q.dtype == torch.float32:
+            cpu = baseline_block_masks(method, q.cpu(), k.cpu(), gamma=gamma,
+                                       block_size=bs) & causal.cpu()
+            r["flips"] = int((cpu != masks.cpu()).sum())
+            extra = (f", mask blocks differing from the CPU's "
+                     f"{r['flips']} of {masks.numel()}")
+        print(f"  block_sparse_attn [{method} masks, gate 0]: density "
+              f"{r['density']:.4f}, W={idx.shape[-1]}, a_tilde all -inf "
+              f"{neg_inf}{extra}", flush=True)
+        if not neg_inf:
+            raise AssertionError(f"{method}: a stats gate of zeros left "
+                                 "finite a_tilde entries")
+        e = max_err(o1, o2)
+        check("  out", e, TOL[("out", dn)])
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+        if q.dtype == torch.bfloat16:
+            r["ms"] = cuda_ms(lambda: block_sparse_attention_cuda(
+                q, k, v, idx, cnt, **kw), 10)
+            print(f"  block_sparse_attn bf16 [{method} masks]: "
+                  f"{r['ms']:.3f} ms", flush=True)
+    return out
+
+
 def check_kernels(model, params, tokens, prompt_lens) -> dict:
     """Phase 2: each kernel against its plain version; returns the kernels'
     numbers for the JSON line (errors over every case, times at bf16)."""
@@ -464,6 +542,14 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
             check("  a_tilde", ea, TOL[("a_tilde", dn)])
             res["block_sparse_attn"]["max_abs_err"] = max(
                 res["block_sparse_attn"]["max_abs_err"], e)
+
+        # the baselines' masks, built on the card (MInference's strip is
+        # the strip kernel), under a stats gate of zeros
+        res["baselines"] = check_baseline_masks(q, k, v, bs, spc.gamma,
+                                                res.get("baselines", {}))
+        res["block_sparse_attn"]["max_abs_err"] = max(
+            res["block_sparse_attn"]["max_abs_err"],
+            *(r["max_abs_err"] for r in res["baselines"].values()))
 
         # C.1: the same tables at head dim 96
         q96, k96, v96 = (x.to(dtype) for x in d96)
@@ -625,7 +711,8 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
             device_ms=device_ms(lambda: flash_decode_sparse_cuda(
                 qd, ck, cv, idx, cnt, keep, valid), 20),
             splits=decode_splits(b, hkv, idx.shape[-1], sm_count(dev)))
-        for name, r in res.items():
+        for name in ("strip", "block_sparse_attn", "decode_attn"):
+            r = res[name]
             split = (f", {r['splits']} splits x {b * hkv} rows, device "
                      f"{r['device_ms']} ms a call"
                      if "splits" in r else "")
@@ -696,9 +783,13 @@ def greedy_agree(ref_tokens, ref_logits, tokens, tol: float) -> str:
 def small_serve_agreement() -> None:
     """Phase 3: a small ragged batch served through the kernels (float32 on
     the card) and through the plain versions (the CPU) from the same
-    weights; greedy tokens must agree, near-tie aware."""
+    weights, for SharePrefill and both baselines; greedy tokens must agree,
+    near-tie aware.  For each baseline, the traced prefill of prompt 0 on
+    both devices counts the mask blocks that differ (reported, not held:
+    the card's strip accumulates in another order)."""
     import torch
     from repro_torch.configs import get_smoke_config
+    from repro_torch.core.profile import run_prefill_traced
     from repro_torch.models import build_model
     from repro_torch.serving import EngineConfig, Request, ServingEngine
 
@@ -706,30 +797,43 @@ def small_serve_agreement() -> None:
                               num_kv_heads=2)
     cpu = build_model(cfg, device="cpu")
     params_cpu = cpu.init(torch.Generator().manual_seed(SEED))
+    params_gpu = _to(params_cpu, "cuda")
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, n) for n in (512, 450)]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg, device=dev)
-        params = params_cpu if dev == "cpu" else _to(params_cpu, dev)
-        probe = LogitProbe(model)
-        eng = ServingEngine(probe, params, model.default_share_prefill(),
-                            EngineConfig(max_batch=2, seq_buckets=(512,),
-                                         decode_sparse=True))
-        reqs = eng.serve([Request(uid=i, prompt=p, max_new_tokens=8)
-                          for i, p in enumerate(prompts)])
-        runs[dev] = ([r.output_tokens for r in reqs],
-                     torch.stack(probe.logits, 1).cpu().numpy(),
-                     reqs[0].pattern_stats)
-    (tok_c, log_c, st_c), (tok_p, log_p, st_p) = runs["cuda"], runs["cpu"]
-    err = float(np.abs(log_c[:, 0] - log_p[:, 0]).max())
-    print(f"small serve: prefill logits max_abs_err {err:.3e}; block "
-          f"density cuda {st_c['block_density']:.4f} cpu "
-          f"{st_p['block_density']:.4f}", flush=True)
-    for i in range(len(prompts)):
-        verdict = greedy_agree(tok_p[i], log_p[i], tok_c[i], TIE_TOL)
-        print(f"  request {i}: cuda {tok_c[i].tolist()} cpu "
-              f"{tok_p[i].tolist()} -> {verdict}", flush=True)
+    for method in ("share",) + BASELINES:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            model = build_model(cfg, device=dev)
+            params = params_cpu if dev == "cpu" else params_gpu
+            probe = LogitProbe(model)
+            eng = ServingEngine(probe, params, model.default_share_prefill(),
+                                EngineConfig(method=method, max_batch=2,
+                                             seq_buckets=(512,),
+                                             decode_sparse=True))
+            reqs = eng.serve([Request(uid=i, prompt=p, max_new_tokens=8)
+                              for i, p in enumerate(prompts)])
+            runs[dev] = ([r.output_tokens for r in reqs],
+                         torch.stack(probe.logits, 1).cpu().numpy(),
+                         reqs[0].pattern_stats)
+        (tok_c, log_c, st_c), (tok_p, log_p, st_p) = runs["cuda"], runs["cpu"]
+        err = float(np.abs(log_c[:, 0] - log_p[:, 0]).max())
+        flips = ""
+        if method != "share":
+            masks = [run_prefill_traced(
+                params, cfg, torch.as_tensor(prompts[0][None], device=dev),
+                cpu.default_share_prefill(), method=method,
+                want_masks=True).masks
+                for params, dev in ((params_gpu, "cuda"), (params_cpu, "cpu"))]
+            diff = sum(int((a != c).sum()) for a, c in zip(*masks))
+            flips = (f"; traced prefill of request 0: mask blocks differing "
+                     f"cuda/cpu {diff} of {sum(m.size for m in masks[1])}")
+        print(f"small serve [{method}]: prefill logits max_abs_err "
+              f"{err:.3e}; block density cuda {st_c['block_density']:.4f} "
+              f"cpu {st_p['block_density']:.4f}{flips}", flush=True)
+        for i in range(len(prompts)):
+            verdict = greedy_agree(tok_p[i], log_p[i], tok_c[i], TIE_TOL)
+            print(f"  request {i}: cuda {tok_c[i].tolist()} cpu "
+                  f"{tok_p[i].tolist()} -> {verdict}", flush=True)
 
 
 def _to(params, dev):
@@ -741,8 +845,8 @@ def _to(params, dev):
 
 
 def serve_full(model, params, prompts, need: dict,
-               attn_impl: str = "auto") -> dict:
-    """Phases 4 and 8: the main path at full width, launch counts reset
+               attn_impl: str = "auto", method: str = "share") -> dict:
+    """Phases 4, 8 and 11: the main path at full width, launch counts reset
     just before it and read just after; fails unless each kernel in
     ``need`` launched at least that often."""
     import torch
@@ -751,7 +855,7 @@ def serve_full(model, params, prompts, need: dict,
 
     probe = LogitProbe(model)
     eng = ServingEngine(probe, params, model.default_share_prefill(),
-                        EngineConfig(method="share", attn_impl=attn_impl,
+                        EngineConfig(method=method, attn_impl=attn_impl,
                                      decode_sparse=True, max_batch=2,
                                      seq_buckets=(SEQ,)))
     reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
@@ -763,7 +867,8 @@ def serve_full(model, params, prompts, need: dict,
     torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
-    print(f"serve (attn_impl={attn_impl}): {len(reqs)} requests in "
+    print(f"serve (method={method}, attn_impl={attn_impl}): {len(reqs)} "
+          f"requests in "
           f"{wall:.3f} s; launches {counts}", flush=True)
     for r in reqs:
         m = r.metrics()
@@ -774,9 +879,10 @@ def serve_full(model, params, prompts, need: dict,
     st = reqs[0].pattern_stats
     print("  pattern stats: " + json.dumps(
         {k: st[k] for k in ("num_shared", "num_dense", "num_vs",
-                            "block_density", "decode_traffic_fraction",
-                            "decode_blocks_computed", "decode_blocks_total")}),
-        flush=True)
+                            "block_density", "max_row_pop",
+                            "decode_traffic_fraction",
+                            "decode_blocks_computed", "decode_blocks_total")
+         if k in st}), flush=True)
 
     vocab = model.cfg.vocab_size
     for r in reqs:
@@ -1062,10 +1168,10 @@ def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
                                      SlotScheduler)
 
     probe = PrefillProbe(model)
+    base = dict(max_batch=4, method="share", decode_sparse=True,
+                seq_buckets=(SHORT, SEQ))
     eng = ServingEngine(probe, params, model.default_share_prefill(),
-                        EngineConfig(max_batch=4, method="share",
-                                     decode_sparse=True,
-                                     seq_buckets=(SHORT, SEQ), **ecfg))
+                        EngineConfig(**{**base, **ecfg}))
     reqs = [Request(uid=i, prompt=p, max_new_tokens=m)
             for i, (p, m) in enumerate(zip(prompts, news))]
     allocs = []
@@ -1947,6 +2053,188 @@ def serve_repaired(arch: str, depth, prompt_lens, new_tokens: int) -> dict:
     return kc
 
 
+# ---------------------------------------------------------------- phase 11
+
+LONG = 32768        # phase 11's long prompt (NB = 256 blocks of 128)
+
+
+def _expect_counts(what: str, counts: dict, want: dict) -> None:
+    """Every kernel's launches are exactly ``want``'s (0 where absent)."""
+    full = {name: want.get(name, 0) for name in counts}
+    if counts != full:
+        raise AssertionError(f"{what}: launches {counts}, expected {full}")
+
+
+def serve_baselines(model, params, prompts, paged_prompts, layers: int,
+                    batch: dict) -> dict:
+    """Phase 11: the paper's baselines at full width (module docstring).
+    Returns the launches of the phase's serves by kernel and run."""
+    import torch
+    from repro_torch.core.profile import (capture_block_attention_maps,
+                                          run_prefill_traced)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    smi = nvidia_smi()
+    cfg = model.cfg
+    sp = model.default_share_prefill()
+    launches = {}
+
+    # phase 4's requests through each baseline, beside share and dense
+    runs = {"share": batch}
+    for method in BASELINES + ("dense",):
+        run = serve_full(model, params, prompts, {}, method=method)
+        want = {} if method == "dense" else {"block_sparse_attn": layers}
+        if method == "vertical_slash":
+            want["strip"] = layers
+        _expect_counts(f"{method} serve", run["counts"], want)
+        launches[f"serve {method}"] = run["counts"]
+        runs[method] = run
+    print(f"batch serves, 2 x {SEQ} tokens ({smi}):", flush=True)
+    for method, run in runs.items():
+        r, st = run["reqs"][0], run["reqs"][0].pattern_stats
+        print(f"  {method}: prefill_s {r.prefill_s:.4f} block density "
+              f"{st['block_density']:.4f} max_row_pop "
+              f"{st['max_row_pop']:.0f} decode_tokens_per_s "
+              f"{r.decode_tokens_per_s:.3f} tokens "
+              f"{[x.output_tokens.tolist()[:4] for x in run['reqs']]}",
+              flush=True)
+
+    # vertical_slash through the per-sample path: the strip once per layer
+    # for the batch, the single-sample kernel once per sample and layer
+    per = serve_full(model, params, prompts, {}, method="vertical_slash",
+                     attn_impl="kernel")
+    _expect_counts("vertical_slash per-sample serve", per["counts"],
+                   {"strip": layers,
+                    "block_sparse_attn_single": len(prompts) * layers})
+    launches["serve vertical_slash, attn_impl=kernel"] = per["counts"]
+    first, ref_first = per["logits"][0], runs["vertical_slash"]["logits"][0]
+    err = max_err(first, ref_first)
+    tol = PER_SAMPLE_RTOL * float(ref_first.abs().max())
+    print(f"  vertical_slash per-sample: prefill_s "
+          f"{per['reqs'][0].prefill_s:.4f}; first-step logits max_abs_err "
+          f"against the batch serve {err:.3e} (tol {tol:.3e})", flush=True)
+    if err > tol:
+        raise AssertionError(f"per-sample logits differ by {err} > {tol}")
+    ref = runs["vertical_slash"]
+    for i, (a, c) in enumerate(zip(ref["reqs"], per["reqs"])):
+        logits = torch.stack([x[i] for x in ref["logits"]]).cpu().numpy()
+        print(f"  request {a.uid}: "
+              f"{greedy_agree(a.output_tokens, logits, c.output_tokens, tol)}",
+              flush=True)
+    del runs, per, ref
+    torch.cuda.empty_cache()
+
+    # flex through chunked admission: two of phase 6's requests, bitwise
+    sel = (1, 2)
+    ps = [paged_prompts[i] for i in sel]
+    news = [PAGED_REQUESTS[i][1] for i in sel]
+    sched = {}
+    for label, extra in (("one-shot", {}), ("chunked",
+                                           {"prefill_chunk": CHUNK})):
+        run = scheduler_serve(model, params, ps, news, paged=True,
+                              num_pages=NUM_PAGES, method="flex", **extra)
+        report_scheduler_serve(f"flex {label} paged serve", run)
+        check_paged_run(run, f"flex {label} serve")
+        sched[label] = run
+        launches[f"flex {label} paged serve"] = run["counts"]
+    chunks = sum(sched["one-shot"]["eng"]._bucket(len(p)) // CHUNK
+                 for p in ps)
+    _expect_counts("flex one-shot paged serve", sched["one-shot"]["counts"],
+                   {"block_sparse_attn": layers * len(ps)})
+    _expect_counts("flex chunked paged serve", sched["chunked"]["counts"],
+                   {"block_sparse_attn": layers * chunks})
+    a, c = sched["one-shot"]["probe"].first, sched["chunked"]["probe"].first
+    bitwise = a.keys() == c.keys() and all(torch.equal(a[k], c[k])
+                                           for k in a)
+    same = all(x.output_tokens.tolist() == y.output_tokens.tolist()
+               for x, y in zip(sched["one-shot"]["reqs"],
+                               sched["chunked"]["reqs"]))
+    print(f"  flex chunked: first-step logits bitwise the one-shot serve's "
+          f"{bitwise}, tokens identical {same}", flush=True)
+    if not (bitwise and same):
+        raise AssertionError("flex: the chunked serve differs from the "
+                             "one-shot serve")
+    del sched
+    torch.cuda.empty_cache()
+
+    # the profiling pass on one 8192-token prompt
+    tok1 = torch.as_tensor(prompts[0][None], device=model.device)
+    traces = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for method in METHODS:
+        t0 = time.time()
+        traces[method] = run_prefill_traced(params, cfg, tok1, sp,
+                                            method=method)
+        torch.cuda.synchronize()
+        dens = np.mean([r["block_density"] for r in traces[method].per_layer])
+        print(f"  traced prefill [{method}]: {time.time() - t0:.2f} s, mean "
+              f"density {dens:.4f}", flush=True)
+    counts = launch_counts()
+    _expect_counts("traced prefills", counts, {"strip": 2 * layers})
+    launches["traced prefills"] = counts
+    dense = traces["dense"].last_logits
+    for method in ("share",) + BASELINES:
+        last = traces[method].last_logits
+        if not np.isfinite(last).all():
+            raise AssertionError(f"traced {method}: non-finite logits")
+        print(f"  traced {method}: last-logits max |gap| to dense "
+              f"{float(np.abs(last - dense).max()):.4f} (random weights: "
+              "reported, not held)", flush=True)
+    t0 = time.time()
+    maps = capture_block_attention_maps(params, cfg, tok1, block_size=64)
+    rows = maps.sum(-1)
+    print(f"  block attention maps: shape {maps.shape} in "
+          f"{time.time() - t0:.2f} s, row sums within "
+          f"{float(np.abs(rows - 1).max()):.2e} of 1", flush=True)
+    if maps.shape != (layers, cfg.num_heads, SEQ // 64, SEQ // 64) or \
+            not np.isfinite(maps).all() or np.abs(rows - 1).max() > 1e-3:
+        raise AssertionError("block attention maps: bad shape or rows")
+    del traces, maps
+    torch.cuda.empty_cache()
+
+    # Model.prefill of one 32768-token prompt, the second of two runs
+    long = np.random.default_rng(SEED + 11).integers(0, cfg.vocab_size,
+                                                     (1, LONG))
+    long = torch.as_tensor(long, device=model.device)
+    print(f"Model.prefill of one {LONG}-token prompt ({smi}):", flush=True)
+    for method in METHODS:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            res = model.prefill(params, long, sp, method=method)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            finite = bool(torch.isfinite(res.last_logits).all())
+            st = res.stats
+            del res
+        print(f"  {method}: prefill_s {wall:.4f} block density "
+              f"{float(st.block_density):.4f} max_row_pop "
+              f"{float(st.max_row_pop):.0f} peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        if not finite:
+            raise AssertionError(f"{method} at {LONG}: non-finite logits")
+        torch.cuda.empty_cache()
+
+    # one layer's dense attention at 8192: the dense method's plain chunked
+    # path against one PyTorch library call on the same q/k/v
+    import torch.nn.functional as F
+    from repro_torch.kernels import expand_kv
+    from repro_torch.kernels.chunked import chunked_attention
+    q, k, v = layer0_qkv(model, params, tok1.expand(2, -1).contiguous())
+    kx, vx = expand_kv(k, v, q.shape[1])
+    plain = lambda: chunked_attention(q, kx, vx, block_size=128, causal=True)
+    lib = lambda: F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+    err = max_err(plain(), lib())
+    print(f"  one layer's dense attention (B=2, H={q.shape[1]}, N={SEQ}, "
+          f"D={q.shape[3]}, {str(q.dtype).replace('torch.', '')}): plain "
+          f"chunked {cuda_ms(plain, 3):.3f} ms, scaled_dot_product_attention "
+          f"{cuda_ms(lib, 10):.3f} ms, max |difference| {err:.3e} ({smi})",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2065,11 +2353,19 @@ def main() -> int:
                       wrap(model), params, paged_prompts,
                       [m for _, m in PAGED_REQUESTS], paged=True,
                       num_pages=NUM_PAGES, prefill_chunk=CHUNK))
-    del model, params, batch, paged
+    del paged
     torch.cuda.empty_cache()
     print("== phase 10: the repaired configs at full width", flush=True)
     for arch, depth, lens, new in REPAIRED:
         serve_repaired(arch, depth, lens, new)
+    print("== phase 11: the paper's baselines at full width", flush=True)
+    t = time.time()
+    launches = serve_baselines(model, params, prompts, paged_prompts, layers,
+                               batch)
+    print(f"phase 11: {time.time() - t:.1f} s; launches by run "
+          + json.dumps(launches), flush=True)
+    del model, params, batch
+    torch.cuda.empty_cache()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -7,6 +7,9 @@
   construct        Algorithm 2 — pivotal pattern construction
   pattern_dict     the per-sample pivotal-pattern dictionary
   share_attention  Algorithm 1 — per-layer orchestration, batched
+  baselines        the paper's baselines (MInference, FlexPrefill, dense)
+  profile          block attention maps and the layer-by-layer traced
+                   prefill behind the paper's analyses
   api              SharePrefill — the module models consume
 """
 from repro_torch.core.api import SharePrefill
@@ -14,10 +17,13 @@ from repro_torch.core.pattern_dict import PivotalState
 from repro_torch.core.share_attention import (
     LayerStats,
     batched_share_prefill_attention_layer,
+    gqa_head_vmap,
     init_batched_state,
+    share_prefill_attention_layer,
 )
 
 __all__ = [
     "SharePrefill", "PivotalState", "LayerStats",
-    "batched_share_prefill_attention_layer", "init_batched_state",
+    "share_prefill_attention_layer", "batched_share_prefill_attention_layer",
+    "gqa_head_vmap", "init_batched_state",
 ]

@@ -7,8 +7,9 @@ function takes any leading batch axes.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -27,6 +28,15 @@ def causal_block_mask(nb_q: int, nb_kv: Optional[int] = None, *,
     i = torch.arange(nb_q, device=device)[:, None]
     j = torch.arange(nb_kv, device=device)[None, :]
     return j <= i + (nb_kv - nb_q)
+
+
+def dense_block_mask(nb_q: int, nb_kv: Optional[int] = None,
+                     causal: bool = True, *, device=None) -> torch.Tensor:
+    """Every block of the grid: the causal ones, or all of them."""
+    nb_kv = nb_q if nb_kv is None else nb_kv
+    if causal:
+        return causal_block_mask(nb_q, nb_kv, device=device)
+    return torch.ones((nb_q, nb_kv), dtype=torch.bool, device=device)
 
 
 def sliding_window_block_mask(nb: int, window_blocks: int,
@@ -66,12 +76,25 @@ def slash_block_mask(nb: int, offset_active: torch.Tensor) -> torch.Tensor:
     return offset_active[..., off.clamp(0, nb - 1)] & valid
 
 
+def a_shape_block_mask(nb: int, sink_blocks: int, local_blocks: int, *,
+                       device=None) -> torch.Tensor:
+    """MInference's "A-shape": attention-sink columns plus a local window."""
+    return sliding_window_block_mask(nb, local_blocks, sink_blocks,
+                                     device=device)
+
+
 def block_mask_density(mask: torch.Tensor) -> torch.Tensor:
     """Fraction of *causal* blocks that are computed, per leading index."""
     nb_q, nb_kv = mask.shape[-2:]
     causal = causal_block_mask(nb_q, nb_kv, device=mask.device)
     total = causal.sum()
     return (mask & causal).sum(dim=(-2, -1)) / total
+
+
+def expand_block_mask(mask: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Block mask ``(…, NBq, NBkv)`` → token mask ``(…, NBq·bs, NBkv·bs)``."""
+    return mask.repeat_interleave(block_size, dim=-2).repeat_interleave(
+        block_size, dim=-1)
 
 
 def cumulative_topk_mask(scores: torch.Tensor, gamma: float) -> torch.Tensor:
@@ -88,3 +111,30 @@ def cumulative_topk_mask(scores: torch.Tensor, gamma: float) -> torch.Tensor:
     # keep entries strictly before the threshold crossing, plus the crosser
     keep_sorted = (csum - sorted_s) < gamma
     return torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+
+
+def indices_to_mask(indices: torch.Tensor, size: int) -> torch.Tensor:
+    """The paper's index_to_mask: an index set scattered into a ``(size,)``
+    bool mask."""
+    mask = torch.zeros((size,), dtype=torch.bool, device=indices.device)
+    mask[indices.long()] = True
+    return mask
+
+
+def active_block_table(mask: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-q-block active kv-block lists of a ``(NBq, NBkv)`` mask, on the
+    host (numpy in and out): ``(indices, counts)`` with ``indices[i,
+    :counts[i]]`` the kv blocks of row i, padded with the row's last index
+    (block 0 for an empty row) and at least one column wide."""
+    mask = np.asarray(mask, bool)
+    nb_q = mask.shape[0]
+    counts = mask.sum(axis=1).astype(np.int32)
+    width = int(max(counts.max(), 1))
+    indices = np.zeros((nb_q, width), dtype=np.int32)
+    for i in range(nb_q):
+        idx = np.nonzero(mask[i])[0]
+        if len(idx) == 0:
+            idx = np.array([0])
+        indices[i, :len(idx)] = idx
+        indices[i, len(idx):] = idx[-1]
+    return indices, counts

@@ -47,6 +47,7 @@ from repro_torch.kernels import (
     compute_strips,
     sparse_attention_fn,
 )
+from repro_torch.kernels.ops import gqa_head_vmap  # noqa: F401 (re-export)
 
 # batched AttentionFn (fn.batched = True): (q (B,H,N,D), k (B,Hkv,N,D),
 # v (B,Hkv,N,Dv), masks (B,H,NB,NB), stats_gate=(B,H)) -> (out, Ã)

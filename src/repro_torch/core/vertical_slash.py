@@ -4,7 +4,8 @@
 From a (bs, N) strip of attention scores, vertical (column) and slash
 (diagonal) directions are summed, normalized, and the minimal sets covering
 mass γ are selected, quantized to block columns / block diagonals, and
-expanded into a causal block mask.
+expanded into a causal block mask.  :func:`search_vertical_slash_pattern`
+is the reference's single-head form, from q and k.
 """
 from __future__ import annotations
 
@@ -15,6 +16,10 @@ from repro_torch.core.patterns import (
     slash_block_mask,
     vertical_block_mask,
 )
+# the strip lives with its kernel (re-exported, as in the reference); the
+# kernels package does not depend on repro_torch.core
+from repro_torch.kernels.strip import compute_strips
+from repro_torch.kernels.strip import strip_scores  # noqa: F401
 
 
 def vertical_slash_direction_scores(a_hat: torch.Tensor):
@@ -60,3 +65,16 @@ def search_vertical_slash_from_strip(a_hat: torch.Tensor, gamma: float,
     col_active[..., 0] = True
     return (vertical_block_mask(nb, col_active)
             | slash_block_mask(nb, off_active))
+
+
+def search_vertical_slash_pattern(q: torch.Tensor, k: torch.Tensor,
+                                  gamma: float,
+                                  block_size: int) -> torch.Tensor:
+    """Algorithm 5 for one head (q, k: ``(N, D)``): the strip of the last
+    query block (the strip kernel for CUDA tensors, its plain version for
+    CPU tensors), then :func:`search_vertical_slash_from_strip` →
+    ``(NB, NB)`` causal block mask."""
+    strip = compute_strips(q[None, None].contiguous(),
+                           k[None, None].contiguous(),
+                           block_size=block_size)[0, 0]
+    return search_vertical_slash_from_strip(strip, gamma, block_size)

@@ -63,6 +63,7 @@ from repro_torch.kernels.ops import (
     batched_block_sparse_attention,
     block_sparse_attention,
     expand_kv,
+    gqa_head_vmap,
     make_attention_fn,
 )
 from repro_torch.kernels.ref import (
@@ -171,7 +172,7 @@ __all__ = [
     "flash_decode_plan", "flash_decode_sparse", "flash_decode_sparse_batched",
     "flash_decode_sparse_cuda", "flash_decode_sparse_paged_cuda",
     "flash_decode_sparse_plain", "flash_decode_sparse_single_cuda",
-    "launch_counts", "make_attention_fn", "reset_launch_counts",
+    "gqa_head_vmap", "launch_counts", "make_attention_fn", "reset_launch_counts",
     "resolve_decode_impl", "scatter_block_stats", "sparse_attention_fn",
     "strip_scores", "strip_scores_cuda", "table_block_mask",
 ]

@@ -1,8 +1,8 @@
-"""Wrappers around the attention kernels: table staging, GQA expansion,
+"""Wrappers around the attention kernels: table staging, GQA helpers,
 and the per-sample AttentionFn behind ``attn_impl="kernel"`` / ``"ref"``."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -14,6 +14,22 @@ from repro_torch.kernels.block_sparse_attn import (
 from repro_torch.kernels.indices import compact_block_mask, scatter_block_stats
 
 BLOCK_SPARSE_IMPLS = ("kernel", "ref")
+
+
+def gqa_head_vmap(fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+                  q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``fn(q_head, kv_head)`` over the query heads without repeating K:
+    q is ``(H, …)``, k ``(Hkv, …)``, and query head h reads kv head
+    ``h // (H // Hkv)`` (each kv head shared, not copied, across its
+    group); the results come back stacked over H.  A loop over heads: it
+    serves the per-head API and the tests, while the model's path builds
+    every head in one batched op."""
+    h, h_kv = q.shape[0], k.shape[0]
+    if h % h_kv:
+        raise ValueError(f"{h} query heads do not group over {h_kv} kv "
+                         "heads")
+    group = h // h_kv
+    return torch.stack([fn(q[i], k[i // group]) for i in range(h)])
 
 
 def expand_kv(k: torch.Tensor, v: torch.Tensor, num_q_heads: int

@@ -1,11 +1,13 @@
 """GQA attention layer: prefill and decode (port of
-``repro/models/attention.py`` for ``method in ("dense", "share")``).
+``repro/models/attention.py``).
 
-Prefill ``method="share"`` runs SharePrefill through the block-sparse
-kernels whenever pattern sharing applies to the sequence length; ``dense``,
-and lengths it does not apply to, attend densely (plain PyTorch).  The
-baseline policies (``vertical_slash``, ``flex``) come with a later slice
-(ROADMAP.md queue A.3).
+Prefill ``method`` is the pattern policy: ``share`` runs SharePrefill
+through the block-sparse kernels whenever pattern sharing applies to the
+sequence length; the paper's baselines ``vertical_slash`` (MInference) and
+``flex`` (FlexPrefill) build their masks per head
+(:mod:`repro_torch.core.baselines`) and run the same block-sparse kernels,
+with no dictionary and no Ã; ``dense``, and lengths pattern sharing does
+not apply to, attend densely (plain PyTorch).
 
 ``attn_impl`` picks the attention function:
   * ``auto`` and ``sparse``: the batched path, one launch per layer for the
@@ -30,7 +32,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
-from repro_torch.core.patterns import segment_block_mask
+from repro_torch.core.baselines import baseline_block_masks
+from repro_torch.core.patterns import (block_mask_density, causal_block_mask,
+                                       segment_block_mask)
 from repro_torch.kernels import (
     batched_sparse_attention_fn,
     cap_block_mask,
@@ -42,7 +46,7 @@ from repro_torch.kernels.decode_attn import (
     DecodePlan, flash_decode_plan, flash_decode_plan_paged, gather_pages)
 from repro_torch.models import common
 
-PREFILL_METHODS = ("dense", "share")
+PREFILL_METHODS = ("dense", "share", "vertical_slash", "flex")
 PREFILL_ATTN_IMPLS = ("auto", "sparse", "chunked", "ref", "kernel")
 
 
@@ -111,9 +115,10 @@ ROW_ATTN_IMPLS = ("sparse", "chunked")
 class LayerStage(NamedTuple):
     """What :func:`attention_prefill_begin` stages for the attention rows
     and :func:`attention_prefill_end`: post-rope q ``(B, H, S, D)``, k/v
-    ``(B, Hkv, S, D)`` and, where pattern sharing applies, the masks
-    ``(B, H, NB, NB)``, the decision, the stats gate ``(B, H)`` and, for
-    the batched kernel, the head permutation."""
+    ``(B, Hkv, S, D)`` and, where a sparse method applies, the masks
+    ``(B, H, NB, NB)`` and the stats gate ``(B, H)``; for ``share`` also
+    the decision and, for the batched kernel, the head permutation (a
+    baseline stages neither, and a gate of zeros: it consumes no Ã)."""
     q: torch.Tensor
     k: torch.Tensor
     v: torch.Tensor
@@ -125,8 +130,8 @@ class LayerStage(NamedTuple):
 
 def _qkv_rope(params, x, cfg: ModelConfig, positions, method: str):
     if method not in PREFILL_METHODS:
-        raise ValueError(f"unknown prefill method {method!r}; the port has "
-                         f"{PREFILL_METHODS} (baselines: ROADMAP.md A.3)")
+        raise ValueError(f"unknown prefill method {method!r}; expected one "
+                         f"of {PREFILL_METHODS}")
     q, k, v = common.gqa_qkv(params, x)
     q, k = rope_qk(q, k, positions, cfg)
     return q, k, v
@@ -139,16 +144,27 @@ def attention_prefill_begin(
     seg_blocks: Optional[int] = None,
 ) -> LayerStage:
     """QKV, rope and the full-length mask staging (strips, decision,
-    dictionary lookup, head permutation) of one layer: the ops whose inputs
-    cannot be cut into query rows without changing the masks.
-    ``seg_blocks`` ANDs the block-diagonal segment mask of a packed row of
-    ``seg_blocks``-block segments into the masks."""
+    dictionary lookup, head permutation; a baseline's masks) of one layer:
+    the ops whose inputs cannot be cut into query rows without changing the
+    masks.  ``seg_blocks`` ANDs the block-diagonal segment mask of a packed
+    row of ``seg_blocks``-block segments into the masks."""
     q, k, v = _qkv_rope(params, x, cfg, positions, method)
     n = x.shape[1]
     if method == "dense" or not sp.applicable(n):
         return LayerStage(q, k, v)
+    bs = prefill_block_size(sp, n)
+    nb = n // bs
     extra = (None if seg_blocks is None else segment_block_mask(
-        n // prefill_block_size(sp, n), seg_blocks, device=x.device))
+        nb, seg_blocks, device=x.device))
+    if method != "share":
+        masks = baseline_block_masks(method, q, k, gamma=sp.cfg.gamma,
+                                     block_size=bs)
+        masks = masks & causal_block_mask(nb, device=x.device)
+        if extra is not None:
+            masks = masks & extra
+        gate = torch.zeros(masks.shape[:2], dtype=torch.int32,
+                           device=x.device)
+        return LayerStage(q, k, v, masks, gate=gate)
     masks, decision = sa.build_share_masks(q, k, sp_state, cluster_ids,
                                            sp.cfg, extra)
     perm = None
@@ -165,11 +181,12 @@ def attention_prefill_rows(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention output of the query blocks ``[chunk_start, chunk_start +
     chunk_blocks)`` (to the end when ``chunk_blocks`` is None) against the
-    FULL K/V, with their Ã rows where masks are staged.  The batched
-    kernel launches at ``q_block_offset = chunk_start`` with the staged
-    head permutation and stats gate; its per-row arithmetic depends on the
-    row's tables alone, so chunks assemble bitwise into the whole launch.
-    Returns ``(out (B, H, cn, Dv), Ã (B, H, cnb, NB) | None)``."""
+    FULL K/V, with their Ã rows where ``share`` staged masks (a baseline
+    consumes no Ã: None).  The batched kernel launches at
+    ``q_block_offset = chunk_start`` with the staged head permutation (a
+    baseline has none) and stats gate; its per-row arithmetic depends on
+    the row's tables alone, so chunks assemble bitwise into the whole
+    launch.  Returns ``(out (B, H, cn, Dv), Ã (B, H, cnb, NB) | None)``."""
     q, k, v = stage.q, stage.k, stage.v
     bs = prefill_block_size(sp, q.shape[2])
     off = chunk_start * bs
@@ -185,9 +202,13 @@ def attention_prefill_rows(
             f"attention over query rows supports attn_impl "
             f"{ROW_ATTN_IMPLS}, got {impl!r}")
     m_c = stage.masks[:, :, chunk_start:stop]
+    baseline = stage.decision is None
     if impl == "sparse":
         fn = batched_sparse_attention_fn(block_size=bs, width=attn_width,
                                          q_block_offset=chunk_start)
+        if baseline:
+            out, _ = fn(q_c.contiguous(), k, v, m_c, stats_gate=stage.gate)
+            return out, None
         return sa.head_permuted_attention(fn, q_c, k, v, m_c, stage.gate,
                                           stage.perm)
     # "chunked": dense attention under the masks, sample by sample, every
@@ -202,12 +223,23 @@ def attention_prefill_rows(
             block_mask=m_c[i][None], collect_stats=True, q_offset=off)
         outs.append(o[0])
         ats.append(at[0])
-    return torch.stack(outs), torch.stack(ats)
+    return torch.stack(outs), None if baseline else torch.stack(ats)
 
 
 def _attn_stats(ls: sa.LayerStats) -> AttnStats:
     return AttnStats(ls.num_shared, ls.num_dense, ls.num_vs,
                      ls.block_density, ls.max_row_pop)
+
+
+def baseline_stats(masks: torch.Tensor) -> AttnStats:
+    """A baseline layer's stats from its masks ``(B, H, NB, NB)``: no
+    shared or dense-construction heads, ``num_vs = H``, the mean density
+    and the largest row population."""
+    z = torch.zeros((), device=masks.device)
+    return AttnStats(z, z, torch.tensor(float(masks.shape[1]),
+                                        device=masks.device),
+                     block_mask_density(masks).float().mean(),
+                     masks.float().sum(dim=-1).max())
 
 
 def attention_prefill_end(
@@ -217,9 +249,13 @@ def attention_prefill_end(
     """The dictionary update from the assembled Ã and the layer's stats:
     ``(new sp_state, stats)``.  Many small ops: a caller that synchronises
     after the layer enqueues the layer's gemms first, so the device runs
-    them while the host issues these."""
+    them while the host issues these.  A baseline leaves ``sp_state``
+    untouched and reports every head as vertical-slash, as the reference
+    does."""
     if stage.masks is None:
         return sp_state, AttnStats.zero(stage.q.device)
+    if stage.decision is None:
+        return sp_state, baseline_stats(stage.masks)
     sp_state = sa.update_share_state(a_tilde, sp_state, cluster_ids,
                                      stage.decision, sp.cfg)
     return sp_state, _attn_stats(
@@ -242,12 +278,15 @@ def attention_prefill(
            AttnStats]:
     """One-shot prefill attention: :func:`attention_prefill_begin`, the
     rows of every query block, :func:`attention_prefill_end` (the pieces
-    chunked prefill runs in quanta); the per-sample ``kernel``/``ref``
-    paths run the layer sample by sample instead.  Returns ``(out (B, S,
-    d), (k, v) (B, Hkv, S, hd), new sp_state, stats)``."""
+    chunked prefill runs in quanta).  The per-sample ``kernel``/``ref``
+    paths run the attention sample by sample instead: ``share`` its whole
+    layer, a baseline the attention function on each sample's masks (the
+    reference's ``vmap``).  Returns ``(out (B, S, d), (k, v) (B, Hkv, S,
+    hd), new sp_state, stats)``."""
     n = x.shape[1]
-    if (resolved_attn_impl(attn_impl) not in ROW_ATTN_IMPLS
-            and method == "share" and sp.applicable(n)):
+    per_sample = (resolved_attn_impl(attn_impl) not in ROW_ATTN_IMPLS
+                  and method != "dense" and sp.applicable(n))
+    if per_sample and method == "share":
         attention_fn = resolve_attention_fn(
             attn_impl, prefill_block_size(sp, n), width=attn_width)
         q, k, v = _qkv_rope(params, x, cfg, positions, method)
@@ -258,8 +297,17 @@ def attention_prefill(
     stage = attention_prefill_begin(
         params, x, cfg, positions, method=method, sp=sp, sp_state=sp_state,
         cluster_ids=cluster_ids, attn_impl=attn_impl)
-    out, a_tilde = attention_prefill_rows(sp, stage, attn_impl=attn_impl,
-                                          attn_width=attn_width)
+    if per_sample:
+        attention_fn = resolve_attention_fn(
+            attn_impl, prefill_block_size(sp, n), width=attn_width)
+        out = torch.stack([
+            attention_fn(stage.q[i], stage.k[i], stage.v[i],
+                         stage.masks[i])[0]
+            for i in range(x.shape[0])])
+        a_tilde = None
+    else:
+        out, a_tilde = attention_prefill_rows(sp, stage, attn_impl=attn_impl,
+                                              attn_width=attn_width)
     sp_state, stats = attention_prefill_end(stage, a_tilde, sp=sp,
                                             sp_state=sp_state,
                                             cluster_ids=cluster_ids)

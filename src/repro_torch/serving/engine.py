@@ -4,14 +4,16 @@ the continuous-batching slot scheduler.
 ``scheduler=False`` (the default) serves batch-at-a-time: requests are
 grouped by sequence bucket and served ``max_batch`` at a time; prompts are
 left-aligned and right-padded to the bucket, the padded batch is prefilled
-once (SharePrefill sparse prefill with ``method="share"``), and the batch
-then decodes in lockstep until every row has its tokens or a stop token.
-Per-request prompt lengths are threaded into prefill (each row's first
-token comes from its own last prompt token) and into every decode step as
-slot validity (right-pad K/V is never attended).  With
-``decode_sparse=True`` the prefill pattern dictionaries are compiled into a
+once under ``EngineConfig.method`` (SharePrefill, a baseline or dense),
+and the batch then decodes in lockstep until every row has its tokens or a
+stop token.  Per-request prompt lengths are threaded into prefill (each
+row's first token comes from its own last prompt token) and into every
+decode step as slot validity (right-pad K/V is never attended).  With
+``decode_sparse=True`` and ``method="share"`` the prefill pattern
+dictionaries are compiled into a
 :class:`~repro_torch.kernels.decode_attn.DecodePlan` once per batch, and
-every decode step streams only the plan's blocks.
+every decode step streams only the plan's blocks; other methods decode
+densely.
 
 ``scheduler=True`` serves each bucket through a
 :class:`~repro_torch.serving.scheduler.SlotScheduler`: ``max_batch`` slots
