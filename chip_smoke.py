@@ -87,7 +87,26 @@ run on error:
      and its block attention maps; ``Model.prefill`` of one 32768-token
      prompt for the four methods (the second of two runs each); one
      layer's dense attention at 8192 through the plain chunked path and
-     through ``scaled_dot_product_attention``.
+     through ``scaled_dot_product_attention``;
+ 12. decode-pattern refresh, the request lifecycle and the width policies
+     on llama3-8b-262k at full width, launch counts reset just before and
+     read just after each serve: two requests (8192 and 2048 prompt
+     tokens, 300 greedy tokens) through the paged scheduler with
+     ``refresh_every=128`` and with frozen plans — the strip (B.1) and
+     paged decode (B.4) launches exactly as predicted from the refresh
+     positions, each request's logits bitwise the frozen serve's until its
+     first refresh, and the first refreshed row rebuilt by the plain path
+     on the CPU from the same window and pages (keep blocks differing in at
+     most 0.1 %); phase 6's requests under ``NaNLogits``, ``PrefillError``,
+     ``CancelAt``, a deadline and preemption, one-shot on phase 6's pool
+     and chunked on a pool of one request per bucket (a cancel aborts a
+     run between quanta): every fault ends only its request, the resumed
+     and untouched requests' tokens bitwise those of phase 6's serve, no
+     page leaked; two successive batch serves of phase 4's requests under
+     ``width_policy="count"`` and ``"auto"`` (uncapped, then at the frozen
+     cap, whose layer-0 B.2 tables are ``cap_block_mask`` of the uncapped
+     masks).  ``python3 chip_smoke.py --phase 12`` builds the kernels and
+     runs this phase alone, printing no result line.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -710,7 +729,7 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
             bound_ms=db[0], bound_by=db[1], library_ms=lib,
             device_ms=device_ms(lambda: flash_decode_sparse_cuda(
                 qd, ck, cv, idx, cnt, keep, valid), 20),
-            splits=decode_splits(b, hkv, idx.shape[-1], sm_count(dev)))
+            splits=decode_splits(b, hkv, keep.shape[2], sm_count(dev)))
         for name in ("strip", "block_sparse_attn", "decode_attn"):
             r = res[name]
             split = (f", {r['splits']} splits x {b * hkv} rows, device "
@@ -754,9 +773,9 @@ class LogitProbe:
         return result
 
     def decode(self, *args, **kwargs):
-        logits, cache = self.model.decode(*args, **kwargs)
-        self._record(logits)
-        return logits, cache
+        out = self.model.decode(*args, **kwargs)
+        self._record(out[0])            # (logits, cache[, queries])
+        return out
 
     def __getattr__(self, name):        # the rest of the model's API
         return getattr(self.model, name)
@@ -1128,7 +1147,7 @@ def check_paged_decode(model, params, prompts) -> dict:
             bound_ms=pb[0], bound_by=pb[1], library_ms=lib,
             device_ms=device_ms(lambda: flash_decode_sparse_paged_cuda(
                 q, pool_k, pool_v, table, idx, cnt, keep, valid), 20),
-            splits=decode_splits(4, hkv, idx.shape[-1], sm_count(dev)))
+            splits=decode_splits(4, hkv, keep.shape[2], sm_count(dev)))
         print(f"  decode_attn_paged bf16: {res['ms']:.4f} ms (contiguous "
               f"kernel on the gathered pages {res['contiguous_ms']:.4f}, "
               f"plain {res['plain_ms']:.4f}, bound {res['bound_ms']:.5f} "
@@ -1158,10 +1177,13 @@ class PrefillProbe(LogitProbe):
         return result
 
 
-def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
+def scheduler_serve(model, params, prompts, news, faults=None,
+                    fields=None, **ecfg) -> dict:
     """One serve of the phase-6 requests through the slot scheduler,
     launch counts reset just before and read just after; every paged
-    serve's allocator is kept for its audit."""
+    serve's allocator is kept for its audit.  ``faults`` is the serve's
+    fault injector, ``fields`` sets request fields ``{index: {name:
+    value}}``."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import (EngineConfig, Request, ServingEngine,
@@ -1174,6 +1196,9 @@ def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
                         EngineConfig(**{**base, **ecfg}))
     reqs = [Request(uid=i, prompt=p, max_new_tokens=m)
             for i, (p, m) in enumerate(zip(prompts, news))]
+    for i, f in (fields or {}).items():
+        for name, value in f.items():
+            setattr(reqs[i], name, value)
     allocs = []
     summary = SlotScheduler._pool_summary
     complete = SlotScheduler._complete_run
@@ -1201,7 +1226,7 @@ def scheduler_serve(model, params, prompts, news, **ecfg) -> dict:
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.time()
-        eng.serve(reqs)
+        eng.serve(reqs, faults=faults)
         torch.cuda.synchronize()
         wall = time.time() - t0
         counts = launch_counts()
@@ -2235,6 +2260,414 @@ def serve_baselines(model, params, prompts, paged_prompts, layers: int,
     return launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+# the refresh serve: two prompts of the two buckets, REFRESH_NEW greedy
+# tokens each, a refresh every block (both slots reach block boundaries
+# together: 128 and 256 steps after admission, two refreshes each)
+REFRESH_PROMPTS = (8192, 2048)
+REFRESH_NEW = 300
+REFRESH_EVERY = 128
+REFRESH_MASS = 0.95
+# keep blocks the card's first refreshed row may differ in from the CPU's
+REFRESH_ROW_TOL = 1e-3
+# the chunked lifecycle serve's pool: one 8192-bucket and one 2048-bucket
+# admission (65 + 17 pages) and the null page, so admissions starve
+LIFECYCLE_CHUNKED_PAGES = 83
+# the lifecycle serves' deadline for r5: it passes while r5 waits behind
+# the first admissions (three one-shot prefills take about 1 s)
+LIFECYCLE_DEADLINE_S = 0.5
+# the width-policy serves: a safety factor below 1, so that the resolved
+# cap truncates rows (random weights keep most blocks: at 1.25 both
+# policies resolve to NB, uncapped)
+WIDTH_SAFETY = 0.5
+
+
+class StepProbe(LogitProbe):
+    """:class:`LogitProbe` keeping the decode steps' logits apart."""
+
+    def __init__(self, model):
+        super().__init__(model)
+        self.steps = []
+
+    def decode(self, *args, **kwargs):
+        out = super().decode(*args, **kwargs)
+        self.steps.append(self.logits[-1])
+        return out
+
+
+def refresh_serve(model, params, prompts, every: int) -> dict:
+    """One serve of the refresh requests, ``refresh_every=every`` (0:
+    frozen plans), launch counts reset just before and read just after.
+    Records each request's decode steps before its first refresh, and the
+    inputs and result of the first refreshed row built."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (EngineConfig, Request, ServingEngine,
+                                     SlotScheduler)
+    from repro_torch.serving import decode_plan as dplan
+
+    probe = StepProbe(model)
+    eng = ServingEngine(probe, params, model.default_share_prefill(),
+                        EngineConfig(method="share", decode_sparse=True,
+                                     paged=True, max_batch=2,
+                                     seq_buckets=(SHORT, SEQ),
+                                     refresh_every=every,
+                                     refresh_mass=REFRESH_MASS))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=REFRESH_NEW)
+            for i, p in enumerate(prompts)]
+    first, row = {}, {}
+    refresh_slot = SlotScheduler._refresh_slot
+    build = dplan.build_refresh_plan_row
+    allocs = []
+    summary = SlotScheduler._pool_summary
+
+    def refreshed(self, slot, s, st, pos):
+        first.setdefault(s.req.uid, (slot, len(probe.steps)))
+        refresh_slot(self, slot, s, st, pos)
+
+    def built(q_hat, pool_k, table, cfg, **kw):
+        out = build(q_hat, pool_k, table, cfg, **kw)
+        if not row:
+            pages = table[: kw["num_blocks"]].long()
+            row.update(window=q_hat.cpu(), pages=pool_k[:, pages].cpu(),
+                       kw=kw, row=[x.cpu() for x in out])
+        return out
+
+    def audited(self):
+        summary(self)
+        allocs.append(self.alloc)
+
+    SlotScheduler._refresh_slot = refreshed
+    SlotScheduler._pool_summary = audited
+    dplan.build_refresh_plan_row = built
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.time()
+        eng.serve(reqs)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = launch_counts()
+    finally:
+        SlotScheduler._refresh_slot = refresh_slot
+        SlotScheduler._pool_summary = summary
+        dplan.build_refresh_plan_row = build
+    steps = eng.slot_steps // eng.ecfg.max_batch
+    label = f"refresh_every={every}" if every else "frozen plans"
+    print(f"refresh serve ({label}): {len(reqs)} requests in {wall:.3f} s, "
+          f"{steps} decode steps, decode step "
+          f"{1e3 * eng.phase_s['decode'] / max(steps, 1):.2f} ms (mean), "
+          f"phase_s " + json.dumps({k: round(v, 4)
+                                    for k, v in eng.phase_s.items()})
+          + f"; refresh_stats {json.dumps(eng.refresh_stats)}; launches "
+          f"{counts}", flush=True)
+    for r in reqs:
+        print(f"  request {r.uid}: prompt {len(r.prompt)} "
+              f"{r.finish_reason} {len(r.output_tokens)} tokens refreshes "
+              f"{r.refreshes} tail_fraction {r.tail_fraction:.4f} "
+              f"plan_traffic_fraction {r.plan_traffic_fraction:.4f} "
+              f"decode_tokens_per_s {r.decode_tokens_per_s:.3f}", flush=True)
+        if r.finish_reason != "length" or \
+                len(r.output_tokens) != REFRESH_NEW:
+            raise AssertionError(f"refresh serve: request {r.uid} "
+                                 f"{r.finish_reason}")
+    if eng.page_pool_stats["pages_in_use_at_end"] != 0:
+        raise AssertionError(f"refresh serve: pages leaked "
+                             f"{eng.page_pool_stats}")
+    for alloc in allocs:
+        alloc.check_consistency()
+    if not all(bool(torch.isfinite(x).all()) for x in probe.logits):
+        raise AssertionError("refresh serve: non-finite logits")
+    return dict(eng=eng, reqs=reqs, counts=counts, steps=probe.steps,
+                first=first, row=row, wall=wall, nsteps=steps)
+
+
+def check_refresh(model, params, layers: int) -> dict:
+    """Phase 12, part 1: the refresh serve beside the frozen serve."""
+    import torch
+    from repro_torch.kernels.decode_attn import DecodePlan
+    from repro_torch.serving import decode_plan as dplan
+
+    rng = np.random.default_rng(SEED + 12)
+    prompts = [rng.integers(0, model.cfg.vocab_size, n)
+               for n in REFRESH_PROMPTS]
+    # predicted from the refresh positions: a slot admitted at a block
+    # boundary refreshes once its window is full and its cadence is due,
+    # at 128, 256, ... decode steps, while it still decodes (its last
+    # step, the 299th, vacates it first)
+    refreshes = len(prompts) * ((REFRESH_NEW - 2) // REFRESH_EVERY)
+    steps = REFRESH_NEW - 1
+    want_off = {"strip": layers * len(prompts),
+                "block_sparse_attn": layers * len(prompts),
+                "decode_attn_paged": layers * steps}
+    want_on = dict(want_off, strip=layers * (len(prompts) + refreshes))
+    print(f"  predicted launches: frozen {want_off}; refresh {want_on} "
+          f"({refreshes} refreshes of {layers} strip launches)",
+          flush=True)
+    # frozen, refresh, frozen again: the first frozen serve warms the
+    # card up and is the bitwise reference, the second is the one the
+    # refresh serve's step time is compared with (taken in turns), and
+    # the two frozen serves must be bitwise equal (run-to-run determinism)
+    off = refresh_serve(model, params, prompts, 0)
+    on = refresh_serve(model, params, prompts, REFRESH_EVERY)
+    off2 = refresh_serve(model, params, prompts, 0)
+    _expect_counts("frozen serve", off["counts"], want_off)
+    _expect_counts("refresh serve", on["counts"], want_on)
+    _expect_counts("second frozen serve", off2["counts"], want_off)
+    again = (all(torch.equal(a, b) for a, b in zip(off["steps"],
+                                                    off2["steps"]))
+             and all(a.output_tokens.tolist() == b.output_tokens.tolist()
+                     for a, b in zip(off["reqs"], off2["reqs"])))
+    print(f"  the two frozen serves bitwise equal (every step's logits and "
+          f"every token): {again}", flush=True)
+    if not again:
+        raise AssertionError("two frozen serves of the same requests "
+                             "differ")
+    got = sum(r.refreshes for r in on["reqs"])
+    if got != refreshes or on["eng"].refresh_stats["refreshes"] != got:
+        raise AssertionError(f"refreshes {got}, predicted {refreshes}")
+
+    # bitwise the frozen serve until each slot's first refresh
+    for r_on, r_off in zip(on["reqs"], off["reqs"]):
+        slot, k = on["first"][r_on.uid]
+        same = all(torch.equal(a[slot], b[slot])
+                   for a, b in zip(on["steps"][:k], off["steps"][:k]))
+        toks = (r_on.output_tokens[:k + 1].tolist()
+                == r_off.output_tokens[:k + 1].tolist())
+        later = next((t for t, (x, y) in enumerate(zip(
+            r_on.output_tokens.tolist(), r_off.output_tokens.tolist()))
+            if x != y), None)
+        print(f"  request {r_on.uid}: first refresh after {k} decode "
+              f"steps; logits of those steps bitwise the frozen serve's "
+              f"{same}, tokens {toks}; streams first differ at token "
+              f"{later}", flush=True)
+        if not (same and toks):
+            raise AssertionError(f"request {r_on.uid}: the refresh serve "
+                                 "left the frozen serve before its first "
+                                 "refresh")
+
+    # the first refreshed row, built again by the plain path on the CPU
+    # from the same window and pages
+    cap = on["row"]
+    t0 = time.time()
+    kw = dict(cap["kw"])
+    nblk = kw["num_blocks"]
+    cpu = dplan.build_refresh_plan_row(
+        cap["window"], cap["pages"], torch.arange(nblk, dtype=torch.int32),
+        model.cfg, **kw)
+    card = DecodePlan(*cap["row"])
+    flips = int((cpu.keep_heads != card.keep_heads).sum())
+    kept = int(card.keep_heads.sum())
+    frac = flips / max(kept, 1)
+    print(f"  first refreshed row (nblk {nblk}, horizon "
+          f"{kw['horizon_blocks']}): {kept} keep blocks on the card, "
+          f"{int(cpu.keep_heads.sum())} on the CPU, {flips} differ "
+          f"({frac:.2e}, tol {REFRESH_ROW_TOL:.0e}); table counts equal "
+          f"{torch.equal(cpu.counts, card.counts)}; CPU rebuild "
+          f"{time.time() - t0:.1f} s", flush=True)
+    if frac > REFRESH_ROW_TOL:
+        raise AssertionError(f"refreshed row: {flips} of {kept} keep "
+                             "blocks differ between the card and the CPU")
+    step = lambda run: 1e3 * run["eng"].phase_s["decode"] / run["nsteps"]
+    print(f"  mean decode step: refresh serve {step(on):.2f} ms (its "
+          f"{refreshes} refreshes {1e3 * on['eng'].phase_s['refresh']:.1f} "
+          f"ms apart), "
+          f"frozen serves {step(off):.2f} then {step(off2):.2f} ms "
+          f"({nvidia_smi()})", flush=True)
+    return dict(on=on["counts"], off=off["counts"],
+                refresh_s=on["eng"].phase_s["refresh"],
+                step_ms=(step(on), step(off), step(off2)))
+
+
+def check_lifecycle(model, params, prompts, layers: int) -> dict:
+    """Phase 12, part 2: phase 6's requests under faults, a deadline and
+    preemption, one-shot (phase 6's pool) and chunked (a pool of one
+    request per bucket), each against phase 6's serve without them."""
+    import torch
+    from repro_torch.serving import (CancelAt, FaultInjector, NaNLogits,
+                                     PrefillError)
+    from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
+
+    news = [m for _, m in PAGED_REQUESTS]
+    base = scheduler_serve(model, params, prompts, news, paged=True,
+                           num_pages=NUM_PAGES)
+    check_paged_run(base, "unpreempted serve")
+    ref = [r.output_tokens.tolist() for r in base["reqs"]]
+    del base
+    # chunked: r0's run takes steps 1..q, r0 is preempted at q + 1 (r1
+    # starves with r0 decoding) and r1's run takes steps q + 2 .. 2q + 1
+    q = 2 + layers * (2 + SEQ // CHUNK)
+    cancel_step = q + 2 + q // 4
+    cases = {
+        # r2 is the preemption victim (lowest priority): r0-r2 fill the
+        # pool, r3 starves; r5's deadline passes while it waits
+        "one-shot": (dict(num_pages=NUM_PAGES, preempt_after_steps=2),
+                     [NaNLogits(uid=0, at_token=5), PrefillError(uid=4),
+                      CancelAt(uid=3, step=8)],
+                     {2: dict(priority=-1),
+                      5: dict(deadline_s=LIFECYCLE_DEADLINE_S)},
+                     {0: "failed", 3: "cancelled", 4: "failed",
+                      5: "timeout"}),
+        # r1 is cancelled while its chunked run is in flight (q quanta
+        # an 8192 admission): the run aborts between quanta
+        "chunked": (dict(num_pages=LIFECYCLE_CHUNKED_PAGES,
+                         prefill_chunk=CHUNK, preempt_after_steps=2),
+                    [CancelAt(uid=1, step=cancel_step),
+                     NaNLogits(uid=3, at_token=3), PrefillError(uid=4)],
+                    {5: dict(deadline_s=LIFECYCLE_DEADLINE_S)},
+                    {1: "cancelled", 3: "failed", 4: "failed",
+                     5: "timeout"}),
+    }
+    out = {}
+    abort = ChunkedPrefillRun.abort
+    for label, (ecfg, faults, fields, expect) in cases.items():
+        aborts = []
+
+        def counted(self):
+            aborts.append(self.quanta_done)
+            abort(self)
+
+        ChunkedPrefillRun.abort = counted
+        try:
+            run = scheduler_serve(model, params, prompts, news, paged=True,
+                                  faults=FaultInjector(*faults),
+                                  fields=fields, **ecfg)
+        finally:
+            ChunkedPrefillRun.abort = abort
+        eng = run["eng"]
+        print(f"lifecycle serve ({label}): {run['wall']:.3f} s, "
+              f"preemptions {eng.preemptions}, pages_exhausted_steps "
+              f"{eng.pages_exhausted_steps}, run aborts after quanta "
+              f"{aborts}; launches {run['counts']}", flush=True)
+        for r in run["reqs"]:
+            got = r.output_tokens.tolist()
+            want = expect.get(r.uid, "length")
+            if want == "length":
+                ok = got == ref[r.uid]
+            elif r.error is not None and r.error.kind == "prefill":
+                ok = got == []
+            else:
+                ok = got == ref[r.uid][: len(got)] and (
+                    want != "timeout" or got == [])
+            print(f"  request {r.uid}: {r.finish_reason} ({r.state}) "
+                  f"{len(got)} tokens, preempted {r.preempted_count}, "
+                  f"deferred {r.waiting_deferred_steps} steps; tokens "
+                  f"{'bitwise' if want == 'length' else 'a prefix of'} "
+                  f"phase 6's {ok}", flush=True)
+            if r.finish_reason != want or not ok:
+                raise AssertionError(f"lifecycle {label}: request {r.uid} "
+                                     f"{r.finish_reason}, tokens ok {ok}")
+        resumed = [r.uid for r in run["reqs"]
+                   if r.preempted_count and r.finish_reason == "length"]
+        if eng.preemptions < 1 or not resumed:
+            raise AssertionError(f"lifecycle {label}: no preempted request "
+                                 "resumed to its end")
+        if label == "chunked" and not aborts:
+            raise AssertionError("chunked lifecycle: no run aborted")
+        if eng.page_pool_stats["pages_in_use_at_end"] != 0:
+            raise AssertionError(f"lifecycle {label}: pages leaked "
+                                 f"{eng.page_pool_stats}")
+        for alloc in run["allocs"]:
+            alloc.check_consistency()
+        if not all(bool(torch.isfinite(x).all())
+                   for x in run["probe"].logits):
+            raise AssertionError(f"lifecycle {label}: non-finite logits "
+                                 "outside the injected fault")
+        out[label] = dict(wall=run["wall"], preemptions=eng.preemptions,
+                          resumed=resumed, counts=run["counts"])
+    return out
+
+
+def check_width_policies(model, params, prompts, layers: int) -> dict:
+    """Phase 12, part 3: two successive batch serves of phase 4's requests
+    under each width policy; the first prefill runs uncapped, the second
+    under the frozen cap, whose layer-0 B.2 tables must be the uncapped
+    layer-0 masks capped (``cap_block_mask``)."""
+    import torch
+    from repro_torch.kernels import (cap_block_mask, launch_counts,
+                                     reset_launch_counts)
+    from repro_torch.kernels import ops
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    smi = nvidia_smi()
+    stage = ops.compact_block_mask
+    out = {}
+    for policy in ("count", "auto"):
+        eng = ServingEngine(model, params, model.default_share_prefill(),
+                            EngineConfig(method="share", decode_sparse=True,
+                                         max_batch=2, seq_buckets=(SEQ,),
+                                         width_policy=policy,
+                                         width_safety=WIDTH_SAFETY))
+        runs = []
+        for rnd in range(2):
+            staged = []
+
+            def staging(mask, width=None):
+                tables = stage(mask, width=width)
+                if not staged:          # layer 0 of the serve's prefill
+                    staged.append((mask.clone(), width, tables))
+                return tables
+
+            reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+                    for i, p in enumerate(prompts)]
+            ops.compact_block_mask = staging
+            try:
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                eng.serve(reqs)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            finally:
+                ops.compact_block_mask = stage
+            _expect_counts(f"{policy} serve {rnd + 1}", counts, {
+                "strip": layers, "block_sparse_attn": layers,
+                "decode_attn": layers * (NEW_TOKENS - 1)})
+            runs.append(dict(reqs=reqs, staged=staged[0], counts=counts))
+        w = eng._width_frozen.get(SEQ)
+        (m0, w0, _), (m1, w1, (i1, c1)) = runs[0]["staged"], \
+            runs[1]["staged"]
+        if w0 is not None or w is None or w1 != w:
+            raise AssertionError(f"{policy}: widths {w0} then {w1}, "
+                                 f"frozen {w}")
+        same_mask = torch.equal(m0, m1)
+        ci, cc = ops.compact_block_mask(cap_block_mask(m0, w), width=w)
+        tables = torch.equal(i1, ci) and torch.equal(c1, cc)
+        p0, p1 = (r["reqs"][0].prefill_s for r in runs)
+        caps = [r["reqs"][0].pattern_stats["prefill_width_cap"]
+                for r in runs]
+        print(f"width_policy={policy} (width_safety {WIDTH_SAFETY}): "
+              f"resolved W {w} of {SEQ // eng.sp.cfg.block_size}; "
+              f"prefill_s uncapped "
+              f"{p0:.4f}, capped {p1:.4f}; prefill_width_cap {caps}; B.2 "
+              f"launches {[r['counts']['block_sparse_attn'] for r in runs]}"
+              f"; layer-0 masks of the two prefills equal {same_mask}; "
+              f"capped layer-0 B.2 tables equal cap_block_mask of the "
+              f"uncapped masks {tables} ({smi})", flush=True)
+        if not (same_mask and tables):
+            raise AssertionError(f"{policy}: capped tables differ")
+        out[policy] = dict(width=w, prefill_s=(p0, p1))
+    return out
+
+
+def phase12(model, params, prompts, paged_prompts, layers: int) -> None:
+    """Phase 12: decode-pattern refresh, the request lifecycle and the
+    width policies at full width."""
+    import torch
+    print("== phase 12: pattern refresh, lifecycle, width policies",
+          flush=True)
+    t = time.time()
+    refresh = check_refresh(model, params, layers)
+    torch.cuda.empty_cache()
+    life = check_lifecycle(model, params, paged_prompts, layers)
+    torch.cuda.empty_cache()
+    widths = check_width_policies(model, params, prompts, layers)
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.time() - t:.1f} s ({nvidia_smi()}); " + json.dumps(
+        {"refresh": refresh, "lifecycle": life, "width": widths}),
+        flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2274,6 +2707,14 @@ def main() -> int:
         toks[i, :len(p)] = p
     tokens = torch.as_tensor(toks, device="cuda")
     plens = torch.tensor(PROMPT_LENS, device="cuda")
+    layers = cfg.num_layers
+    if sys.argv[1:] == ["--phase", "12"]:
+        # a check of phase 12 alone; it prints no result line
+        rng = np.random.default_rng(SEED + 2)
+        paged_prompts = [rng.integers(0, cfg.vocab_size, n)
+                         for n, _ in PAGED_REQUESTS]
+        phase12(model, params, prompts, paged_prompts, layers)
+        return 0
 
     print("== phase 2: kernels against their plain versions", flush=True)
     res = check_kernels(model, params, tokens, plens)
@@ -2282,7 +2723,6 @@ def main() -> int:
     small_serve_agreement()
     print("== phase 4: full-width serve", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    layers = cfg.num_layers
     batch = serve_full(model, params, prompts, {
         "strip": layers, "block_sparse_attn": layers,
         "decode_attn": layers * (NEW_TOKENS - 1)})
@@ -2364,7 +2804,10 @@ def main() -> int:
                                batch)
     print(f"phase 11: {time.time() - t:.1f} s; launches by run "
           + json.dumps(launches), flush=True)
-    del model, params, batch
+    del batch
+    torch.cuda.empty_cache()
+    phase12(model, params, prompts, paged_prompts, layers)
+    del model, params
     torch.cuda.empty_cache()
 
     rows = []

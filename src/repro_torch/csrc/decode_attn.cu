@@ -22,8 +22,9 @@
 //     tiles of 32 keys; split c takes the contiguous tiles [c * N / splits,
 //     (c + 1) * N / splits) of those N, so chunks differ by at most one
 //     tile and a chunk may be empty.  The wrapper picks `splits` from
-//     (B, Hkv, W) and the SM count (kernels/decode_attn.py::decode_splits),
-//     the same rule for every instance.  Each split keeps the G query heads
+//     (B, Hkv, NB) and the SM count (kernels/decode_attn.py::decode_splits),
+//     the same rule for every instance; never from the table width W, so
+//     a row's split stays when a refresh narrows the table.  Each split keeps the G query heads
 //     of its kv head together (K/V read once for the group) and writes a
 //     partial (m, l, acc) per query head to scratch: an empty chunk writes
 //     (-inf, 0, 0).

@@ -56,6 +56,8 @@ from repro_torch.kernels.indices import (
     build_block_tables,
     cap_block_mask,
     compact_block_mask,
+    ragged_cap_block_mask,
+    ragged_top_mask,
     scatter_block_stats,
     table_block_mask,
 )
@@ -73,6 +75,7 @@ from repro_torch.kernels.ref import (
 )
 from repro_torch.kernels.strip import (
     compute_strips,
+    compute_strips_paged,
     strip_scores,
     strip_scores_cuda,
 )
@@ -166,13 +169,15 @@ __all__ = [
     "block_sparse_attention_single_cuda",
     "block_sparse_attention_single_plain", "build_block_tables",
     "cap_block_mask", "compact_block_mask", "compute_strips",
+    "compute_strips_paged",
     "decode_attention_ref", "decode_block_table", "decode_plan_einsum",
     "decode_plan_einsum_sliced", "dense_attention_ref", "expand_kv",
     "flash_decode", "flash_decode_cuda", "flash_decode_plain",
     "flash_decode_plan", "flash_decode_sparse", "flash_decode_sparse_batched",
     "flash_decode_sparse_cuda", "flash_decode_sparse_paged_cuda",
     "flash_decode_sparse_plain", "flash_decode_sparse_single_cuda",
-    "gqa_head_vmap", "launch_counts", "make_attention_fn", "reset_launch_counts",
+    "gqa_head_vmap", "launch_counts", "make_attention_fn",
+    "ragged_cap_block_mask", "ragged_top_mask", "reset_launch_counts",
     "resolve_decode_impl", "scatter_block_stats", "sparse_attention_fn",
     "strip_scores", "strip_scores_cuda", "table_block_mask",
 ]

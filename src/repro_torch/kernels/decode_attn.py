@@ -59,15 +59,18 @@ SPLIT_CTAS_PER_SM = 4
 GMAX = 16
 
 
-def decode_splits(b: int, hkv: int, w: int, sm_count: int) -> int:
-    """Splits of each (batch, kv head) table row of width ``w`` in the
-    decode kernels: enough CTAs (``splits · b · hkv``) to fill the card's
-    ``sm_count`` SMs :data:`SPLIT_CTAS_PER_SM` times over, at most one per
-    table entry and at least one.  Every instance (plan, paged, token mask)
-    takes this rule, so the paged kernel splits a row as the contiguous one
-    does and stays bitwise equal to it on the gathered pages."""
+def decode_splits(b: int, hkv: int, nb: int, sm_count: int) -> int:
+    """Splits of each (batch, kv head) row of a plan over ``nb`` kv blocks
+    in the decode kernels: enough CTAs (``splits · b · hkv``) to fill the
+    card's ``sm_count`` SMs :data:`SPLIT_CTAS_PER_SM` times over, at most
+    one per block and at least one.  Every instance (plan, paged, token
+    mask) takes this rule, so the paged kernel splits a row as the
+    contiguous one does and stays bitwise equal to it on the gathered
+    pages.  The wrappers pass the plan's block count NB, not its table
+    width: a refresh that narrows the table (``set_plan_width``) then
+    leaves every row's split, and so its rounding, as it was."""
     want = -(-SPLIT_CTAS_PER_SM * sm_count // max(b * hkv, 1))
-    return max(1, min(w, want))
+    return max(1, min(nb, want))
 
 
 @functools.lru_cache(maxsize=None)
@@ -82,10 +85,10 @@ def sm_count(device) -> int:
                      else index)
 
 
-def _decode_scratch(q, b: int, h: int, hkv: int, w: int):
+def _decode_scratch(q, b: int, h: int, hkv: int, nb: int):
     """The split count and the float32 scratch for the splits' partials
     (m and l of ``(B, H, splits)``, acc of ``(B, H, splits, D)``)."""
-    splits = decode_splits(b, hkv, w, sm_count(q.device))
+    splits = decode_splits(b, hkv, nb, sm_count(q.device))
     part = torch.empty(b * h * splits * (q.shape[-1] + 2),
                        dtype=torch.float32, device=q.device)
     return splits, part
@@ -257,7 +260,7 @@ def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
                   (cache_k, cache_v, indices, counts, keep_heads, valid))
     _check_aligned("sparse decode kernel", (cache_k, cache_v))
     out = torch.empty_like(q)
-    splits, part = _decode_scratch(q, b, h, hkv, w)
+    splits, part = _decode_scratch(q, b, h, hkv, nb)
     fn = _build.function("decode_attn", "repro_decode_attn", 9, 9)
     code = fn(_build.ptr(q), _build.ptr(cache_k), _build.ptr(cache_v),
               _build.ptr(indices), _build.ptr(counts),
@@ -372,7 +375,7 @@ def flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table, indices,
                    page_table))
     _check_aligned("paged sparse decode kernel", (pool_k, pool_v))
     out = torch.empty_like(q)
-    splits, part = _decode_scratch(q, b, h, hkv, w)
+    splits, part = _decode_scratch(q, b, h, hkv, nb)
     fn = _build.function("decode_attn", "repro_decode_attn_paged", 10, 10)
     code = fn(_build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v),
               _build.ptr(page_table), _build.ptr(indices),

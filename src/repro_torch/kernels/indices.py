@@ -55,6 +55,33 @@ def cap_block_mask(block_mask: torch.Tensor, width: int) -> torch.Tensor:
     return block_mask & (rank > counts - w)
 
 
+def ragged_top_mask(scores: torch.Tensor,
+                    widths: torch.Tensor) -> torch.Tensor:
+    """(…, NB) scores and (…,) per-row budgets → the bool mask keeping each
+    row's ``widths`` highest-scoring blocks.  Ties break toward the higher
+    block index (the recent band), as the reference's ``lexsort`` does:
+    two stable sorts give its order — index descending, then score
+    descending."""
+    nb = scores.shape[-1]
+    flip = torch.arange(nb - 1, -1, -1, device=scores.device)
+    s = scores.float().index_select(-1, flip)        # index descending
+    order = flip[torch.sort(s, dim=-1, descending=True, stable=True)
+                 .indices]
+    rank = torch.empty_like(order)
+    rank.scatter_(-1, order, torch.arange(nb, device=scores.device)
+                  .expand_as(order).contiguous())
+    return rank < widths[..., None]
+
+
+def ragged_cap_block_mask(block_mask: torch.Tensor,
+                          widths: torch.Tensor) -> torch.Tensor:
+    """Ragged :func:`cap_block_mask`: keep each row's ``widths``
+    highest-index active blocks; rows with fewer actives are unchanged."""
+    counts = block_mask.sum(dim=-1, keepdim=True)
+    rank = torch.cumsum(block_mask.to(torch.int32), dim=-1)
+    return block_mask & (rank > counts - widths[..., None])
+
+
 def table_block_mask(indices: torch.Tensor, counts: torch.Tensor,
                      nb_kv: int) -> torch.Tensor:
     """``(indices, counts)`` → the (…, NBq, NBkv) bool mask of the blocks

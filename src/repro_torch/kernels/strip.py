@@ -12,7 +12,9 @@ masked (strip row r is global query N − block_size + r).
     keys into :func:`strip_chunk`-sized chunks (partial row statistics per
     chunk, then the merged, normalised write);
   * :func:`compute_strips` — the dispatcher: the kernel for CUDA tensors,
-    the plain version for CPU tensors.
+    the plain version for CPU tensors;
+  * :func:`compute_strips_paged` — the dispatcher over one slot's paged KV
+    (decode-pattern refresh).
 
 All three are batched and GQA-native: q ``(B, H, Nq, D)`` with ``Nq ≥ bs``,
 k ``(B, Hkv, N, D)``; query head ``h`` reads kv head ``h // (H // Hkv)``.
@@ -25,6 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attn import gather_pages
 
 
 def strip_scores(q: torch.Tensor, k: torch.Tensor,
@@ -105,3 +108,19 @@ def compute_strips(q: torch.Tensor, k: torch.Tensor, *,
     if q.is_cuda:
         return strip_scores_cuda(q, k, block_size)
     return strip_scores(q, k, block_size)
+
+
+def compute_strips_paged(q_hat: torch.Tensor, pool_k: torch.Tensor,
+                         page_table: torch.Tensor, *, block_size: int,
+                         num_blocks: int) -> torch.Tensor:
+    """:func:`compute_strips` over one slot's paged KV: ``q_hat (H, bs,
+    D)`` is the slot's window of its last ``bs`` decode queries
+    (positions ``[n − bs, n)`` for ``n = num_blocks · bs``), K the first
+    ``num_blocks`` pages of ``page_table (NB,)`` gathered from ``pool_k
+    (P, Hkv, ps, D)``.  The gather moves page contents unchanged, so the
+    strip is the one of the slot's contiguous cache.  Returns ``(H, bs,
+    num_blocks · ps)`` float32: the strip kernel on CUDA tensors (which
+    raises on a ragged tail), the plain version on CPU tensors."""
+    k = gather_pages(pool_k, page_table[None, :num_blocks])
+    return compute_strips(q_hat[None].contiguous(), k,
+                          block_size=block_size)[0]

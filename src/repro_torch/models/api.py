@@ -5,6 +5,7 @@
     params = model.init(torch.Generator("cuda").manual_seed(0))
     result = model.prefill(params, tokens, sp, method="share")
     logits, cache = model.decode(params, token, cache, pos, plan=plan)
+    # collect_queries=True also returns each layer's query (L, B, H, hd)
     # the slot scheduler: per-slot pos (B,), and page_table= for the pool
     # chunked admission runs repro_torch.models.chunked_prefill's quanta
     # where model.prefill_chunk is True
@@ -58,12 +59,13 @@ class Model:
 
     def decode(self, params, token, cache, pos, *, plan=None,
                prompt_lens=None, prefill_len=0, decode_impl: str = "auto",
-               page_table=None):
+               page_table=None, collect_queries: bool = False):
         return transformer.decode_step(params, self.cfg, token, cache, pos,
                                        plan=plan, prompt_lens=prompt_lens,
                                        prefill_len=prefill_len,
                                        decode_impl=decode_impl,
-                                       page_table=page_table)
+                                       page_table=page_table,
+                                       collect_queries=collect_queries)
 
     def init_cache(self, batch: int, cache_len: int, *, dtype=None):
         """Zeroed contiguous cache in ``dtype`` (default: the model's); the

@@ -333,8 +333,10 @@ def attention_decode(
     plan: Optional[DecodePlan] = None,  # this layer's sparse-decode tables
     decode_impl: str = "auto",
     page_table: Optional[torch.Tensor] = None,   # (B, NB) int32
-) -> torch.Tensor:
-    """One decode step; returns ``(B, 1, d)``.
+    return_q: bool = False,
+):
+    """One decode step; returns ``(B, 1, d)``, and with ``return_q`` also
+    the step's post-rope queries ``(B, H, hd)`` (refresh's window capture).
 
     ``pos`` is the cache write index: an int for the lockstep batch path,
     or a ``(B,)`` tensor for the slot scheduler, where each row writes and
@@ -349,15 +351,25 @@ def attention_decode(
     ``page_table`` switches to the block-paged pool: ``cache_k``/``cache_v``
     are then one layer's ``(P, Hkv, page_size, hd)`` pool slice and ``pos``
     must be the per-slot vector (see :func:`_attention_decode_paged`)."""
-    b = x.shape[0]
     q, k, v = common.gqa_qkv(params, x)
     q, k = rope_qk(q, k, positions, cfg)
+    out = _attend_decode(params, q, k, v, cache_k, cache_v, pos,
+                         valid_mask=valid_mask, plan=plan,
+                         decode_impl=decode_impl, page_table=page_table)
+    return (out, q[:, :, 0]) if return_q else out
+
+
+def _attend_decode(params, q, k, v, cache_k, cache_v, pos, *, valid_mask,
+                   plan, decode_impl, page_table) -> torch.Tensor:
+    """:func:`attention_decode` after QKV and rope: the cache append and
+    the attention."""
+    b = q.shape[0]
     if page_table is not None:
         return _attention_decode_paged(
             params, q, k, v, cache_k, cache_v, pos, page_table,
             valid_mask=valid_mask, plan=plan, decode_impl=decode_impl)
     if isinstance(pos, torch.Tensor) and pos.dim():
-        rows = torch.arange(b, device=x.device)    # per-row writes
+        rows = torch.arange(b, device=q.device)    # per-row writes
         cache_k[rows, :, pos] = k[:, :, 0]
         cache_v[rows, :, pos] = v[:, :, 0]
     else:
@@ -365,8 +377,8 @@ def attention_decode(
         cache_v[:, :, pos] = v[:, :, 0]
     s = cache_k.shape[2]
     if valid_mask is None:
-        mask = (torch.arange(s, device=x.device)[None, :]
-                <= row_positions(pos, b, x.device))
+        mask = (torch.arange(s, device=q.device)[None, :]
+                <= row_positions(pos, b, q.device))
     else:
         mask = valid_mask
     if plan is not None:

@@ -133,8 +133,9 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 prefill_len=0,
                 decode_impl: str = "auto",
                 page_table: Optional[torch.Tensor] = None,    # (B, NB)
-                ) -> Tuple[torch.Tensor, Cache]:
-    """One decode step: token (B, 1) → logits (B, V).
+                collect_queries: bool = False,
+                ):
+    """One decode step: token (B, 1) → logits (B, V), and the cache.
 
     ``pos`` is the lockstep write index (an int) or a ``(B,)`` tensor of
     per-slot positions, which then also give each row its rope position;
@@ -143,7 +144,15 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     switches the cache to the block-paged pools ``(L, P, Hkv, ps, hd)``,
     read and appended through the table; the logical cache length is then
     ``page_table.shape[1] · ps``.  The cache is updated in place and
-    returned."""
+    returned.
+
+    ``collect_queries`` also returns every layer's post-rope query
+    ``(L, B, H, hd)`` as a third output (refresh's window capture); it
+    needs a plan, as in the reference.  The logits are those of the step
+    without it."""
+    if collect_queries and plan is None:
+        raise ValueError("collect_queries requires a DecodePlan (the "
+                         "refresh path is sparse paged decode)")
     b = token.shape[0]
     cache_k, cache_v = cache
     if page_table is not None and not (isinstance(pos, torch.Tensor)
@@ -156,14 +165,22 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
         s = (page_table.shape[1] * cache_k.shape[3] if page_table is not None
              else cache_k.shape[3])
         valid = decode_valid_mask(s, pos, prompt_lens, prefill_len)
+    qs = []
     for li, layer in enumerate(params["layers"]):
         h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
         a = attn.attention_decode(
             layer["attn"], h, cfg, cache_k[li], cache_v[li], pos, positions,
             valid_mask=valid, plan=None if plan is None else plan.layer(li),
-            decode_impl=decode_impl, page_table=page_table)
+            decode_impl=decode_impl, page_table=page_table,
+            return_q=collect_queries)
+        if collect_queries:
+            a, q = a
+            qs.append(q)
         x = _ffn_block(layer, x + a, cfg)
-    return logits_from_hidden(params, cfg, x[:, -1, :]), cache
+    logits = logits_from_hidden(params, cfg, x[:, -1, :])
+    if collect_queries:
+        return logits, cache, torch.stack(qs)
+    return logits, cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,

@@ -15,6 +15,14 @@ and each admission splices its own single-row plan in with
 pattern dictionary gets the all-keep :func:`dense_decode_plan` row.  The
 mesh variants (``_sharded``/``_auto``) are the single-device call here
 (ROADMAP.md A.12).
+
+Decode-pattern refresh replaces a slot's row in flight:
+:func:`build_refresh_plan_row` re-estimates it from the slot's paged K/V
+(the strip kernel over gathered pages, ragged per-head budgets, a bounded
+dense horizon), :func:`extend_plan_row_horizon` widens that horizon
+without a strip pass, and :func:`set_plan_width` with
+:func:`bucket_plan_width` keep the live plan's table width at the
+power-of-two bucket of its widest row.
 """
 from __future__ import annotations
 
@@ -164,3 +172,107 @@ def plan_block_counts(plan: DecodePlan) -> Tuple[int, int]:
     batch, kv-head) table rows."""
     nb = plan.keep_heads.shape[-2]
     return plan.counts.numel() * nb, int(plan.counts.sum())
+
+
+def set_plan_width(plan: DecodePlan, width: int) -> DecodePlan:
+    """Re-bucket a plan's table width W without changing what it streams.
+    Widening repeats each row's last entry; narrowing truncates
+    ``indices[…, :width]`` and is refused (one host sync) when a row keeps
+    more than ``width`` blocks.  ``counts`` and ``keep_heads`` stay."""
+    w = plan.indices.shape[-1]
+    if width == w:
+        return plan
+    if width < w:
+        mx = int(plan.counts.max())
+        if width < mx:
+            raise ValueError(
+                f"cannot narrow plan to W={width}: a row keeps {mx} blocks")
+        idx = plan.indices[..., :width]
+    else:
+        idx = torch.cat([plan.indices, plan.indices[..., -1:].expand(
+            plan.indices.shape[:-1] + (width - w,))], dim=-1)
+    return DecodePlan(idx.contiguous(), plan.counts, plan.keep_heads)
+
+
+def bucket_plan_width(need: int, nb: int, *, slack: int = 0) -> int:
+    """The power-of-two width covering ``need + slack`` blocks, clamped to
+    ``[1, nb]``: a refreshed plan takes one of O(log NB) widths."""
+    want = max(1, min(need + slack, nb))
+    w = 1
+    while w < want:
+        w <<= 1
+    return min(w, nb)
+
+
+def build_refresh_plan_row(
+    q_hat: torch.Tensor,          # (L, H, bs, D) captured recent queries
+    pool_k,                       # L layers of (P, Hkv, ps, D) page pools
+    page_table_row: torch.Tensor,  # (NB,) the slot's page map
+    cfg: ModelConfig,
+    *,
+    block_size: int,
+    num_blocks: int,              # live (block-aligned) blocks to re-score
+    table_blocks: int,            # NB of the live batch plan
+    horizon_blocks: int,          # dense lookahead for the next appends
+    mass: float,
+    min_width: int = 1,
+    max_width: Optional[int] = None,
+) -> DecodePlan:
+    """Re-estimate one slot's pattern from its paged KV.
+
+    Per layer, :func:`~repro_torch.kernels.strip.compute_strips_paged`
+    scores the slot's first ``num_blocks`` pages against the query window
+    (the strip kernel on CUDA tensors); the strip is pooled to attention
+    mass per (query head, block), and :func:`~repro_torch.serving.
+    width_policy.score_mass_budgets` with :func:`~repro_torch.kernels.
+    indices.ragged_top_mask` turn it into ragged per-head keep-sets.
+    Blocks ``[num_blocks − 1, num_blocks + horizon_blocks)`` are kept for
+    every head: the local band and the bounded horizon the next appends
+    land in, in place of a frozen row's unbounded dense tail.
+
+    Returns a one-row plan ``(L, 1, Hkv, …)`` at full width ``W ==
+    table_blocks`` (:func:`set_plan_width` re-buckets it)."""
+    from repro_torch.kernels.indices import ragged_top_mask
+    from repro_torch.kernels.strip import compute_strips_paged
+    from repro_torch.serving.width_policy import score_mass_budgets
+
+    num_layers, h = q_hat.shape[:2]
+    hkv = max(cfg.num_kv_heads, 1)
+    g = h // hkv
+    dev = q_hat.device
+    lo = max(0, num_blocks - 1)
+    hi = min(num_blocks + horizon_blocks, table_blocks)
+    cols = torch.arange(table_blocks, device=dev)
+    forced = (cols >= lo) & (cols < hi)
+    per_layer = []
+    for layer in range(num_layers):
+        strips = compute_strips_paged(
+            q_hat[layer], pool_k[layer], page_table_row,
+            block_size=block_size, num_blocks=num_blocks)
+        # softmax rows: sums within blocks (and over the window's rows)
+        # are each head's attention mass per kv block
+        scores = strips.reshape(h, block_size, num_blocks,
+                                block_size).sum(dim=(1, 3))
+        budgets = score_mass_budgets(scores, mass=mass, min_width=min_width,
+                                     max_width=max_width)
+        kh = ragged_top_mask(scores, budgets)            # (H, num_blocks)
+        kh = torch.cat([kh, kh.new_zeros((h, table_blocks - num_blocks))],
+                       dim=-1) | forced[None, :]
+        per_layer.append(kh.reshape(hkv, g, table_blocks))
+    kh = torch.stack(per_layer)[:, None]                 # (L, 1, Hkv, G, NB)
+    indices, counts = compact_block_mask(kh.any(dim=3), width=None)
+    return DecodePlan(indices.contiguous(), counts.contiguous(),
+                      kh.movedim(3, -1).contiguous())
+
+
+def extend_plan_row_horizon(row: DecodePlan, lo: int, hi: int) -> DecodePlan:
+    """Keep blocks ``[lo, hi)`` for every head of one full-width plan row
+    (no strip pass): the cheap extension that keeps a refreshed row's
+    horizon ahead of its appends.  Returns a row with ``W == NB``."""
+    nb = row.keep_heads.shape[-2]
+    cols = torch.arange(nb, device=row.keep_heads.device)
+    forced = (cols >= lo) & (cols < hi)
+    kh = row.keep_heads | forced[:, None]
+    indices, counts = compact_block_mask(kh.any(dim=-1), width=None)
+    return DecodePlan(indices.contiguous(), counts.contiguous(),
+                      kh.contiguous())

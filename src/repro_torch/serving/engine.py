@@ -36,9 +36,19 @@ layer's K/V lands in the slot as soon as it is final
 ``prefill_pack > 1`` packs up to that many same-bucket prompts into one
 run under a block-diagonal segment mask.
 
-Prefix sharing, plan refresh, preemption, deadlines, cancellation, fault
-injection and the ``auto``/``count`` width policies are not ported yet;
-asking for them raises ``NotImplementedError`` naming the ROADMAP.md item.
+The scheduler's request lifecycle: ``serve(handle=)`` takes a
+:class:`~repro_torch.serving.scheduler.SchedulerHandle` whose ``cancel``
+ends a request at the next step, ``Request.deadline_s`` a wall budget from
+arrival, ``preempt_after_steps`` evicts a decoding victim for a queue head
+starved of pages (its tokens carried and replayed on resume), and
+``serve(faults=)`` a :class:`~repro_torch.serving.faults.FaultInjector`.
+``refresh_every`` re-estimates each paged slot's decode pattern from its
+live KV (:mod:`repro_torch.serving.refresh`), and ``width_policy="auto"``
+/ ``"count"`` resolve the prefill width cap per bucket from the first
+prefill's observation (:mod:`repro_torch.serving.width_policy`).  The
+batch path ignores handles, faults, deadlines and preemption, as in the
+reference.  Prefix sharing is not ported yet: asking for it raises
+``NotImplementedError`` naming the ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -60,6 +70,8 @@ from repro_torch.serving import decode_plan as dplan
 from repro_torch.serving.errors import RequestError
 from repro_torch.serving.sampling import SamplingConfig, sample_token
 from repro_torch.serving.scheduler import SlotScheduler
+from repro_torch.serving.width_policy import (auto_width_cap,
+                                              population_width_cap)
 
 logger = logging.getLogger(__name__)
 
@@ -76,12 +88,7 @@ def _refuse_unported(obj, table) -> None:
 # Request fields of the reference that are not ported yet: a value other
 # than the default raises, naming the ROADMAP.md item that ports it
 _REQUEST_NOT_PORTED = {
-    "deadline_s": (0.0, "A.9 (deadlines)"),
-    "priority": (0, "A.9 (preemption)"),
-    "preempted_count": (0, "A.9 (preemption)"),
     "prefix_hit": (False, "A.9 (prefix sharing)"),
-    "refreshes": (0, "A.9 (pattern refresh)"),
-    "resume_tokens": ([], "A.9 (preemption)"),
 }
 
 
@@ -94,8 +101,10 @@ class Request:
         default_factory=SamplingConfig)
     arrival_s: float = 0.0              # arrival offset from serve() start
                                         # (the scheduler admits after it)
-    deadline_s: float = 0.0
-    priority: int = 0
+    deadline_s: float = 0.0             # wall budget from arrival (0: none);
+                                        # past it → finish_reason "timeout"
+    priority: int = 0                   # preemption victim order: lowest
+                                        # first (ties: fewest tokens)
     allow_truncation: bool = True       # False: a prompt longer than the
                                         # largest bucket is rejected
     # filled by the engine:
@@ -109,21 +118,24 @@ class Request:
     prefill_stall_s: float = 0.0        # decode wall time other slots lost
                                         # to this request's admission
     truncated: bool = False             # prompt clipped to the largest bucket
-    finish_reason: str = ""             # "stop" | "length" | "failed" |
-                                        # "rejected"
+    finish_reason: str = ""             # "stop" | "length" | "timeout" |
+                                        # "cancelled" | "failed" | "rejected"
     state: str = "waiting"              # waiting | prefilling | decode |
-                                        # done | failed
+                                        # done | cancelled | failed
     error: Optional[Exception] = None   # the RequestError behind "failed"
                                         # or "rejected"
     waiting_deferred_steps: int = 0     # scheduler steps this request's
                                         # admission waited on pool headroom
-    preempted_count: int = 0
+    preempted_count: int = 0            # evictions (pages reclaimed, tokens
+                                        # carried, re-queued)
     prefix_hit: bool = False
     tail_fraction: float = 0.0          # share of its plan row's streamed
                                         # blocks in the dense decode tail
     plan_traffic_fraction: float = 0.0  # its plan row's streamed-block
                                         # fraction against dense
-    refreshes: int = 0
+    refreshes: int = 0                  # pattern refreshes of its slot
+    # preemption carry: the tokens generated before an eviction, replayed
+    # as forced decode tokens after the resume re-prefills the prompt
     resume_tokens: List[int] = dataclasses.field(default_factory=list)
     pattern_stats: Optional[Dict[str, float]] = None
 
@@ -136,25 +148,17 @@ class Request:
                 "decode_tokens_per_s": self.decode_tokens_per_s,
                 "prefill_stall_s": self.prefill_stall_s,
                 "waiting_deferred_steps": self.waiting_deferred_steps,
+                "preempted_count": self.preempted_count,
                 "tail_fraction": self.tail_fraction,
-                "plan_traffic_fraction": self.plan_traffic_fraction}
+                "plan_traffic_fraction": self.plan_traffic_fraction,
+                "refreshes": float(self.refreshes)}
 
 
 # EngineConfig fields of the reference that are not ported yet: a value
 # other than the default raises, naming the ROADMAP.md item that ports it
 _NOT_PORTED = {
-    "preempt_after_steps": (0, "A.9 (preemption)"),
     "prefix_sharing": (False, "A.9 (prefix sharing)"),
     "prefix_max_entries": (32, "A.9 (prefix sharing)"),
-    "refresh_every": (0, "A.9 (pattern refresh)"),
-    "refresh_mass": (0.95, "A.9 (pattern refresh)"),
-    "refresh_tail_threshold": (0.0, "A.9 (pattern refresh)"),
-    "refresh_min_width": (1, "A.9 (pattern refresh)"),
-    "refresh_horizon_blocks": (0, "A.9 (pattern refresh)"),
-    "refresh_strip_impl": ("auto", "A.9 (pattern refresh)"),
-    "width_policy": ("off", "A.5 (width policies)"),
-    "width_percentile": (95.0, "A.5 (width policies)"),
-    "width_safety": (1.25, "A.5 (width policies)"),
 }
 
 
@@ -169,7 +173,10 @@ class EngineConfig:
     decode_sparse: bool = False         # decode through a DecodePlan
     decode_impl: str = "auto"           # auto | kernel | einsum
     prefill_width: Optional[int] = None  # static per-row block budget W
-    width_policy: str = "off"
+    width_policy: str = "off"           # off: prefill_width | auto: a
+                                        # density percentile | count: the
+                                        # largest row population, resolved
+                                        # per bucket after one prefill
     width_percentile: float = 95.0
     width_safety: float = 1.25
     scheduler: bool = False             # continuous batching over slots
@@ -180,15 +187,23 @@ class EngineConfig:
                                         # scheduler for every bucket
     num_pages: int = 0                  # pool pages incl. the null page;
                                         # 0 = enough for max_batch slots
-    preempt_after_steps: int = 0
+    preempt_after_steps: int = 0        # paged: a queue head starved of
+                                        # pages this many steps evicts a
+                                        # decoding victim (0: never)
     prefix_sharing: bool = False
     prefix_max_entries: int = 32
-    refresh_every: int = 0
-    refresh_mass: float = 0.95
-    refresh_tail_threshold: float = 0.0
+    refresh_every: int = 0              # paged sparse decode: re-estimate
+                                        # a slot's plan row every this many
+                                        # steps at block boundaries (0: off)
+    refresh_mass: float = 0.95          # score mass each head's blocks keep
+    refresh_tail_threshold: float = 0.0  # refresh early once the row's
+                                        # dense-tail share reaches this
     refresh_min_width: int = 1
-    refresh_horizon_blocks: int = 0
-    refresh_strip_impl: str = "auto"
+    refresh_horizon_blocks: int = 0     # dense lookahead after a refresh
+                                        # (0: refresh_every // bs + 1)
+    refresh_strip_impl: str = "auto"    # the reference's strip switch; the
+                                        # port's strip follows the tensors'
+                                        # device
 
     def __post_init__(self):
         _refuse_unported(self, _NOT_PORTED)
@@ -204,19 +219,29 @@ class ServingEngine:
         self.sp = sp
         self.ecfg = ecfg
         self.device = model.device
+        # width-policy observations per bucket and the caps they froze
+        self._density_obs: Dict[int, List[float]] = {}
+        self._pop_obs: Dict[int, List[float]] = {}
+        self._width_frozen: Dict[int, Optional[int]] = {}
         self._reset_counters()
 
-    def _reset_counters(self) -> None:
+    def _reset_counters(self, handle=None, faults=None) -> None:
         """Per-serve accounting: decode slot capacity and the slots that
         emitted a token (both paths), the scheduler's wall time by phase,
-        admissions deferred on pool headroom, and the paged pool's
-        end-of-serve summary."""
+        admissions deferred on pool headroom, the paged pool's end-of-serve
+        summary, preemptions and refresh counters; and the serve's
+        cancellation handle and fault injector."""
         self.slot_steps = 0
         self.active_slot_steps = 0
         self.phase_s: Dict[str, float] = {"prefill": 0.0, "decode": 0.0,
-                                          "idle": 0.0}
+                                          "idle": 0.0, "refresh": 0.0}
         self.pages_exhausted_steps = 0
         self.page_pool_stats: Dict[str, float] = {}
+        self.preemptions = 0
+        self.refresh_stats: Dict[str, float] = {
+            "refreshes": 0, "deferred_cow": 0, "horizon_extensions": 0}
+        self.handle = handle
+        self.faults = faults
 
     def slot_occupancy(self) -> float:
         """Mean fraction of decode slot capacity that emitted a token
@@ -237,7 +262,7 @@ class ServingEngine:
     def validate_request(self, r: Request) -> None:
         """Raise :class:`RequestError` for a malformed request: an empty,
         non-1-D or non-integer prompt, a negative ``max_new_tokens`` (0 is
-        prefill-only), a prompt longer than the largest bucket with
+        prefill-only) or ``deadline_s``, a prompt longer than the largest bucket with
         ``allow_truncation=False``, or stop tokens that are not
         non-negative ints."""
         p = np.asarray(r.prompt)
@@ -252,6 +277,9 @@ class ServingEngine:
             raise RequestError(
                 r.uid, f"max_new_tokens={r.max_new_tokens} is negative "
                 "(0 means prefill-only)")
+        if r.deadline_s < 0:
+            raise RequestError(r.uid, f"deadline_s={r.deadline_s} is "
+                               "negative (0 means no deadline)")
         top = max(self.ecfg.seq_buckets)
         if p.size > top and not r.allow_truncation:
             raise RequestError(
@@ -291,13 +319,15 @@ class ServingEngine:
               handle=None, faults=None) -> List[Request]:
         """Serve ``requests``: batch-at-a-time per bucket, through one
         slot scheduler per bucket (``scheduler=True``), or through one
-        paged scheduler for all buckets (``paged=True``)."""
-        if handle is not None or faults is not None:
-            raise NotImplementedError(
-                "serve(handle=, faults=): cancellation and fault injection "
-                "are not ported yet (ROADMAP.md queue A.9)")
+        paged scheduler for all buckets (``paged=True``).  ``handle`` (a
+        :class:`~repro_torch.serving.scheduler.SchedulerHandle`) cancels
+        requests at the scheduler's next step; ``faults`` (a
+        :class:`~repro_torch.serving.faults.FaultInjector`, re-armed here)
+        injects faults; the batch path ignores both."""
         t0 = time.time()
-        self._reset_counters()
+        self._reset_counters(handle, faults)
+        if faults is not None:
+            faults.reset()
         live = self._validate_all(requests)
         use_sched = ((self.ecfg.scheduler or self.ecfg.paged)
                      and self._supports_scheduler())
@@ -360,6 +390,30 @@ class ServingEngine:
             cache_ops.write_slot(dst, src[None], {0: layer, 1: slot})
         return cache
 
+    def _width_cap(self, seq: int) -> Optional[int]:
+        """The prefill width cap W of a bucket: ``prefill_width`` under
+        ``width_policy="off"``; otherwise uncapped until the bucket's first
+        prefill was observed, then resolved once and frozen (a cap of NB or
+        more resolves to None, uncapped)."""
+        if self.ecfg.width_policy not in ("auto", "count"):
+            return self.ecfg.prefill_width
+        if seq in self._width_frozen:
+            return self._width_frozen[seq]
+        obs = (self._density_obs if self.ecfg.width_policy == "auto"
+               else self._pop_obs).get(seq)
+        if not obs:
+            return None
+        nb = max(seq // max(self.sp.cfg.block_size, 1), 1)
+        if self.ecfg.width_policy == "auto":
+            w = auto_width_cap(obs, nb,
+                               percentile=self.ecfg.width_percentile,
+                               safety=self.ecfg.width_safety)
+        else:
+            # each observation is one prefill's largest row: cover it
+            w = population_width_cap(obs, nb, safety=self.ecfg.width_safety)
+        self._width_frozen[seq] = None if w >= nb else w
+        return self._width_frozen[seq]
+
     def _chunk_tokens(self, seq: int) -> int:
         """Tokens per prefill quantum for a bucket; 0 means one-shot
         admission.  Chunked admission needs a model it can serve
@@ -408,16 +462,23 @@ class ServingEngine:
             toks[rows] = t.cpu().numpy()
         return toks
 
-    def _record_prefill_stats(self, result, width: Optional[int]
-                              ) -> Dict[str, float]:
-        """Pattern stats of one prefill (both serving paths)."""
+    def _record_prefill_stats(self, result, width: Optional[int],
+                              seq: int) -> Dict[str, float]:
+        """Pattern stats of one prefill (both serving paths), and the
+        width-policy observation it feeds for bucket ``seq``."""
         st = result.stats
-        return {"num_shared": float(st.num_shared),
-                "num_dense": float(st.num_dense),
-                "num_vs": float(st.num_vs),
-                "block_density": float(st.block_density),
-                "max_row_pop": float(st.max_row_pop),
-                "prefill_width_cap": 0 if width is None else int(width)}
+        stats = {"num_shared": float(st.num_shared),
+                 "num_dense": float(st.num_dense),
+                 "num_vs": float(st.num_vs),
+                 "block_density": float(st.block_density),
+                 "max_row_pop": float(st.max_row_pop),
+                 "prefill_width_cap": 0 if width is None else int(width)}
+        if self.ecfg.width_policy == "auto":
+            self._density_obs.setdefault(seq, []).append(
+                stats["block_density"])
+        elif self.ecfg.width_policy == "count":
+            self._pop_obs.setdefault(seq, []).append(stats["max_row_pop"])
+        return stats
 
     @staticmethod
     def _plan_stats(plan, cache_len: int) -> Dict[str, float]:
@@ -442,7 +503,7 @@ class ServingEngine:
         plens_l = [self._pad_prompt(r, seq, toks[i])
                    for i, r in enumerate(grp)]
         plens = torch.tensor(plens_l, dtype=torch.int64, device=self.device)
-        width = self.ecfg.prefill_width
+        width = self._width_cap(seq)
 
         tp = time.time()
         for r in grp:
@@ -453,7 +514,7 @@ class ServingEngine:
             attn_width=width, prompt_lens=plens)
         self._sync()
         prefill_s = time.time() - tp
-        stats = self._record_prefill_stats(result, width)
+        stats = self._record_prefill_stats(result, width, seq)
 
         max_new = max(r.max_new_tokens for r in grp)
         extra = max(max_new, self.ecfg.decode_extra)

@@ -1,16 +1,22 @@
-"""Slot-based continuous-batching scheduler (port of the one-shot core of
+"""Slot-based continuous-batching scheduler (port of
 ``repro/serving/scheduler.py``).
 
-A request walks ``waiting → prefilling → decode → {done, failed}`` over a
-fixed set of ``max_batch`` decode *slots*:
+A request walks
+
+    waiting → prefilling → decode → {done, failed, cancelled}
+                  ▲                      │
+                  └──── preempted ◄──────┘   (paged pool starvation)
+
+over a fixed set of ``max_batch`` decode *slots*:
 
   * **Admission** (:meth:`SlotScheduler._admit`): the FIFO head is admitted
     into a free slot once its arrival time has passed.  It is prefilled
-    alone at its own bucket (one-shot, SharePrefill sparse prefill), its
-    first token is sampled, its K/V are written into the slot — a row of
-    the contiguous cache (:meth:`ServingEngine.cache_insert`) or pages of
-    the shared pool (:func:`paged_cache.insert_prefill`) — and under
-    ``decode_sparse`` its DecodePlan row is spliced into the live plan.
+    alone at its own bucket (one-shot, under the bucket's width cap
+    :meth:`ServingEngine._width_cap`), its first token is sampled, its K/V
+    are written into the slot — a row of the contiguous cache
+    (:meth:`ServingEngine.cache_insert`) or pages of the shared pool
+    (:func:`paged_cache.insert_prefill`) — and under ``decode_sparse`` its
+    DecodePlan row is spliced into the live plan.
   * **Per-slot decode** (:meth:`SlotScheduler._decode_step`): every slot,
     occupied or not, decodes at its own position (the ``(B,)`` ``pos``
     contract of ``transformer.decode_step``); greedy rows take ``argmax``
@@ -42,22 +48,68 @@ fixed set of ``max_batch`` decode *slots*:
     request(s) as ``prefill_stall_s``.  With ``prefill_pack > 1`` up to
     that many arrived same-bucket prompts share one run
     (:meth:`_pack_limit`, :meth:`_assemble_run`).
-  * **Quarantine**: a prefill that raises or gives non-finite logits fails
-    only its request (a raising quantum fails its whole run: packed
-    segments share the launch), and so do non-finite decode logits in one
-    row (``finish_reason="failed"``, the :class:`RequestError` in
-    ``Request.error``, the slot vacated).
+
+**Lifecycle.**  Every step begins with a reap pass (:meth:`_reap`):
+requests cancelled through the serve's :class:`SchedulerHandle` (or an
+injected :class:`~repro_torch.serving.faults.CancelAt`) and requests past
+their ``deadline_s`` end where they stand — a waiting request finishes
+inert, a decoding slot is vacated (pages freed, plan row emptied before the
+next step), and an in-flight chunked run aborts between quanta once every
+segment is doomed (:meth:`ChunkedPrefillRun.abort`).
+
+**Preemption** (``EngineConfig.preempt_after_steps``, paged): once the
+queue head has waited on pool headroom for more than that many consecutive
+steps, the lowest-priority decoding slot (``Request.priority``, ties: the
+fewest generated tokens) is evicted — pages returned, plan row emptied —
+and re-queued with its tokens carried in ``resume_tokens``.  A later
+admission re-prefills the original prompt at its own bucket and replays the
+carry as forced decode tokens; decode rows share nothing across the batch
+axis and the request's ``torch.Generator`` restarts from the same seed and
+is drawn in the same order, so the resumed stream is the unpreempted one.
+A slot is evictable only once its stream is longer than the carry it was
+admitted with, so every eviction nets a token (no livelock).
+
+**Quarantine**: a prefill that raises (or an injected
+:class:`~repro_torch.serving.faults.PrefillError`) or gives non-finite
+logits fails only its request (a raising quantum fails its whole run:
+packed segments share the launch), and so do non-finite decode logits in
+one row (``finish_reason="failed"``, the :class:`RequestError` in
+``Request.error``, the slot vacated).  Pages an injected
+:class:`~repro_torch.serving.faults.HoldPages` still holds return at the
+end of the serve, before the pool summary (``pages_in_use_at_end``).
+
+**Adaptive pattern refresh** (``EngineConfig.refresh_every``, paged and
+sparse): a frozen plan row keeps every appended block, so its dense tail
+grows with the decode.  With refresh on, the decode step also returns each
+layer's query (``collect_queries``), each occupied slot rings up its last
+``block_size`` of them (:class:`~repro_torch.serving.refresh.
+RefreshState`), and every ``refresh_every`` steps at a block boundary (or
+once the row's tail share reaches ``refresh_tail_threshold``) the row is
+re-estimated from the slot's pages
+(:func:`~repro_torch.serving.decode_plan.build_refresh_plan_row`, the strip
+kernel over the gathered pages) with a bounded dense horizon in place of
+the tail; :meth:`_horizon_guard` extends a horizon an append would
+outrun.  :meth:`_splice_row` then keeps the live plan's table width at the
+power-of-two bucket of its widest row.  The decode kernels' split depends
+on the plan's block count, not its width
+(:func:`~repro_torch.kernels.decode_attn.decode_splits`), so narrowing the
+table moves no row's rounding: a slot's logits are bitwise the frozen
+serve's until its own first refresh.  Refresh state is dropped on vacate
+and on preemption (a resume re-warms a cold window); a slot holding a page
+shared with another holder defers its refresh (:meth:`_refresh_fenced`).
+With ``refresh_every=0`` nothing is captured and every splice is the
+frozen path's.
 
 Sampled (temperature > 0) streams draw from one ``torch.Generator`` per
 request, seeded from ``(seed, uid)``; they are not held against the
-reference, whose JAX key chains cannot be reproduced.  Cancellation,
-deadlines, preemption, fault injection, prefix sharing and plan refresh
-(ROADMAP.md A.9) are not ported.
+reference, whose JAX key chains cannot be reproduced.  Prefix sharing
+(ROADMAP.md A.9) is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import threading
 import time
 import types
 from collections import deque
@@ -68,11 +120,30 @@ import torch
 
 from repro_torch.serving import decode_plan as dplan
 from repro_torch.serving import paged_cache, sparse_decode
+from repro_torch.serving import refresh as refresh_mod
 from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
 from repro_torch.serving.errors import RequestError
 from repro_torch.serving.sampling import sample_token
 
 logger = logging.getLogger(__name__)
+
+
+class SchedulerHandle:
+    """Thread-safe cancellation for an in-flight ``serve(handle=...)``:
+    :meth:`cancel` ends the request at the scheduler's next step, wherever
+    it stands.  An unknown or finished uid is a no-op."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._uids: set = set()
+
+    def cancel(self, uid: int) -> None:
+        with self._lock:
+            self._uids.add(uid)
+
+    def cancelled(self) -> frozenset:
+        with self._lock:
+            return frozenset(self._uids)
 
 
 @dataclasses.dataclass
@@ -83,6 +154,11 @@ class _Slot:
     outs: List[int]
     last_tok: int
     t_first: float                      # wall time of the first token
+    replay: List[int] = dataclasses.field(default_factory=list)
+                                        # preemption carry still to feed:
+                                        # decode steps force these tokens
+    carry_len: int = 0                  # carry length at admission (the
+                                        # eviction progress guard)
 
 
 class SlotScheduler:
@@ -102,6 +178,20 @@ class SlotScheduler:
         ecfg = engine.ecfg
         self.nslots = ecfg.max_batch
         blk = max(engine.sp.cfg.block_size, 1)
+
+        # the serve's cancellation handle and fault injector (either may be
+        # None), the 1-based step counter they key on, the consecutive
+        # starvation count behind preemption, and the doomed segments of
+        # the chunked run in flight (uid → terminal reason)
+        self.handle = getattr(engine, "handle", None)
+        self.faults = getattr(engine, "faults", None)
+        self.step_i = 0
+        self._starved = 0
+        self._doomed: dict = {}
+        self.preempt_after = (ecfg.preempt_after_steps
+                              if self.paged and ecfg.preempt_after_steps > 0
+                              else 0)
+
         # one decode headroom for the whole serve, a block multiple so the
         # plan tables tile it (the batch path's rounding)
         extra = max(max(r.max_new_tokens for r in requests),
@@ -154,6 +244,19 @@ class SlotScheduler:
             self._empty_row = dplan.empty_decode_plan(
                 engine.model.cfg, batch=1, **kw)
 
+        # adaptive pattern refresh (paged + sparse): each slot's query
+        # ring, its last spliced full-width row, and each slot's widest
+        # row (the live plan's width bucket)
+        self.refresh_on = bool(self.paged and self.use_sparse
+                               and ecfg.refresh_every > 0)
+        self.refresh: dict = {}         # slot → refresh_mod.RefreshState
+        self._slot_rows: dict = {}
+        self._row_need: dict = {}
+        self.horizon_blocks = 0
+        if self.refresh_on:
+            self.horizon_blocks = (ecfg.refresh_horizon_blocks
+                                   or ecfg.refresh_every // blk + 1)
+
         # step-cadence chunked admission (0: one-shot)
         self.chunk = engine._chunk_tokens(seq)
         self.run_: Optional[ChunkedPrefillRun] = None
@@ -166,31 +269,86 @@ class SlotScheduler:
                 self._run_chunked()
                 return
             while self.queue or any(s is not None for s in self.slots):
+                self._step_begin()
                 self._admit()
                 self._flush_stale_slots()
                 if any(s is not None for s in self.slots):
                     self._decode_step()
             self._flush_stale_slots()   # unoccupied slots' rows are empty
         finally:
+            # injected page holds never outlive the serve, and the pool
+            # summary publishes even if the serve raised
+            if self.faults is not None and self.paged:
+                self.faults.release_pages(self.alloc)
             self._pool_summary()
 
     def _run_chunked(self) -> None:
         """The chunked loop: one prefill quantum, then one decode step."""
         while (self.queue or self.run_ is not None
                or any(s is not None for s in self.slots)):
+            self._step_begin()
             self._prefill_step()
             if (self.run_ is not None and self.paged and self.queue
                     and (self.t0 + self.queue[0].arrival_s) <= time.time()
                     and self.alloc.free_pages
                     < self._pages_needed(self.queue[0])):
                 # the arrived head would wait on pages even once the run
-                # in flight lands: the deferral counts as in the one-shot
-                # loop
+                # in flight lands: the starvation clock keeps running, so
+                # a decoding victim can be evicted mid-admission
                 self._note_starved(self.queue[0])
             self._flush_stale_slots()
             if any(s is not None for s in self.slots):
                 self._decode_step()
         self._flush_stale_slots()
+
+    def _step_begin(self) -> None:
+        """Advance the step counter, let the fault injector act (due
+        cancellations, page holds), then reap."""
+        self.step_i += 1
+        if self.faults is not None:
+            self.faults.on_step(self.step_i,
+                                alloc=self.alloc if self.paged else None)
+        self._reap()
+
+    def _reap(self) -> None:
+        """End cancelled and deadline-expired requests where they stand:
+        waiting (finished inert), in the chunked run in flight (doomed; the
+        run aborts between quanta once no live segment is left) or
+        decoding (vacated)."""
+        cancelled = set()
+        if self.handle is not None:
+            cancelled |= self.handle.cancelled()
+        if self.faults is not None:
+            cancelled |= self.faults.cancelled()
+        now = time.time()
+
+        def doom_reason(r):
+            if r.uid in cancelled:
+                return "cancelled"
+            if (r.deadline_s > 0
+                    and now - (self.t0 + r.arrival_s) > r.deadline_s):
+                return "timeout"
+            return None
+
+        for r in list(self.queue):
+            reason = doom_reason(r)
+            if reason is not None:
+                self.queue.remove(r)
+                self._finish_inert(r, reason)
+        run = self.run_
+        if run is not None:
+            for r in run.requests:
+                if r.uid not in self._doomed:
+                    reason = doom_reason(r)
+                    if reason is not None:
+                        self._doomed[r.uid] = reason
+            if all(r.uid in self._doomed for r in run.requests):
+                self._abort_run(run)
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                reason = doom_reason(s.req)
+                if reason is not None:
+                    self._vacate(i, s, reason)
 
     def _request_generator(self, uid: int) -> torch.Generator:
         gen = torch.Generator(device=self.eng.device)
@@ -199,11 +357,27 @@ class SlotScheduler:
         return gen
 
     def _finish_inert(self, r, reason: str, error=None) -> None:
-        """Finish a request that holds no slot."""
+        """Finish a request that holds no slot; a preempted request's
+        carried tokens are its output so far."""
         if error is not None and r.error is None:
             r.error = error
-        self._finish(_Slot(req=r, gen=None, outs=[], last_tok=0,
-                           t_first=time.time()), reason)
+        self._finish(_Slot(req=r, gen=None, outs=list(r.resume_tokens),
+                           last_tok=0, t_first=time.time()), reason)
+
+    def _abort_run(self, run: ChunkedPrefillRun) -> None:
+        """Abort the chunked run in flight between quanta: its pages
+        return, every segment finishes with its doom reason, its device
+        state is dropped.  Callers doom every live segment first (packed
+        segments share the launch)."""
+        if self.paged:
+            for slot in run.slot_ids:
+                self._release_pages(slot)
+        for r in run.requests:
+            reason = self._doomed.pop(r.uid, "cancelled")
+            if not r.finish_reason:
+                self._finish_inert(r, reason)
+        run.abort()
+        self.run_ = None
 
     def _pool_summary(self) -> None:
         """Publish the pool's capacity, peak and end-of-serve use on the
@@ -229,12 +403,35 @@ class SlotScheduler:
         self._stale_slots.clear()
 
     def _splice_row(self, slot: int, row) -> None:
-        self.plan = dplan.update_plan_slot(self.plan, row, slot)
+        """Splice one slot's full-width plan row into the live plan: the
+        one path of every row replacement.  With refresh off it is the
+        plain splice.  With refresh on it also keeps the plan's table width
+        at the power-of-two bucket of its widest row: widened before a row
+        that keeps more blocks than W, narrowed once every row fits a
+        smaller bucket (:func:`dplan.set_plan_width`, lossless both
+        ways)."""
+        if not self.refresh_on:
+            self.plan = dplan.update_plan_slot(self.plan, row, slot)
+            return
+        need = int(row.counts.max())
+        self._row_need[slot] = need
+        cur = self.plan.indices.shape[-1]
+        if need > cur:
+            self.plan = dplan.set_plan_width(
+                self.plan, dplan.bucket_plan_width(need, self.table_blocks))
+            cur = self.plan.indices.shape[-1]
+        self.plan = dplan.update_plan_slot(
+            self.plan, dplan.set_plan_width(row, cur), slot)
+        target = dplan.bucket_plan_width(
+            max(self._row_need.values(), default=1), self.table_blocks)
+        if target < cur:
+            self.plan = dplan.set_plan_width(self.plan, target)
 
     # -- paged-pool bookkeeping -----------------------------------------
     def _bucket_of(self, r) -> int:
         """A request's prefill length: the scheduler's bucket in contiguous
-        mode, its own bucket under paging."""
+        mode, its own bucket under paging (a resumed request re-buckets at
+        its original prompt: its footprint never grows)."""
         if not self.paged:
             return self.seq
         b = self.eng._bucket(len(r.prompt))
@@ -270,9 +467,166 @@ class SlotScheduler:
             self.page_table[slot, :] = paged_cache.NULL_PAGE
 
     def _note_starved(self, r) -> None:
-        """The queue head waited on pool headroom this step."""
+        """The queue head waited on pool headroom this step; past the
+        starvation window a decoding victim is preempted."""
         self.eng.pages_exhausted_steps += 1
         r.waiting_deferred_steps += 1
+        self._starved += 1
+        if self.preempt_after and self._starved > self.preempt_after:
+            self._preempt_victim()
+
+    def _preempt_victim(self) -> None:
+        """Evict the lowest-priority decoding slot (ties: the fewest
+        generated tokens, then the lowest slot) — unless its stream is not
+        yet longer than the carry it was admitted with, in which case the
+        eviction waits (its replay drains a token a step), rather than
+        falling through to a higher-priority slot."""
+        cands = [i for i, s in enumerate(self.slots) if s is not None]
+        if not cands:
+            return
+        victim = min(cands, key=lambda i: (self.slots[i].req.priority,
+                                           len(self.slots[i].outs), i))
+        s = self.slots[victim]
+        if len(s.outs) + len(s.replay) <= s.carry_len:
+            return
+        self._preempt_slot(victim, "pool starvation")
+
+    def _preempt_slot(self, victim: int, why: str) -> None:
+        """decode → waiting: vacate the slot, return its pages, drop its
+        refresh state, stale its plan row and re-queue the request with its
+        stream so far carried in ``resume_tokens``."""
+        s = self.slots[victim]
+        r = s.req
+        npages = len(self.slot_pages.get(victim, ()))
+        self.slots[victim] = None
+        self._release_pages(victim)
+        self._drop_refresh_slot(victim)
+        if self.use_sparse:
+            self._stale_slots.add(victim)
+        r.resume_tokens = list(s.outs) + list(s.replay)
+        r.preempted_count += 1
+        r.state = "waiting"
+        self.eng.preemptions += 1
+        self.queue.append(r)
+        self._starved = 0
+        logger.info("preempted request %s after %d generated tokens (%s, "
+                    "%d pages reclaimed); re-queued with its tokens",
+                    r.uid, len(s.outs), why, npages)
+
+    # -- adaptive pattern refresh ---------------------------------------
+    def _init_refresh_slot(self, slot: int, row, pos: int) -> None:
+        """A just-admitted slot's refresh state: a cold query ring (on the
+        card in the pool's dtype, float32 on the CPU) and its spliced
+        full-width row."""
+        cfg, dev = self.eng.model.cfg, self.eng.device
+        dtype = self.cache[0].dtype if dev.type == "cuda" else torch.float32
+        self.refresh[slot] = refresh_mod.make_refresh_state(
+            cfg.num_layers, cfg.num_heads, cfg.resolved_head_dim,
+            self.page_size, pos, dtype=dtype, device=dev)
+        self._slot_rows[slot] = row
+
+    def _drop_refresh_slot(self, slot: int) -> None:
+        """Discard a vacated or preempted slot's refresh state."""
+        self.refresh.pop(slot, None)
+        self._slot_rows.pop(slot, None)
+
+    def _slot_tail_stats(self, slot: int):
+        """(tail_fraction, traffic_fraction) of the slot's current row,
+        against its own page allocation."""
+        row = self._slot_rows.get(slot)
+        if row is None:
+            return 0.0, 0.0
+        return dplan.plan_row_tail_stats(
+            row, prefill_blocks=int(self.pflens[slot]) // self.page_size,
+            num_blocks=len(self.slot_pages.get(slot, ())) or None)
+
+    def _refresh_fenced(self, slot: int) -> bool:
+        """A slot holding a page that another holder shares (refcount > 1)
+        defers its refresh; counted, re-tried at the next boundary.  Only
+        prefix sharing shares pages, so without it this never fires."""
+        return any(int(pg) != paged_cache.NULL_PAGE
+                   and self.alloc.refcount(int(pg)) > 1
+                   for pg in self.slot_pages.get(slot, ()))
+
+    def _horizon_guard(self) -> None:
+        """Before a decode step's kernels: a refreshed row about to append
+        past its dense horizon gets a cheap extension
+        (:func:`dplan.extend_plan_row_horizon`, no strip pass), so the
+        appended block is visible.  Frozen rows keep their whole tail."""
+        for i, s in enumerate(self.slots):
+            st = self.refresh.get(i) if s is not None else None
+            if st is None or st.horizon_end <= 0:
+                continue
+            blk = int(self.pos[i]) // self.page_size
+            if blk < st.horizon_end:
+                continue
+            alloc_blocks = (len(self.slot_pages.get(i, ()))
+                            or self.table_blocks)
+            hi = min(blk + 1 + self.horizon_blocks, alloc_blocks)
+            row = dplan.extend_plan_row_horizon(
+                self._slot_rows[i], st.horizon_end, hi)
+            self._slot_rows[i] = row
+            self._splice_row(i, row)
+            st.horizon_end = hi
+            st.extensions += 1
+            self.eng.refresh_stats["horizon_extensions"] += 1
+
+    def _refresh_tick(self) -> None:
+        """After a decode step: re-estimate every occupied slot whose
+        cadence is due (or whose tail share crossed the threshold) at a
+        block boundary with a warm window."""
+        ecfg = self.eng.ecfg
+        for i, s in enumerate(self.slots):
+            st = self.refresh.get(i) if s is not None else None
+            if st is None:
+                continue
+            pos = int(self.pos[i])
+            if not st.window_ready(pos):
+                continue
+            due = pos - st.last_refresh_pos >= ecfg.refresh_every
+            if not due and ecfg.refresh_tail_threshold > 0:
+                due = (self._slot_tail_stats(i)[0]
+                       >= ecfg.refresh_tail_threshold)
+            if not due:
+                continue
+            if self._refresh_fenced(i):
+                st.deferred_cow += 1
+                self.eng.refresh_stats["deferred_cow"] += 1
+                continue
+            self._refresh_slot(i, s, st, pos)
+
+    def _refresh_slot(self, slot: int, s: _Slot, st, pos: int) -> None:
+        """Re-estimate one slot's row from its paged KV and splice it."""
+        eng = self.eng
+        ecfg = eng.ecfg
+        bs = self.page_size
+        nblk = pos // bs
+        alloc_blocks = len(self.slot_pages.get(slot, ()))
+        if nblk <= 0 or not alloc_blocks:
+            return
+        t0 = time.time()
+        horizon = max(min(self.horizon_blocks, alloc_blocks - nblk), 0)
+        row = dplan.build_refresh_plan_row(
+            st.window(), self.cache[0],
+            torch.as_tensor(self.page_table[slot], device=eng.device),
+            eng.model.cfg, block_size=bs, num_blocks=nblk,
+            table_blocks=self.table_blocks, horizon_blocks=horizon,
+            mass=ecfg.refresh_mass, min_width=ecfg.refresh_min_width)
+        self._slot_rows[slot] = row
+        self._splice_row(slot, row)
+        st.last_refresh_pos = pos
+        st.horizon_end = nblk + horizon
+        r = s.req
+        r.refreshes += 1
+        eng.refresh_stats["refreshes"] += 1
+        r.tail_fraction, r.plan_traffic_fraction = \
+            dplan.plan_row_tail_stats(
+                row, prefill_blocks=int(self.pflens[slot]) // bs,
+                num_blocks=alloc_blocks)
+        if r.pattern_stats is not None:
+            r.pattern_stats["decode_traffic_fraction"] = \
+                r.plan_traffic_fraction
+        eng.phase_s["refresh"] += time.time() - t0
 
     # -- admission --------------------------------------------------------
     def _admit(self) -> None:
@@ -283,8 +637,8 @@ class SlotScheduler:
                 return
             r = self.queue[0]
             if self.paged and self.alloc.free_pages < self._pages_needed(r):
-                # the head waits until a finishing slot frees pages; later,
-                # smaller requests do not jump the queue
+                # the head waits until a finishing (or preempted) slot
+                # frees pages; later, smaller requests do not jump the queue
                 self._note_starved(r)
                 return
             wait = (self.t0 + r.arrival_s) - time.time()
@@ -296,19 +650,39 @@ class SlotScheduler:
             self.queue.popleft()
             self._start(r, free[0])
 
+    def _first_token(self, r, logits):
+        """The request's generator and first token: sampled from the
+        prefill logits, or the first carried token of a resume (sampled
+        all the same, so the generator is drawn as in the first
+        admission)."""
+        carry = list(r.resume_tokens)
+        gen = self._request_generator(r.uid)
+        tok0 = int(sample_token(logits, r.sampling, gen)[0])
+        t_first = time.time()
+        if carry:
+            tok0 = carry[0]             # carried tokens are verbatim
+        else:                           # TTFT is the first-ever token's
+            r.ttft_s = max(t_first - (self.t0 + r.arrival_s), 0.0)
+        return _Slot(req=r, gen=gen, outs=[tok0], last_tok=tok0,
+                     t_first=t_first, replay=carry[1:],
+                     carry_len=len(carry))
+
     def _start(self, r, slot: int) -> None:
         """prefilling → decode: prefill one request alone, sample its first
         token, write its K/V and splice its plan row."""
         eng, seq = self.eng, self._bucket_of(r)
+        self._starved = 0               # the head is admitted
         r.state = "prefilling"
         toks = np.zeros((1, seq), np.int64)
         plen = eng._pad_prompt(r, seq, toks[0])
-        width = eng.ecfg.prefill_width
+        width = eng._width_cap(seq)
         tp = time.time()
         r.queue_s = max(tp - (self.t0 + r.arrival_s), 0.0)
         try:
             # a failing prefill fails only this request: no slot is
             # occupied and no page granted yet, so nothing to unwind
+            if self.faults is not None:
+                self.faults.check_prefill([r.uid])
             result = eng.model.prefill(
                 eng.params, torch.as_tensor(toks, device=eng.device), eng.sp,
                 method=eng.ecfg.method, attn_impl=eng.ecfg.attn_impl,
@@ -318,8 +692,9 @@ class SlotScheduler:
         except Exception as e:          # noqa: BLE001 — quarantine wall
             r.prefill_s = time.time() - tp
             eng.phase_s["prefill"] += r.prefill_s
-            err = RequestError(r.uid, f"prefill raised {type(e).__name__}: "
-                               f"{e}", kind="prefill")
+            err = (e if isinstance(e, RequestError) else RequestError(
+                r.uid, f"prefill raised {type(e).__name__}: {e}",
+                kind="prefill"))
             logger.warning("quarantined: %s", err, exc_info=True)
             self._finish_inert(r, "failed", error=err)
             return
@@ -335,19 +710,14 @@ class SlotScheduler:
             self._finish_inert(r, "failed", error=err)
             return
 
-        stats = eng._record_prefill_stats(result, width)
+        stats = eng._record_prefill_stats(result, width, seq)
         r.pattern_stats = stats
         if r.max_new_tokens <= 0:       # prefill-only: no token is emitted
             self._finish_inert(r, "length")
             return
 
-        gen = self._request_generator(r.uid)
-        tok0 = int(sample_token(result.last_logits, r.sampling, gen)[0])
-        t_first = time.time()
-        r.ttft_s = max(t_first - (self.t0 + r.arrival_s), 0.0)
-        s = _Slot(req=r, gen=gen, outs=[tok0], last_tok=tok0,
-                  t_first=t_first)
-        if r.sampling.is_stop(tok0):
+        s = self._first_token(r, result.last_logits)
+        if r.sampling.is_stop(s.outs[0]):
             self._finish(s, "stop")
             return                      # the slot stays free
         if len(s.outs) >= r.max_new_tokens:
@@ -373,6 +743,7 @@ class SlotScheduler:
                                        pages[: seq // self.page_size])
         else:
             eng.cache_insert(self.cache, result.cache, slot)
+        prow = None
         if self.use_sparse:
             # built at the request's own allocation; under paging, padded to
             # the shared table width
@@ -393,11 +764,14 @@ class SlotScheduler:
                 rplan = dplan.pad_plan_row(rplan, self.table_blocks)
             self._splice_row(slot, rplan)
             self._stale_slots.discard(slot)    # the refill replaced the row
+            prow = rplan
         self.pos[slot] = seq
         self.plens[slot] = plen
         self.pflens[slot] = seq
         self.slots[slot] = s
         r.state = "decode"
+        if self.refresh_on:
+            self._init_refresh_slot(slot, prow, seq)
 
     # -- chunked admission ----------------------------------------------
     def _pack_limit(self, seq: int) -> int:
@@ -456,12 +830,13 @@ class SlotScheduler:
             group.append(self.queue.popleft())
         if not group:
             return None
+        self._starved = 0               # the head is admitted
         for r in group:
             r.queue_s = max(now - (self.t0 + r.arrival_s), 0.0)
             r.state = "prefilling"
-        # a packed run prefills uncapped: a width is chosen for one bucket
-        # geometry, not the packed grid
-        width = eng.ecfg.prefill_width if len(group) == 1 else None
+        # a packed run prefills uncapped: a width is resolved for one
+        # bucket geometry, not the packed grid
+        width = eng._width_cap(seq) if len(group) == 1 else None
         for r, slot in zip(group, free):
             if self.paged:
                 # granted now, so the run's per-layer inserts have
@@ -488,6 +863,14 @@ class SlotScheduler:
         occupied = any(s is not None for s in self.slots)
         tq = time.time()
         try:
+            if self.faults is not None:
+                # injected faults land between quanta: a PrefillError
+                # quarantines the run, a SlowQuantum stretches the quantum
+                uids = [r.uid for r in run.requests]
+                self.faults.check_prefill(uids)
+                d = self.faults.quantum_delay(uids)
+                if d > 0:
+                    time.sleep(d)
             ev = run.step()
         except Exception as e:          # noqa: BLE001 — quarantine wall
             self.eng.phase_s["prefill"] += time.time() - tq
@@ -554,12 +937,19 @@ class SlotScheduler:
     def _complete_run(self, run: ChunkedPrefillRun) -> None:
         """The last quantum ran: sample each segment's first token, splice
         its plan row and occupy its slot (prefilling → decode).  The K/V
-        rows are in the cache already, inserted layer by layer."""
+        rows are in the cache already, inserted layer by layer.  A segment
+        doomed mid-run (its packed neighbours stayed live) finishes here."""
         eng, seq = self.eng, run.seq
         stats = eng._record_prefill_stats(
-            types.SimpleNamespace(stats=run.attn_stats), run.width)
+            types.SimpleNamespace(stats=run.attn_stats), run.width, seq)
         logits_h = run.logits.float().cpu().numpy()
         for j, (r, slot) in enumerate(zip(run.requests, run.slot_ids)):
+            reason = self._doomed.pop(r.uid, None)
+            if reason is not None:
+                if self.paged:
+                    self._release_pages(slot)
+                self._finish_inert(r, reason)
+                continue
             r.prefill_s = self._run_wall
             rstats = dict(stats)
             r.pattern_stats = rstats
@@ -577,20 +967,15 @@ class SlotScheduler:
                 self._finish_inert(r, done[0], error=done[1])
                 continue
 
-            gen = self._request_generator(r.uid)
-            tok0 = int(sample_token(run.logits[j: j + 1], r.sampling,
-                                    gen)[0])
-            t_first = time.time()
-            r.ttft_s = max(t_first - (self.t0 + r.arrival_s), 0.0)
-            s = _Slot(req=r, gen=gen, outs=[tok0], last_tok=tok0,
-                      t_first=t_first)
-            reason = ("stop" if r.sampling.is_stop(tok0) else "length"
+            s = self._first_token(r, run.logits[j: j + 1])
+            reason = ("stop" if r.sampling.is_stop(s.outs[0]) else "length"
                       if len(s.outs) >= r.max_new_tokens else None)
             if reason is not None:
                 if self.paged:
                     self._release_pages(slot)
                 self._finish(s, reason)
                 continue                # the slot stays free
+            prow = None
             if self.use_sparse:
                 rplan = self._plan_row(run, j)
                 rstats.update(eng._plan_stats(rplan, seq + self.extra_len))
@@ -601,38 +986,47 @@ class SlotScheduler:
                     rplan = dplan.pad_plan_row(rplan, self.table_blocks)
                 self._splice_row(slot, rplan)
                 self._stale_slots.discard(slot)
+                prow = rplan
             self.pos[slot] = seq
             self.plens[slot] = run.plens[j]
             self.pflens[slot] = seq
             self.slots[slot] = s
             r.state = "decode"
+            if self.refresh_on:
+                self._init_refresh_slot(slot, prow, seq)
 
     def _quarantine_run(self, run: ChunkedPrefillRun, exc: Exception
                         ) -> None:
-        """A quantum raised: every segment of the run fails (packed
+        """A quantum raised: every live segment of the run fails (packed
         segments share the launch), its pages return and its device state
         is dropped; the rest of the serve goes on."""
         for r in run.requests:
+            if r.finish_reason or r.uid in self._doomed:
+                continue
             if isinstance(exc, RequestError) and exc.uid == r.uid:
                 err = exc
+            elif isinstance(exc, RequestError):
+                err = RequestError(
+                    r.uid, f"packed run failed alongside request "
+                    f"{exc.uid}", kind="prefill")
             else:
                 err = RequestError(
                     r.uid, f"prefill quantum raised {type(exc).__name__}: "
                     f"{exc}", kind="prefill")
+            self._doomed[r.uid] = "failed"
+            r.error = err
             logger.warning("quarantined: %s", err)
-            self._finish_inert(r, "failed", error=err)
-        if self.paged:
-            for slot in run.slot_ids:
-                self._release_pages(slot)
-        run.abort()
-        self.run_ = None
+        self._abort_run(run)
 
     # -- decode ----------------------------------------------------------
     def _decode_step(self) -> None:
         """One decode step over all slots (occupied or inert), then per-slot
-        sampling, early exit and slot freeing."""
+        sampling, early exit and slot freeing; with refresh on, the query
+        capture before and the refresh pass after."""
         eng = self.eng
         td = time.time()
+        if self.refresh_on:
+            self._horizon_guard()
         occ = [i for i, s in enumerate(self.slots) if s is not None]
         eng.slot_steps += self.nslots
         eng.active_slot_steps += len(occ)
@@ -649,9 +1043,19 @@ class SlotScheduler:
                       page_table=as_dev(self.page_table))
         else:
             kw.update(prefill_len=self.seq)
-        logits, self.cache = eng.model.decode(
-            eng.params, as_dev(toks)[:, None], self.cache, as_dev(self.pos),
-            **kw)
+        if self.refresh_on:
+            logits, self.cache, qs = eng.model.decode(
+                eng.params, as_dev(toks)[:, None], self.cache,
+                as_dev(self.pos), collect_queries=True, **kw)
+            # ring up this step's queries (at the pre-increment positions)
+            for i in occ:
+                st = self.refresh.get(i)
+                if st is not None:
+                    st.record(int(self.pos[i]), qs[:, i])
+        else:
+            logits, self.cache = eng.model.decode(
+                eng.params, as_dev(toks)[:, None], self.cache,
+                as_dev(self.pos), **kw)
 
         # one device→host copy for the step; greedy rows take np.argmax on
         # it (the first maximum, as torch.argmax)
@@ -660,6 +1064,9 @@ class SlotScheduler:
             self.pos[i] += 1            # this step wrote at the old pos
             s = self.slots[i]
             row = logits_h[i]
+            if self.faults is not None:
+                row = self.faults.corrupt_logits(s.req.uid, len(s.outs),
+                                                 row)
             if not np.isfinite(row).all():
                 # only this slot fails: decode rows share nothing
                 err = RequestError(s.req.uid, "non-finite decode logits",
@@ -674,6 +1081,11 @@ class SlotScheduler:
             else:
                 tok = int(sample_token(logits[i: i + 1], s.req.sampling,
                                        s.gen)[0])
+            if s.replay:
+                # preemption carry: the token generated before the eviction
+                # (sampled above all the same, so the generator stays
+                # aligned for the stream after the replay)
+                tok = s.replay.pop(0)
             s.outs.append(tok)
             s.last_tok = tok
             if s.req.sampling.is_stop(tok):
@@ -681,20 +1093,25 @@ class SlotScheduler:
             elif len(s.outs) >= s.req.max_new_tokens:
                 self._vacate(i, s, "length")
         eng.phase_s["decode"] += time.time() - td
+        if self.refresh_on:
+            self._refresh_tick()
 
     def _vacate(self, slot: int, s: _Slot, reason: str) -> None:
-        """Free a slot mid-decode: finish its request, return its pages and
-        mark its plan row stale (emptied before the next decode step unless
-        a refill splices a new row first)."""
+        """Free a slot mid-decode: finish its request, return its pages,
+        drop its refresh state and mark its plan row stale (emptied before
+        the next decode step unless a refill splices a new row first)."""
         self.slots[slot] = None
         if self.paged:
             self._release_pages(slot)
+        self._drop_refresh_slot(slot)
         if self.use_sparse:
             self._stale_slots.add(slot)
         self._finish(s, reason)
 
     # terminal Request.state per finish_reason
-    _TERMINAL_STATE = {"stop": "done", "length": "done", "failed": "failed"}
+    _TERMINAL_STATE = {"stop": "done", "length": "done",
+                       "cancelled": "cancelled", "timeout": "cancelled",
+                       "failed": "failed", "rejected": "failed"}
 
     def _finish(self, s: _Slot, reason: str) -> None:
         """Finalize the request's output, metrics and terminal state."""

@@ -256,7 +256,8 @@ def fake_launch(monkeypatch):
 
 def test_decode_wrappers_share_the_split_rule(fake_launch):
     """The contiguous, paged and token-mask wrappers pass decode_splits of
-    their own (B, Hkv, W) and scratch for (B, H, splits, D + 2) partials."""
+    their own (B, Hkv, NB) and scratch for (B, H, splits, D + 2)
+    partials."""
     b, h, hkv, nb, ps, d = 2, 32, 8, 65, 32, 128
     s = nb * ps
     q = torch.zeros(b, h, d)
@@ -281,6 +282,30 @@ def test_decode_wrappers_share_the_split_rule(fake_launch):
     masked = fake_launch["repro_decode_attn_mask"].calls
     assert [c[-2] for c in masked] == [one, one] and [c[-3] for c in
                                                       masked] == [0, 1]
+
+
+@pytest.mark.parametrize("w", [65, 33, 16, 4])
+def test_decode_split_ignores_table_width(fake_launch, w):
+    """A plan narrowed to W table entries (a refresh's set_plan_width)
+    splits each row as the full-width plan does: the split follows the
+    plan's NB blocks, so no row's rounding moves with W."""
+    b, h, hkv, nb, ps, d = 2, 32, 8, 65, 32, 128
+    q = torch.zeros(b, h, d)
+    keep = torch.zeros(b, hkv, nb, h // hkv, dtype=torch.bool)
+    keep[:, :, :4] = True
+    idx, cnt = compact_block_mask(keep.any(-1))
+    idx = idx[..., :w].contiguous()
+    valid = torch.ones(b, nb * ps, dtype=torch.bool)
+    pool = torch.zeros(b * nb + 1, hkv, ps, d)
+    table = torch.arange(1, b * nb + 1, dtype=torch.int32).reshape(b, nb)
+    cache = torch.zeros(b, hkv, nb * ps, d)
+    da.flash_decode_sparse_cuda(q, cache, cache, idx, cnt, keep, valid)
+    da.flash_decode_sparse_paged_cuda(q, pool, pool, table, idx, cnt, keep,
+                                      valid)
+    plan = fake_launch["repro_decode_attn"].calls[0]
+    paged = fake_launch["repro_decode_attn_paged"].calls[0]
+    assert plan[-3] == paged[-4] == w            # the table width passed
+    assert plan[-2] == paged[-2] == da.decode_splits(b, hkv, nb, 132) == 33
 
 
 def test_block_sparse_wrappers_pass_every_argument(fake_launch):

@@ -17,6 +17,7 @@ Every test runs under a page-leak audit (the twin of the reference's
 zero pages in use and a consistent allocator.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -277,8 +278,9 @@ def test_per_request_metrics(pair):
         m = r.metrics()
         assert set(m) == {"queue_s", "ttft_s", "prefill_s", "decode_s",
                           "decode_tokens_per_s", "prefill_stall_s",
-                          "waiting_deferred_steps", "tail_fraction",
-                          "plan_traffic_fraction"}
+                          "waiting_deferred_steps", "preempted_count",
+                          "tail_fraction", "plan_traffic_fraction",
+                          "refreshes"}
         assert m["ttft_s"] >= m["prefill_s"] > 0 and m["queue_s"] >= 0
         assert m["decode_tokens_per_s"] > 0
         assert 0 < m["plan_traffic_fraction"] <= 1
@@ -311,6 +313,7 @@ BAD = {
     "2d_prompt": dict(prompt=np.ones((2, 3), np.int32)),
     "float_prompt": dict(prompt=np.ones(4, np.float32)),
     "negative_max_new": dict(max_new_tokens=-1),
+    "negative_deadline": dict(deadline_s=-1.0),
     "too_long_no_truncation": dict(prompt=np.ones(300, np.int32),
                                    allow_truncation=False),
     "stop_not_iterable": dict(stop_tokens=5),
@@ -454,20 +457,63 @@ def test_fields_match_the_reference(cls, ref, table):
         assert default == theirs[name] and item.startswith("A.")
 
 
+# each case keeps its id from when every option raised; the options this
+# slice ports are now taken and served, the prefix-sharing ones still
+# raise naming their ROADMAP.md item
 @pytest.mark.parametrize("make,item", [
-    (lambda: EngineConfig(preempt_after_steps=4), "A.9"),
-    (lambda: EngineConfig(prefix_max_entries=8), "A.9"),
-    (lambda: EngineConfig(refresh_mass=0.5), "A.9"),
-    (lambda: EngineConfig(width_safety=2.0), "A.5"),
-    (lambda: Request(uid=0, prompt=np.ones(3), deadline_s=1.0), "A.9"),
-    (lambda: Request(uid=0, prompt=np.ones(3), priority=2), "A.9")])
-def test_unported_scheduler_options_raise(make, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue {item}"):
-        make()
+    (lambda: (dict(preempt_after_steps=4), {}), None),
+    (lambda: (dict(prefix_max_entries=8), {}), "A.9 (prefix sharing)"),
+    (lambda: (dict(refresh_mass=0.5), {}), None),
+    (lambda: (dict(width_safety=2.0), {}), None),
+    (lambda: ({}, dict(deadline_s=1.0)), None),
+    (lambda: ({}, dict(priority=2)), None)],
+    ids=["make0-A.9", "make1-A.9", "make2-A.9", "make3-A.5", "make4-A.9",
+         "make5-A.9"])
+def test_unported_scheduler_options_raise(pair, make, item):
+    ecfg, req = make()
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"ROADMAP.md queue {item}")):
+            EngineConfig(**ecfg)
+        return
+    eng = _engine(pair, paged=True, decode_sparse=True, seq_buckets=(256,),
+                  **ecfg)
+    r = Request(uid=0, prompt=np.ones(200, np.int32), max_new_tokens=3,
+                **req)
+    assert all(getattr(eng.ecfg, k) == v for k, v in ecfg.items())
+    assert all(getattr(r, k) == v for k, v in req.items())
+    eng.serve([r], seed=0)
+    assert r.finish_reason == "length" and len(r.output_tokens) == 3
+
+
+def test_prefix_sharing_still_raises():
+    for make in (lambda: EngineConfig(prefix_sharing=True),
+                 lambda: Request(uid=0, prompt=np.ones(3), prefix_hit=True)):
+        with pytest.raises(NotImplementedError,
+                           match=re.escape("A.9 (prefix sharing)")):
+            make()
 
 
 def test_serve_refuses_handles_and_faults(pair):
+    """``serve(handle=, faults=)`` is ported: an empty handle and an empty
+    injector change nothing, and a cancel through the handle ends the
+    request before its admission."""
+    from repro_torch.serving import FaultInjector, SchedulerHandle
     eng = _engine(pair, scheduler=True, seq_buckets=(256,))
-    for kw in (dict(handle=object()), dict(faults=object())):
-        with pytest.raises(NotImplementedError, match="A.9"):
-            eng.serve([], **kw)
+    base, _ = _serve(pair, ONE_BUCKET[:2], scheduler=True,
+                     seq_buckets=(256,))
+    handle = SchedulerHandle()
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=m) for i, (p, (_, m))
+            in enumerate(zip(_prompts(ONE_BUCKET[:2], pair["vocab"]),
+                             ONE_BUCKET[:2]))]
+    eng.serve(reqs, seed=0, handle=handle, faults=FaultInjector())
+    assert eng.handle is handle and eng.faults is not None
+    for a, b in zip(base, reqs):
+        assert a.output_tokens.tolist() == b.output_tokens.tolist()
+    handle.cancel(1)
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=m) for i, (p, (_, m))
+            in enumerate(zip(_prompts(ONE_BUCKET[:2], pair["vocab"]),
+                             ONE_BUCKET[:2]))]
+    eng.serve(reqs, seed=0, handle=handle)
+    assert reqs[1].finish_reason == "cancelled"
+    assert reqs[0].output_tokens.tolist() == base[0].output_tokens.tolist()

@@ -11,6 +11,7 @@ to ~1e-5 here), and after a flip the streams condition on different tokens,
 so the comparison stops there.
 """
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -136,8 +137,9 @@ def test_serve_fills_request_metrics(served):
         m = r.metrics()
         assert set(m) == {"queue_s", "ttft_s", "prefill_s", "decode_s",
                           "decode_tokens_per_s", "prefill_stall_s",
-                          "waiting_deferred_steps", "tail_fraction",
-                          "plan_traffic_fraction"}
+                          "waiting_deferred_steps", "preempted_count",
+                          "tail_fraction", "plan_traffic_fraction",
+                          "refreshes"}
         assert m["prefill_s"] > 0 and m["ttft_s"] >= m["prefill_s"]
         assert m["decode_tokens_per_s"] > 0
         assert not r.truncated
@@ -164,13 +166,36 @@ def test_stop_token_and_prefill_only_rows():
     assert reqs[2].truncated and len(reqs[2].output_tokens) == 2
 
 
+# each case keeps its id from when every option raised; the options this
+# slice ports are now taken and served (paged, sparse decode), prefix
+# sharing still raises naming its ROADMAP.md item
 @pytest.mark.parametrize("field,value,item", [
-    ("preempt_after_steps", 4, "A.9"), ("refresh_mass", 0.5, "A.9"),
-    ("width_percentile", 50.0, "A.5"), ("prefix_sharing", True, "A.9"),
-    ("refresh_every", 64, "A.9"), ("width_policy", "auto", "A.5")])
+    ("preempt_after_steps", 4, None), ("refresh_mass", 0.5, None),
+    ("width_percentile", 50.0, None),
+    ("prefix_sharing", True, "A.9 (prefix sharing)"),
+    ("refresh_every", 64, None), ("width_policy", "auto", None)],
+    ids=["preempt_after_steps-4-A.9", "refresh_mass-0.5-A.9",
+         "width_percentile-50.0-A.5", "prefix_sharing-True-A.9",
+         "refresh_every-64-A.9", "width_policy-auto-A.5"])
 def test_unported_engine_options_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue {item}"):
-        EngineConfig(**{field: value})
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=re.escape(f"ROADMAP.md queue {item}")):
+            EngineConfig(**{field: value})
+        return
+    cfg = dataclasses.replace(get_smoke_config("llama3-8b-262k"),
+                              num_heads=8, num_kv_heads=2)
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    ecfg = EngineConfig(**{field: value}, max_batch=2, paged=True,
+                        decode_sparse=True, seq_buckets=(128,))
+    assert getattr(ecfg, field) == value
+    eng = ServingEngine(model, params, model.default_share_prefill(), ecfg)
+    reqs = [Request(uid=i, prompt=np.arange(1, n + 1) % cfg.vocab_size,
+                    max_new_tokens=3) for i, n in enumerate((128, 100))]
+    eng.serve(reqs, seed=0)
+    assert all(r.finish_reason == "length" and len(r.output_tokens) == 3
+               for r in reqs)
 
 
 @pytest.mark.parametrize("field,value", [("prefill_chunk", 128),
