@@ -85,7 +85,8 @@ run on error:
      (first-step logits bitwise the unchunked serve's); the traced prefill
      (``core/profile.py``) of one 8192-token prompt for the four methods
      and its block attention maps; ``Model.prefill`` of one 32768-token
-     prompt for the four methods (the second of two runs each); one
+     prompt for the four methods (the second of two runs each, the
+     only run for ``dense``); one
      layer's dense attention at 8192 through the plain chunked path and
      through ``scaled_dot_product_attention``;
  12. decode-pattern refresh, the request lifecycle and the width policies
@@ -105,8 +106,32 @@ run on error:
      page leaked; two successive batch serves of phase 4's requests under
      ``width_policy="count"`` and ``"auto"`` (uncapped, then at the frozen
      cap, whose layer-0 B.2 tables are ``cap_block_mask`` of the uncapped
-     masks).  ``python3 chip_smoke.py --phase 12`` builds the kernels and
-     runs this phase alone, printing no result line.
+     masks);
+ 13. prefix sharing with copy-on-write on llama3-8b-262k at full width
+     (the model of phase 12 still loaded): three requests of one
+     8192-token prompt (16, 16 and 12 new tokens, the third sampled) and
+     one of its own 2048-token prompt (8 new) through phase 6's paged
+     scheduler, buckets and pool, with ``prefix_sharing`` off and on, one-
+     shot and with ``prefill_chunk=1024``: every stream bitwise equal off
+     and on, the two later copies hits, the index's hits, misses, pages
+     saved and copies as predicted from the code, the strip and block-
+     sparse kernels launched for the two cold prefills only, no page
+     leaked and each pool fully free after the index's ``clear``;
+ 14. Mixtral 8x22B (MoE, 8 experts top 2, sliding window 4096) at full
+     width, 4 of its 56 layers, after llama3 is freed: B.1, B.2, B.6, B.3
+     and B.4 against their plain versions at its G = 6 (H = 48 over
+     Hkv = 8) in bfloat16 and float32 on layer 0's real q/k/v and window
+     masks (a row listing a block above the diagonal; decode validity
+     banded by the window, with kept blocks it hides wholly), timed
+     beside their bounds; a batch serve of phase 4's prompt lengths (8
+     new tokens) with exact launches against the same serve with the
+     plain decode (greedy, near-tie aware), its block density and the
+     window's share of the skipped blocks; three requests (two of one
+     prompt) through the paged scheduler with prefix sharing off and on,
+     bitwise.
+
+``python3 chip_smoke.py --phase 12`` (13, 14) builds the kernels and runs
+that phase alone, printing no result line.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -329,10 +354,11 @@ def layer0_qkv(model, params, tokens):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def real_masks(model, q, k, v):
+def real_masks(model, q, k, v, extra=None):
     """Layer 0's SharePrefill masks and decisions for q (B,H,N,D) and k/v
     (B,Hkv,N,D) from the dictionary that layer 0 builds on the same input
-    (so some heads share), as in a serve's second pass over a cluster."""
+    (so some heads share), as in a serve's second pass over a cluster;
+    ``extra`` (NB, NB) is ANDed in (a sliding window's block mask)."""
     from repro_torch.core.share_attention import (
         build_share_masks, update_share_state)
     from repro_torch.kernels import (block_sparse_attention_cuda,
@@ -344,13 +370,13 @@ def real_masks(model, q, k, v):
     sp = model.default_share_prefill()
     state = sp.init_state(b, n, device=q.device)
     ids = sp.layer_cluster_ids(device=q.device)[0]
-    masks, decision = build_share_masks(q, k, state, ids, spc)
+    masks, decision = build_share_masks(q, k, state, ids, spc, extra)
     idx, cnt = compact_block_mask(masks)
     _, a0 = block_sparse_attention_cuda(
         q, k, v, idx.contiguous(), cnt.contiguous(),
         block_size=spc.block_size, stats_gate=decision.use_dense)
     state = update_share_state(a0, state, ids, decision, spc)
-    shared, decision = build_share_masks(q, k, state, ids, spc)
+    shared, decision = build_share_masks(q, k, state, ids, spc, extra)
     for label, m in (("layer 0", masks), ("with its dictionary", shared)):
         print(f"real masks, {label}: density "
               f"{float(m.float().sum() / (b * h * nb * (nb + 1) / 2)):.4f}",
@@ -1997,33 +2023,62 @@ REPAIRED = (("phi3-mini-3.8b", None, (8192, 7937), 8),
             ("mistral-large-123b", 2, (8192, 8192), 8))
 
 
-def serve_repaired(arch: str, depth, prompt_lens, new_tokens: int) -> dict:
-    """Phase 10: a batch serve of one repaired config at full width (D = 96
-    for phi3-mini, G = 12 for mistral-large), launch counts reset just
-    before and read just after, then the same serve with the decode's
-    plain versions (``decode_impl="einsum"``): logits finite, first-step
-    logits equal (the same prefill), greedy tokens near-tie aware."""
+def load_model(arch: str, depth):
+    """``arch``'s config at full width, cut to ``depth`` layers (None: all),
+    in bf16 from seed-0 random weights on the card; prints its size and
+    init time."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.checkpoint import num_params
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.serving import EngineConfig, Request, ServingEngine
 
     cfg = get_config(arch)
     if depth is not None:
         cfg = dataclasses.replace(cfg, num_layers=depth)
     model = build_model(cfg, dtype=torch.bfloat16)
-    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
-    hd = cfg.resolved_head_dim
+    t = time.time()
+    params = model.init(torch.Generator(device=model.device)
+                        .manual_seed(SEED))
+    torch.cuda.synchronize()
     cut = ("" if depth is None else f" (depth cut: {depth} of "
            f"{get_config(arch).num_layers} layers)")
     print(f"{arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads (G = "
-          f"{cfg.num_heads // cfg.num_kv_heads}), head dim {hd}, "
-          f"{num_params(params) / 1e9:.3f} B params in bf16", flush=True)
+          f"{cfg.num_heads // cfg.num_kv_heads}), head dim "
+          f"{cfg.resolved_head_dim}, {num_params(params) / 1e9:.3f} B params "
+          f"in bf16, init {time.time() - t:.2f} s", flush=True)
+    return model, params
+
+
+def serve_repaired(arch: str, depth, prompt_lens, new_tokens: int) -> dict:
+    """Phase 10: a batch serve of one repaired config at full width (D = 96
+    for phi3-mini, G = 12 for mistral-large) against the same serve with
+    the decode's plain versions (:func:`serve_against_plain_decode`)."""
+    import torch
+    model, params = load_model(arch, depth)
     rng = np.random.default_rng(SEED + 6)
-    prompts = [rng.integers(0, cfg.vocab_size, n) for n in prompt_lens]
+    prompts = [rng.integers(0, model.cfg.vocab_size, n)
+               for n in prompt_lens]
+    runs = serve_against_plain_decode(model, params, prompts, new_tokens,
+                                      arch)
+    del model, params, runs
+    torch.cuda.empty_cache()
+
+
+def serve_against_plain_decode(model, params, prompts, new_tokens: int,
+                               label: str) -> dict:
+    """A batch serve, launch counts reset just before and read just after,
+    then the same serve with the decode's plain versions
+    (``decode_impl="einsum"``): logits finite, first-step logits equal (the
+    same prefill), greedy tokens near-tie aware, launches exactly one strip
+    and one block-sparse launch a layer and one decode launch a layer and
+    step (none with the plain decode).  Returns both runs (requests,
+    logits, counts) by decode_impl."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    cfg = model.cfg
     runs = {}
     for impl in ("auto", "einsum"):
         probe = LogitProbe(model)
@@ -2053,19 +2108,16 @@ def serve_repaired(arch: str, depth, prompt_lens, new_tokens: int) -> dict:
         logits = torch.stack(probe.logits, 1)       # (B, steps, V)
         if not bool(torch.isfinite(logits).all()) or logits.shape != (
                 len(prompts), new_tokens, cfg.vocab_size):
-            raise AssertionError(f"{arch}: non-finite or misshapen logits")
+            raise AssertionError(f"{label}: non-finite or misshapen logits")
         runs[impl] = (reqs, logits, counts)
     layers = cfg.num_layers
-    kc, pc = runs["auto"][2], runs["einsum"][2]
-    want = {"strip": layers, "block_sparse_attn": layers,
-            "decode_attn": layers * (new_tokens - 1)}
-    if any(kc[k] != n for k, n in want.items()) or pc["decode_attn"] or \
-            pc["block_sparse_attn"] != layers:
-        raise AssertionError(f"{arch}: launches {kc} / plain decode "
-                             f"{pc}, expected {want} / no decode kernel")
+    want = {"strip": layers, "block_sparse_attn": layers}
+    _expect_counts(f"{label} (kernel decode)", runs["auto"][2],
+                   dict(want, decode_attn=layers * (new_tokens - 1)))
+    _expect_counts(f"{label} (plain decode)", runs["einsum"][2], want)
     (kr, kl, _), (pr, pl, _) = runs["auto"], runs["einsum"]
     if not torch.equal(kl[:, 0], pl[:, 0]):
-        raise AssertionError(f"{arch}: the two serves' prefills differ")
+        raise AssertionError(f"{label}: the two serves' prefills differ")
     tol = PER_SAMPLE_RTOL * float(pl[:, 0].abs().max())
     for i, (a, c) in enumerate(zip(pr, kr)):
         verdict = greedy_agree(a.output_tokens, pl[i].cpu().numpy(),
@@ -2073,9 +2125,7 @@ def serve_repaired(arch: str, depth, prompt_lens, new_tokens: int) -> dict:
         print(f"  request {a.uid}: kernel {c.output_tokens.tolist()} plain "
               f"{a.output_tokens.tolist()} -> {verdict}; max |logit "
               f"kernel - plain| {max_err(kl[i], pl[i]):.3e}", flush=True)
-    del model, params, runs, probe, logits
-    torch.cuda.empty_cache()
-    return kc
+    return runs
 
 
 # ---------------------------------------------------------------- phase 11
@@ -2217,13 +2267,15 @@ def serve_baselines(model, params, prompts, paged_prompts, layers: int,
     del traces, maps
     torch.cuda.empty_cache()
 
-    # Model.prefill of one 32768-token prompt, the second of two runs
+    # Model.prefill of one 32768-token prompt, the second of two runs (one
+    # run for ``dense``: the plain float32 chunked path needs no warm-up
+    # and takes tens of seconds a run)
     long = np.random.default_rng(SEED + 11).integers(0, cfg.vocab_size,
                                                      (1, LONG))
     long = torch.as_tensor(long, device=model.device)
     print(f"Model.prefill of one {LONG}-token prompt ({smi}):", flush=True)
     for method in METHODS:
-        for _ in range(2):
+        for _ in range(1 if method == "dense" else 2):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
@@ -2668,6 +2720,388 @@ def phase12(model, params, prompts, paged_prompts, layers: int) -> None:
         flush=True)
 
 
+# ---------------------------------------------------------------- phase 13
+
+# three requests share one prompt of the 8192 bucket, one has its own of
+# the 2048 bucket: (prompt index, max_new_tokens); the third is sampled
+PREFIX_PROMPTS = (8192, 2048)
+PREFIX_REQUESTS = ((0, 16), (0, 16), (0, 12), (1, 8))
+PREFIX_SAMPLED = 2
+# predicted from the code: the two later copies of prompt 0 hit, each
+# mapping its 65-page run; every slot copies the one tail page its decode
+# appends into (the run is published, so shared) and no other
+PREFIX_EXPECT = {"prefix_hits": 2.0, "prefix_misses": 2.0,
+                 "prefix_pages_saved": 130.0, "prefix_cow_copies": 4.0,
+                 "prefix_evictions": 0.0}
+
+
+def check_prefix_runs(label: str, off: dict, on: dict, hits: list,
+                      expect: dict, want_on: dict, want_off: dict) -> dict:
+    """Sharing on against off: every stream and finish reason bitwise, the
+    hits where predicted, the index counters and the launches as
+    predicted, the hits' prefill skipped; then each pool is fully free
+    after the index's ``clear`` (``check_paged_run``)."""
+    for run, what in ((off, "off"), (on, "on")):
+        check_paged_run(run, f"{label}, sharing {what}")
+        for alloc in run["allocs"]:
+            if alloc.free_pages != alloc.num_pages - 1:
+                raise AssertionError(f"{label}: pool not free at the end")
+    for a, c in zip(off["reqs"], on["reqs"]):
+        if (a.output_tokens.tolist() != c.output_tokens.tolist()
+                or a.finish_reason != c.finish_reason):
+            raise AssertionError(
+                f"{label}: request {a.uid} differs with sharing: "
+                f"{a.output_tokens.tolist()} / {c.output_tokens.tolist()}")
+    got = [r.prefix_hit for r in on["reqs"]]
+    ps = on["eng"].prefix_stats
+    print(f"  {label}: streams bitwise equal with and without sharing; "
+          f"hits {got}; prefix_stats {json.dumps(ps)}; hits' prefill_s "
+          + ", ".join(f"{r.prefill_s:.6f}" for r in on["reqs"]
+                      if r.prefix_hit)
+          + "; ttft_s off / on " + ", ".join(
+              f"{a.ttft_s:.4f}/{c.ttft_s:.4f}"
+              for a, c in zip(off["reqs"], on["reqs"])), flush=True)
+    if got != hits or any(ps[k] != v for k, v in expect.items()):
+        raise AssertionError(f"{label}: hits {got} / stats {ps}, predicted "
+                             f"{hits} / {expect}")
+    _expect_counts(f"{label}, sharing on", on["counts"], want_on)
+    _expect_counts(f"{label}, sharing off", off["counts"], want_off)
+    return dict(ps, hits_prefill_s=[r.prefill_s for r in on["reqs"]
+                                    if r.prefix_hit],
+                ttft_s_on=[r.ttft_s for r in on["reqs"]],
+                ttft_s_off=[r.ttft_s for r in off["reqs"]],
+                wall_on=on["wall"], wall_off=off["wall"],
+                launches_on=on["counts"], launches_off=off["counts"])
+
+
+def _decode_steps(run: dict) -> int:
+    return run["eng"].slot_steps // run["eng"].ecfg.max_batch
+
+
+def phase13(model, params, layers: int) -> None:
+    """Phase 13: prefix sharing with copy-on-write on llama3-8b-262k at full
+    width, through phase 6's paged scheduler, buckets and pool, one-shot and
+    with ``prefill_chunk=1024``: sharing on against off."""
+    from repro_torch.serving import SamplingConfig
+    print("== phase 13: prefix sharing with copy-on-write", flush=True)
+    t = time.time()
+    rng = np.random.default_rng(SEED + 13)
+    base = [rng.integers(0, model.cfg.vocab_size, n) for n in PREFIX_PROMPTS]
+    prompts = [base[i] for i, _ in PREFIX_REQUESTS]
+    news = [m for _, m in PREFIX_REQUESTS]
+    fields = {PREFIX_SAMPLED: {"sampling": SamplingConfig(temperature=0.8)}}
+    out = {}
+    for chunk in (0, CHUNK):
+        label = "chunked" if chunk else "one-shot"
+        runs = {}
+        for sharing in (False, True):
+            run = scheduler_serve(model, params, prompts, news,
+                                  fields=fields, paged=True,
+                                  num_pages=NUM_PAGES, prefill_chunk=chunk,
+                                  prefix_sharing=sharing)
+            report_scheduler_serve(f"{label} serve, prefix sharing "
+                                   f"{'on' if sharing else 'off'}", run)
+            runs[sharing] = run
+        # B.1 once a layer for each cold prefill; B.2 once a layer (one-shot)
+        # or once a layer and chunk; B.4 once a layer and decode step
+        per = [n // CHUNK for n in PREFIX_PROMPTS] if chunk else [1, 1]
+        want_on = {"strip": 2 * layers,
+                   "block_sparse_attn": layers * sum(per),
+                   "decode_attn_paged": layers * _decode_steps(runs[True])}
+        want_off = {"strip": 4 * layers,
+                    "block_sparse_attn": layers * (3 * per[0] + per[1]),
+                    "decode_attn_paged": layers * _decode_steps(runs[False])}
+        out[label] = check_prefix_runs(
+            f"{label} serve", runs[False], runs[True],
+            [False, True, True, False], PREFIX_EXPECT, want_on, want_off)
+    print(f"phase 13: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(out), flush=True)
+
+
+# ---------------------------------------------------------------- phase 14
+
+MIXTRAL = "mixtral-8x22b"
+MIXTRAL_LAYERS = 4          # of 56: 10.4 B parameters, 20.8 GB in bf16
+MIXTRAL_NEW = 8
+# the paged serve's three requests, the first two of one prompt: the second
+# hits and maps the 65-page run; each of the three copies its tail page
+MIXTRAL_PREFIX_EXPECT = {"prefix_hits": 1.0, "prefix_misses": 2.0,
+                         "prefix_pages_saved": 65.0,
+                         "prefix_cow_copies": 3.0, "prefix_evictions": 0.0}
+
+
+def window_skip_share(cfg, nb: int, bs: int, density: float) -> tuple:
+    """The window block mask's density (of the causal blocks) and its share
+    of the blocks a prefill of block density ``density`` skips."""
+    from repro_torch.core.patterns import block_mask_density
+    from repro_torch.models.attention import extra_block_mask
+    wd = float(block_mask_density(extra_block_mask(cfg, nb, bs)))
+    return wd, (1.0 - wd) / max(1.0 - density, 1e-12)
+
+
+def check_mixtral_kernels(model, params, tokens, prompt_lens) -> dict:
+    """Phase 14: B.1, B.2, B.6, B.3 and B.4 against their plain versions at
+    Mixtral's G = 6 (H = 48 over Hkv = 8, D = 128, N = 8192, B = 2) in
+    bfloat16 and float32, on layer 0's real q/k/v and its SharePrefill
+    masks with the window's block mask ANDed in (one row also listing a
+    block above the diagonal, wholly masked); decode on layer 0's real
+    DecodePlan tables over a grown cache under the window's banded
+    validity (kept blocks it hides wholly), contiguous and through a
+    shuffled pool; then their bf16 times beside their bounds.  Returns each kernel's largest error and its times."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.decode_attn import (
+        decode_plan_einsum_sliced_paged)
+    from repro_torch.models.attention import extra_block_mask
+    from repro_torch.models.transformer import (decode_valid_mask,
+                                                window_valid_mask)
+
+    cfg = model.cfg
+    bs = cfg.share_prefill.block_size
+    dev = tokens.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    q16, k16, v16 = layer0_qkv(model, params, tokens)
+    b, h, n, d = q16.shape
+    hkv = k16.shape[1]
+    g, nb = h // hkv, n // bs
+    extra = extra_block_mask(cfg, nb, bs, device=dev)
+    masks, decision = real_masks(model, q16, k16, v16, extra)
+    causal = torch.ones(nb, nb, dtype=torch.bool, device=dev).tril()
+    skipped = float((causal & ~masks).sum())
+    by_window = float((causal & ~extra).sum()) * b * h
+    print(f"Mixtral layer 0: B={b} H={h} Hkv={hkv} (G = {g}) N={n} D={d} "
+          f"bs={bs}, window {cfg.sliding_window} tokens = "
+          f"{cfg.sliding_window // bs} blocks; masks keep "
+          f"{float(masks.sum()) / (b * h * float(causal.sum())):.4f} of the "
+          f"causal blocks; the window's share of the skipped ones "
+          f"{by_window / max(skipped, 1):.4f}", flush=True)
+    # a row that also lists the block above its diagonal: visited, wholly
+    # masked, weighs nothing (out unchanged, Ã −inf there)
+    syn = masks.clone()
+    syn[0, 1, nb - 2, nb - 1] = True
+    sidx, scnt = (x.contiguous() for x in K.compact_block_mask(masks))
+    yidx, ycnt = (x.contiguous() for x in K.compact_block_mask(syn))
+    s0idx, s0cnt = (x.contiguous() for x in K.compact_block_mask(masks[0]))
+
+    # decode: layer 0's tables of the two prompts' real DecodePlan over the
+    # prompt plus a 128-token tail, 6 tokens of it written; validity the
+    # prompts', banded by the window: the plan ignores the window, so the
+    # sink block and the others before pos − 4096 are kept and wholly
+    # hidden
+    from repro_torch.serving import decode_plan as dplan
+    sp = model.default_share_prefill()
+    s = n + bs
+    pos = n + 5
+    nbs = s // bs
+    pre = model.prefill(params, tokens, sp, method="share",
+                        prompt_lens=prompt_lens)
+    plan = dplan.build_decode_plan(sp, pre.sp_state, cfg, prefill_len=n,
+                                   cache_len=s).layer(0)
+    del pre
+    didx, dcnt, keep = (x.contiguous() for x in plan)
+    union = K.table_block_mask(didx, dcnt, nbs)                # (B, Hkv, NB)
+    valid = window_valid_mask(
+        decode_valid_mask(s, pos, prompt_lens, n), s, pos,
+        cfg.sliding_window, b, dev).contiguous()
+    vis_blocks = valid.reshape(b, nbs, bs).any(-1)              # (B, NB)
+    hidden = int((union & ~vis_blocks[:, None]).sum())
+    num_pages = 1 + b * nbs + 4
+    perm = (1 + torch.randperm(num_pages - 1, generator=gen, device=dev)
+            ).to(torch.int32)
+    table = perm[:b * nbs].reshape(b, nbs).contiguous()
+    print(f"  decode: S={s} pos={pos}, window band keeps "
+          f"{int(valid[0].sum())} of {pos + 1} written slots; kept blocks "
+          f"the band hides wholly {hidden} of {int(union.sum())}", flush=True)
+    if hidden == 0:
+        raise AssertionError("no kept decode block is wholly hidden")
+
+    names = ("strip", "block_sparse_attn", "block_sparse_attn_single",
+             "decode_attn", "decode_attn_paged")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+
+    def fold(name, e):
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        print(f"[{dn}]", flush=True)
+        e = max_err(K.strip_scores_cuda(q, k, bs), K.strip_scores(q, k, bs))
+        check("strip [G=6]", e, TOL[("strip", dn)])
+        fold("strip", e)
+        for label, idx, cnt in (("window masks", sidx, scnt),
+                                ("a block above the diagonal", yidx, ycnt)):
+            kw = dict(block_size=bs, stats_gate=decision.use_dense)
+            o1, a1 = K.block_sparse_attention_cuda(q, k, v, idx, cnt, **kw)
+            o2, a2 = K.block_sparse_attention_plain(q, k, v, idx, cnt, **kw)
+            print(f"  block_sparse_attn [{label}]: W={idx.shape[-1]}",
+                  flush=True)
+            check("  out", max_err(o1, o2), TOL[("out", dn)])
+            check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+            fold("block_sparse_attn", max_err(o1, o2))
+            if idx is yidx:
+                o0, _ = K.block_sparse_attention_cuda(q, k, v, sidx, scnt,
+                                                      **kw)
+                same = bool(torch.equal(o1, o0))
+                above = bool(torch.isneginf(a1[0, 1, nb - 2, nb - 1]))
+                print(f"  the masked entry: out bitwise unchanged {same}, "
+                      f"a_tilde -inf {above}", flush=True)
+                if not (same and above):
+                    raise AssertionError("a wholly masked table entry "
+                                         "changed the output")
+        o1, s1 = K.block_sparse_attention_single_cuda(
+            q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)
+        o2, s2 = K.block_sparse_attention_single_plain(
+            q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)
+        check("block_sparse_attn_single [window masks] out", max_err(o1, o2),
+              TOL[("out", dn)])
+        check("  stats", a_tilde_err(s1, s2), TOL[("a_tilde", dn)])
+        fold("block_sparse_attn_single", max_err(o1, o2))
+
+        ck = torch.zeros((b, hkv, s, d), dtype=dtype, device=dev)
+        cv = torch.zeros_like(ck)
+        ck[:, :, :n], cv[:, :, :n] = k, v
+        for c in (ck, cv):
+            c[:, :, n:pos + 1] = torch.randn(
+                (b, hkv, pos + 1 - n, d), generator=gen, device=dev).to(dtype)
+        qd = q[:, :, -1].contiguous()
+        pool_k, pool_v = ((torch.randn((num_pages, hkv, bs, d), generator=gen,
+                                       device=dev) * 0.5).to(dtype)
+                          for _ in range(2))
+        for pool, x in ((pool_k, ck), (pool_v, cv)):
+            pool[table.reshape(-1).long()] = x.reshape(
+                b, hkv, nbs, bs, d).transpose(1, 2).reshape(-1, hkv, bs, d)
+        o3 = K.flash_decode_sparse_cuda(qd, ck, cv, didx, dcnt, keep, valid)
+        p3 = K.decode_plan_einsum_sliced(qd, ck, cv, plan, valid)
+        o4 = K.flash_decode_sparse_paged_cuda(qd, pool_k, pool_v, table,
+                                              didx, dcnt, keep, valid)
+        p4 = decode_plan_einsum_sliced_paged(qd, pool_k, pool_v, table,
+                                             plan, valid)
+        finite = bool(torch.isfinite(o3).all() and torch.isfinite(o4).all())
+        print(f"  decode under the window band: outputs finite {finite}",
+              flush=True)
+        if not finite:
+            raise AssertionError("hidden kept blocks gave non-finite output")
+        for name, got, ref in (("decode_attn", o3, p3),
+                               ("decode_attn_paged", o4, p4)):
+            check(f"  {name} out", max_err(got, ref), TOL[("out", dn)])
+            fold(name, max_err(got, ref))
+        if dtype != torch.bfloat16:
+            continue
+
+        # times at bf16 beside bounds (the formulas of phases 2, 5 and 7)
+        elt = q.element_size()
+        pairs = bs * (n - bs) + bs * (bs + 1) // 2
+        sb = bound(b * h * bs * d * elt + b * hkv * n * d * elt
+                   + b * h * bs * n * 4, 2.0 * d * b * h * pairs, dtype)
+        vis = K.table_block_mask(sidx, scnt, nb)
+        entries, tiles = bsa_work(vis, g, bs, 0)
+        bb = bound(2 * b * h * n * d * elt + 2 * tiles * bs * d * elt
+                   + sidx.numel() * 4 + scnt.numel() * 4 + b * h * nb * nb * 4,
+                   4.0 * d * entries, dtype)
+        e0, t0_ = bsa_work(vis[:1], g, bs, 0)
+        b6 = bound(2 * h * n * d * elt + 2 * t0_ * bs * d * elt
+                   + s0idx.numel() * 4 + s0cnt.numel() * 4 + h * nb * nb * 4,
+                   4.0 * d * e0, dtype)
+        ntok = valid.reshape(b, 1, nbs, bs).sum(-1)
+        listed = K.table_block_mask(didx, dcnt, nbs)
+        kept_tok = float(((keep & listed[..., None]).float()
+                          * ntok[..., None]).sum())
+        db = bound(2 * b * h * d * elt + 2 * float(dcnt.sum()) * bs * d * elt
+                   + didx.numel() * 4 + dcnt.numel() * 4 + keep.numel()
+                   + valid.numel(), 4.0 * d * kept_tok, dtype)
+        kwg = dict(block_size=bs, stats_gate=decision.use_dense)
+        times = {
+            "strip": (lambda: K.strip_scores_cuda(q, k, bs), sb, 20),
+            "block_sparse_attn": (lambda: K.block_sparse_attention_cuda(
+                q, k, v, sidx, scnt, **kwg), bb, 10),
+            "block_sparse_attn_single": (
+                lambda: K.block_sparse_attention_single_cuda(
+                    q[0], k[0], v[0], s0idx, s0cnt, block_size=bs), b6, 10),
+            "decode_attn": (lambda: K.flash_decode_sparse_cuda(
+                qd, ck, cv, didx, dcnt, keep, valid), db, 50),
+            "decode_attn_paged": (lambda: K.flash_decode_sparse_paged_cuda(
+                qd, pool_k, pool_v, table, didx, dcnt, keep, valid), db, 50),
+        }
+        for name, (fn, bnd, reps) in times.items():
+            ms = cuda_ms(fn, reps)
+            dms = device_ms(fn, 10)
+            out[name].update(ms=ms, device_ms=dms, bound_ms=bnd[0],
+                             bound_by=bnd[1])
+            print(f"  {name} bf16 [G=6, window]: {ms:.4f} ms (device "
+                  f"{dms} ms), bound {bnd[0]:.4f} by {bnd[1]}, bound_frac "
+                  f"{bnd[0] / ms:.4f}", flush=True)
+    return out
+
+
+def phase14() -> dict:
+    """Phase 14: Mixtral 8x22B at full width, 4 of its 56 layers: the
+    kernels at G = 6 under window masks, a batch serve against its plain
+    decode twin, and a paged serve with prefix sharing against the same
+    serve without.  Returns the kernels' largest errors."""
+    import torch
+    print("== phase 14: Mixtral 8x22B (MoE, sliding window) at full width",
+          flush=True)
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = load_model(MIXTRAL, MIXTRAL_LAYERS)
+    cfg = model.cfg
+    layers = cfg.num_layers
+    rng = np.random.default_rng(SEED + 14)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    toks = np.zeros((len(prompts), SEQ), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    res = check_mixtral_kernels(model, params,
+                                torch.as_tensor(toks, device=model.device),
+                                torch.tensor(PROMPT_LENS, device=model.device))
+    torch.cuda.empty_cache()
+
+    print(f"Mixtral batch serve: prompts {PROMPT_LENS}, {MIXTRAL_NEW} new "
+          "tokens", flush=True)
+    runs = serve_against_plain_decode(model, params, prompts, MIXTRAL_NEW,
+                                      MIXTRAL)
+    st = runs["auto"][0][0].pattern_stats
+    wd, share = window_skip_share(cfg, SEQ // cfg.share_prefill.block_size,
+                                  cfg.share_prefill.block_size,
+                                  st["block_density"])
+    print(f"  block density {st['block_density']:.4f} (the window's mask "
+          f"alone {wd:.4f}); the window's share of the skipped blocks "
+          f"{share:.4f}; decode traffic fraction "
+          f"{st.get('decode_traffic_fraction', float('nan')):.4f}",
+          flush=True)
+    res["serve"] = {"block_density": st["block_density"],
+                    "window_density": wd, "window_skip_share": share,
+                    "launches": runs["auto"][2]}
+    del runs
+    torch.cuda.empty_cache()
+
+    # three requests, two of one prompt, through the paged scheduler
+    shared, own = prompts
+    offon = {}
+    for sharing in (False, True):
+        run = scheduler_serve(model, params, [shared, shared, own],
+                              [MIXTRAL_NEW] * 3, paged=True,
+                              prefix_sharing=sharing)
+        report_scheduler_serve(f"Mixtral paged serve, prefix sharing "
+                               f"{'on' if sharing else 'off'}", run)
+        offon[sharing] = run
+    res["prefix"] = check_prefix_runs(
+        "Mixtral paged serve", offon[False], offon[True],
+        [False, True, False], MIXTRAL_PREFIX_EXPECT,
+        {"strip": 2 * layers, "block_sparse_attn": 2 * layers,
+         "decode_attn_paged": layers * _decode_steps(offon[True])},
+        {"strip": 3 * layers, "block_sparse_attn": 3 * layers,
+         "decode_attn_paged": layers * _decode_steps(offon[False])})
+    del offon, run
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"phase 14: {time.time() - t:.1f} s, peak device memory "
+          f"{peak:.2f} GiB ({nvidia_smi()}); " + json.dumps(res), flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2690,6 +3124,11 @@ def main() -> int:
     t = time.time()
     _build.build_all()
     print(f"build_s {time.time() - t:.2f}", flush=True)
+    only = sys.argv[1:]
+    if only == ["--phase", "14"]:
+        # a check of phase 14 alone; it prints no result line
+        phase14()
+        return 0
 
     cfg = get_config(ARCH)
     model = build_model(cfg, dtype=torch.bfloat16)
@@ -2708,13 +3147,19 @@ def main() -> int:
     tokens = torch.as_tensor(toks, device="cuda")
     plens = torch.tensor(PROMPT_LENS, device="cuda")
     layers = cfg.num_layers
-    if sys.argv[1:] == ["--phase", "12"]:
+    if only == ["--phase", "12"]:
         # a check of phase 12 alone; it prints no result line
         rng = np.random.default_rng(SEED + 2)
         paged_prompts = [rng.integers(0, cfg.vocab_size, n)
                          for n, _ in PAGED_REQUESTS]
         phase12(model, params, prompts, paged_prompts, layers)
         return 0
+    if only == ["--phase", "13"]:
+        phase13(model, params, layers)  # alone; no result line
+        return 0
+    if only:
+        raise SystemExit(f"unknown arguments {only}; use --phase 12, 13 "
+                         "or 14, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
     res = check_kernels(model, params, tokens, plens)
@@ -2807,8 +3252,14 @@ def main() -> int:
     del batch
     torch.cuda.empty_cache()
     phase12(model, params, prompts, paged_prompts, layers)
+    phase13(model, params, layers)
     del model, params
     torch.cuda.empty_cache()
+    mix = phase14()
+    for name in ("strip", "block_sparse_attn", "block_sparse_attn_single",
+                 "decode_attn", "decode_attn_paged"):
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                       mix[name]["max_abs_err"])
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

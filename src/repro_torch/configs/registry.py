@@ -1,6 +1,7 @@
-"""Architecture registry of the port: the dense-family configs served so far.
+"""Architecture registry of the port: the dense-family configs and Mixtral
+(MoE with sliding-window attention).
 
-The other families (MoE, MLA, SSM, hybrid, encoder-decoder, VLM) join the
+The other families (MLA, SSM, hybrid, encoder-decoder, VLM) join the
 registry with the slices that port their models (ROADMAP.md queue A.10).
 """
 from __future__ import annotations
@@ -12,6 +13,7 @@ from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.internlm2_1_8b import CONFIG as _internlm2
 from repro_torch.configs.llama3_8b_262k import CONFIG as _llama3_262k
 from repro_torch.configs.mistral_large_123b import CONFIG as _mistral_large
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen2_5_7b import CONFIG as _qwen2_5
 
@@ -19,6 +21,7 @@ REGISTRY: Dict[str, ModelConfig] = {
     "granite-3-2b": _granite,
     "internlm2-1.8b": _internlm2,
     "mistral-large-123b": _mistral_large,
+    "mixtral-8x22b": _mixtral,
     "phi3-mini-3.8b": _phi3,
     "llama3-8b-262k": _llama3_262k,
     "qwen2.5-7b": _qwen2_5,

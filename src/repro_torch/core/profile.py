@@ -14,7 +14,8 @@ chunked_attention_fn`), as in the reference; the masks come from the same
 builders as the model's (the strip kernel for CUDA tensors).
 
 Both take the port's params (``params["layers"][i]``) and one sample,
-as the reference does, and run on the device of the tokens.
+as the reference does, and run on the device of the tokens; a MoE config
+runs its MoE FFN after each layer's attention.
 """
 from __future__ import annotations
 
@@ -49,10 +50,11 @@ def _check_model(cfg: ModelConfig, tokens: torch.Tensor) -> None:
     if tokens.shape[0] != 1:
         raise ValueError("profiling uses a single sample (paper §5.2); got "
                          f"a batch of {tokens.shape[0]}")
-    if cfg.family != "dense" or cfg.moe.enabled or num_prefix_layers(cfg):
+    if (cfg.family not in ("dense", "moe") or cfg.mla.enabled
+            or num_prefix_layers(cfg)):
         raise NotImplementedError(
-            f"profiling {cfg.name!r}: the MoE FFN, prefix layers and the "
-            "other families come with ROADMAP.md queue A.10")
+            f"profiling {cfg.name!r}: MLA, prefix layers and the other "
+            "families come with ROADMAP.md queue A.10")
 
 
 def _layer_qkv(layer, x, cfg: ModelConfig, positions):

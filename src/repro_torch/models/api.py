@@ -1,5 +1,6 @@
 """Model API of the port (``repro/models/api.py``'s counterpart) for the
-``dense`` family::
+``dense`` and ``moe`` families (the transformer, with the MoE FFN and
+sliding-window attention for Mixtral)::
 
     model = build_model(cfg, dtype=torch.bfloat16)        # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -59,13 +60,15 @@ class Model:
 
     def decode(self, params, token, cache, pos, *, plan=None,
                prompt_lens=None, prefill_len=0, decode_impl: str = "auto",
-               page_table=None, collect_queries: bool = False):
+               page_table=None, collect_queries: bool = False,
+               window: int = 0):
         return transformer.decode_step(params, self.cfg, token, cache, pos,
                                        plan=plan, prompt_lens=prompt_lens,
                                        prefill_len=prefill_len,
                                        decode_impl=decode_impl,
                                        page_table=page_table,
-                                       collect_queries=collect_queries)
+                                       collect_queries=collect_queries,
+                                       window=window)
 
     def init_cache(self, batch: int, cache_len: int, *, dtype=None):
         """Zeroed contiguous cache in ``dtype`` (default: the model's); the
@@ -86,13 +89,15 @@ class Model:
 
 def build_model(cfg: ModelConfig, dtype=torch.float32,
                 device=None) -> Model:
-    if cfg.family != "dense":
+    """The transformer of a ``dense`` or ``moe`` config; MLA, prefix layers
+    (DeepSeek-V2) and the other families raise, naming ROADMAP.md A.10."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense family so far "
-            "(ROADMAP.md queue A.10)")
-    if cfg.sliding_window:
+            f"family {cfg.family!r}: the port serves the dense and moe "
+            "families so far (ROADMAP.md queue A.10)")
+    if cfg.mla.enabled or transformer.num_prefix_layers(cfg):
         raise NotImplementedError(
-            "sliding-window attention comes with the Mixtral slice "
-            "(ROADMAP.md queue A.10)")
+            "multi-head latent attention and prefix layers (DeepSeek-V2) "
+            "are not ported yet (ROADMAP.md queue A.10)")
     return Model(cfg, resolve_device(device), dtype,
                  prefill_chunk=chunk_prefill_supported(cfg))

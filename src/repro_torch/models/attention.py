@@ -22,6 +22,14 @@ not apply to, attend densely (plain PyTorch).
   * ``chunked``: the per-sample path through dense attention under the
     block masks, Ã included (:func:`repro_torch.kernels.chunked.
     chunked_attention_fn`; plain PyTorch, as in the reference).
+
+A config's ``sliding_window`` (Mixtral) is applied as the reference
+applies it: on the sparse paths at **block** granularity, the causal
+window block mask of ``max(window // bs, 1)`` diagonals (and the first
+block column) ANDed into every method's masks (so the oldest block in the
+window keeps tokens a little past ``window``); on the dense path at token
+granularity; and in decode as a token band of the validity mask
+(:func:`repro_torch.models.transformer.window_valid_mask`).
 """
 from __future__ import annotations
 
@@ -34,7 +42,8 @@ from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
 from repro_torch.core.baselines import baseline_block_masks
 from repro_torch.core.patterns import (block_mask_density, causal_block_mask,
-                                       segment_block_mask)
+                                       segment_block_mask,
+                                       sliding_window_block_mask)
 from repro_torch.kernels import (
     batched_sparse_attention_fn,
     cap_block_mask,
@@ -118,7 +127,8 @@ class LayerStage(NamedTuple):
     ``(B, Hkv, S, D)`` and, where a sparse method applies, the masks
     ``(B, H, NB, NB)`` and the stats gate ``(B, H)``; for ``share`` also
     the decision and, for the batched kernel, the head permutation (a
-    baseline stages neither, and a gate of zeros: it consumes no Ã)."""
+    baseline stages neither, and a gate of zeros: it consumes no Ã).  The
+    dense path stages the token window of its attention rows."""
     q: torch.Tensor
     k: torch.Tensor
     v: torch.Tensor
@@ -126,6 +136,7 @@ class LayerStage(NamedTuple):
     decision: object = None
     gate: Optional[torch.Tensor] = None
     perm: Optional[torch.Tensor] = None
+    window: int = 0
 
 
 def _qkv_rope(params, x, cfg: ModelConfig, positions, method: str):
@@ -137,6 +148,22 @@ def _qkv_rope(params, x, cfg: ModelConfig, positions, method: str):
     return q, k, v
 
 
+def extra_block_mask(cfg: ModelConfig, nb: int, bs: int,
+                     seg_blocks: Optional[int] = None, *, device=None
+                     ) -> Optional[torch.Tensor]:
+    """The ``(NB, NB)`` mask ANDed into a sparse prefill's masks: the
+    sliding window's block mask (``max(window // bs, 1)`` diagonals) and a
+    packed row's block-diagonal segment mask, or None."""
+    extra = None
+    if cfg.sliding_window:
+        extra = sliding_window_block_mask(
+            nb, max(cfg.sliding_window // bs, 1), device=device)
+    if seg_blocks is not None:
+        seg = segment_block_mask(nb, seg_blocks, device=device)
+        extra = seg if extra is None else extra & seg
+    return extra
+
+
 def attention_prefill_begin(
     params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor, *,
     method: str, sp: SharePrefill, sp_state,
@@ -146,16 +173,16 @@ def attention_prefill_begin(
     """QKV, rope and the full-length mask staging (strips, decision,
     dictionary lookup, head permutation; a baseline's masks) of one layer:
     the ops whose inputs cannot be cut into query rows without changing the
-    masks.  ``seg_blocks`` ANDs the block-diagonal segment mask of a packed
-    row of ``seg_blocks``-block segments into the masks."""
+    masks.  :func:`extra_block_mask` (the sliding window, and with
+    ``seg_blocks`` the block-diagonal segment mask of a packed row of
+    ``seg_blocks``-block segments) is ANDed into the masks."""
     q, k, v = _qkv_rope(params, x, cfg, positions, method)
     n = x.shape[1]
     if method == "dense" or not sp.applicable(n):
-        return LayerStage(q, k, v)
+        return LayerStage(q, k, v, window=cfg.sliding_window)
     bs = prefill_block_size(sp, n)
     nb = n // bs
-    extra = (None if seg_blocks is None else segment_block_mask(
-        nb, seg_blocks, device=x.device))
+    extra = extra_block_mask(cfg, nb, bs, seg_blocks, device=x.device)
     if method != "share":
         masks = baseline_block_masks(method, q, k, gamma=sp.cfg.gamma,
                                      block_size=bs)
@@ -195,7 +222,7 @@ def attention_prefill_rows(
     if stage.masks is None:
         kx, vx = expand_kv(k, v, q.shape[1])
         return chunked_attention(q_c, kx, vx, block_size=bs, causal=True,
-                                 q_offset=off), None
+                                 window=stage.window, q_offset=off), None
     impl = resolved_attn_impl(attn_impl)
     if impl not in ROW_ATTN_IMPLS:
         raise ValueError(
@@ -287,11 +314,12 @@ def attention_prefill(
     per_sample = (resolved_attn_impl(attn_impl) not in ROW_ATTN_IMPLS
                   and method != "dense" and sp.applicable(n))
     if per_sample and method == "share":
-        attention_fn = resolve_attention_fn(
-            attn_impl, prefill_block_size(sp, n), width=attn_width)
+        bs = prefill_block_size(sp, n)
+        attention_fn = resolve_attention_fn(attn_impl, bs, width=attn_width)
         q, k, v = _qkv_rope(params, x, cfg, positions, method)
         out, new_state, ls = sa.batched_share_prefill_attention_layer(
-            q, k, v, sp_state, cluster_ids, sp.cfg, attention_fn)
+            q, k, v, sp_state, cluster_ids, sp.cfg, attention_fn,
+            extra_block_mask(cfg, n // bs, bs, device=x.device))
         return common.gqa_out(params, out), (k, v), new_state, \
             _attn_stats(ls)
     stage = attention_prefill_begin(

@@ -1,13 +1,26 @@
-"""Shared building blocks of the dense decoder (port of
-``repro/models/common.py``): RMSNorm and RoPE in float32, SwiGLU, and the
-GQA projections with the reference's ``(d, H, hd)`` / ``(H, hd, d)`` weight
-layouts.  Plain ``torch.matmul``/``einsum`` products, as the reference
-leaves these to XLA outside any Pallas kernel.
+"""Shared building blocks of the decoder (port of
+``repro/models/common.py``): the reference's fan-in initialiser, RMSNorm
+and RoPE in float32, SwiGLU, and the GQA projections with the reference's
+``(d, H, hd)`` / ``(H, hd, d)`` weight layouts.  Plain
+``torch.matmul``/``einsum`` products, as the reference leaves these to XLA
+outside any Pallas kernel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def dense_init_(out: torch.Tensor, generator: torch.Generator
+                ) -> torch.Tensor:
+    """Fill ``out`` as the reference's ``dense_init``: truncated normal in
+    [−2, 2] scaled by 1/√fan_in (fan_in = the leading axis), drawn in
+    float32 on ``out``'s device (``generator`` must live there).  Same
+    distribution, not the same numbers."""
+    t = torch.empty(out.shape, dtype=torch.float32, device=out.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    t.mul_(1.0 / out.shape[0] ** 0.5)
+    return out.copy_(t)
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -1,12 +1,15 @@
-"""Decoder-only transformer for the ``dense`` family (port of
+"""Decoder-only transformer for the ``dense`` and ``moe`` families (port of
 ``repro/models/transformer.py``).
 
 Parameters are a plain dict (see :mod:`repro_torch.checkpoint`): ``embed``,
 ``final_norm``, ``lm_head`` and ``layers``, a list of per-layer dicts
-``{attn: {wq, wk, wv, wo}, ffn: {w_gate, w_up, w_down}, ln1, ln2}``.  The
-reference's ``lax.scan`` over stacked layers is a Python loop here; the
-SharePrefill dictionary state is carried from layer to layer.  The KV cache
-is a pair of stacked tensors ``(L, B, Hkv, S, hd)``.
+``{attn: {wq, wk, wv, wo}, ffn: {w_gate, w_up, w_down}, ln1, ln2}``; a MoE
+layer's ``ffn`` holds the router and the expert stacks
+(:mod:`repro_torch.models.moe`).  The reference's ``lax.scan`` over stacked
+layers is a Python loop here; the SharePrefill dictionary state is carried
+from layer to layer.  The KV cache is a pair of stacked tensors ``(L, B,
+Hkv, S, hd)``.  A config's ``sliding_window`` (Mixtral) bands the decode's
+validity mask; prefill applies it in :mod:`repro_torch.models.attention`.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
 from repro_torch.kernels.decode_attn import DecodePlan
 from repro_torch.models import attention as attn
-from repro_torch.models import common
+from repro_torch.models import common, moe
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -49,8 +52,16 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
     return params["embed"][tokens]
 
 
+def _uses_moe(cfg: ModelConfig) -> bool:
+    return cfg.moe.enabled
+
+
 def _ffn_apply(layer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """One layer's FFN on its ln2-normed input (the dense family's MLP)."""
+    """One layer's FFN on its ln2-normed input: the MoE FFN for the
+    ``moe`` family (its aux losses are for training and dropped here),
+    else the SwiGLU MLP."""
+    if _uses_moe(cfg):
+        return moe.moe_apply(layer["ffn"], h, cfg)[0]
     return common.mlp(layer["ffn"], h)
 
 
@@ -126,6 +137,17 @@ def decode_valid_mask(cache_len: int, pos, prompt_lens: torch.Tensor,
                | (slots >= attn.row_positions(prefill_len, b, dev))))
 
 
+def window_valid_mask(valid: Optional[torch.Tensor], cache_len: int, pos,
+                      window: int, b: int, device) -> torch.Tensor:
+    """``valid`` (or, without it, every slot ≤ pos) ANDed with the sliding
+    window's band ``(pos − window, pos]``, per row: the reference's
+    token-level window term of the decode mask (no sink)."""
+    slots = torch.arange(cache_len, device=device)[None, :]
+    pcol = attn.row_positions(pos, b, device)
+    band = (slots > pcol - window) & (slots <= pcol)
+    return band if valid is None else valid & band
+
+
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 cache: Cache, pos, *,
                 plan: Optional[DecodePlan] = None,     # (L, B, …) leaves
@@ -134,6 +156,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 decode_impl: str = "auto",
                 page_table: Optional[torch.Tensor] = None,    # (B, NB)
                 collect_queries: bool = False,
+                window: int = 0,
                 ):
     """One decode step: token (B, 1) → logits (B, V), and the cache.
 
@@ -149,7 +172,12 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     ``collect_queries`` also returns every layer's post-rope query
     ``(L, B, H, hd)`` as a third output (refresh's window capture); it
     needs a plan, as in the reference.  The logits are those of the step
-    without it."""
+    without it.
+
+    ``window`` (default: the config's ``sliding_window``) keeps only the
+    last ``window`` positions of each row visible, at token granularity;
+    a plan's blocks are not narrowed by it, so a kept block the band hides
+    wholly streams and weighs nothing."""
     if collect_queries and plan is None:
         raise ValueError("collect_queries requires a DecodePlan (the "
                          "refresh path is sparse paged decode)")
@@ -160,11 +188,14 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
         raise ValueError("paged decode requires per-slot (vector) pos")
     positions = attn.row_positions(pos, b, token.device)
     x = embed_tokens(params, cfg, token)
+    window = window or cfg.sliding_window
+    s = (page_table.shape[1] * cache_k.shape[3] if page_table is not None
+         else cache_k.shape[3])
     valid = None
     if prompt_lens is not None:
-        s = (page_table.shape[1] * cache_k.shape[3] if page_table is not None
-             else cache_k.shape[3])
         valid = decode_valid_mask(s, pos, prompt_lens, prefill_len)
+    if window > 0:
+        valid = window_valid_mask(valid, s, pos, window, b, token.device)
     qs = []
     for li, layer in enumerate(params["layers"]):
         h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)

@@ -21,6 +21,8 @@ from repro_torch.serving.paged_cache import (
     PageAllocatorError,
     init_paged_pool,
 )
+from repro_torch.serving.prefix_cache import (PrefixEntry, PrefixIndex,
+                                              prefix_digest)
 from repro_torch.serving.sampling import SamplingConfig, sample_token
 from repro_torch.serving.scheduler import SchedulerHandle, SlotScheduler
 from repro_torch.serving.width_policy import (auto_width_cap,
@@ -28,9 +30,10 @@ from repro_torch.serving.width_policy import (auto_width_cap,
 
 __all__ = ["CancelAt", "EngineConfig", "FaultInjector", "HoldPages",
            "NULL_PAGE", "NaNLogits", "PageAllocator", "PageAllocatorError",
-           "PrefillError", "Request", "RequestError", "SamplingConfig",
-           "SchedulerHandle", "ServingEngine", "SlotScheduler",
-           "SlowQuantum", "auto_width_cap", "build_decode_plan",
-           "empty_decode_plan", "init_paged_pool", "plan_block_counts",
-           "plan_traffic_fraction", "population_width_cap", "sample_token",
+           "PrefillError", "PrefixEntry", "PrefixIndex", "Request",
+           "RequestError", "SamplingConfig", "SchedulerHandle",
+           "ServingEngine", "SlotScheduler", "SlowQuantum", "auto_width_cap",
+           "build_decode_plan", "empty_decode_plan", "init_paged_pool",
+           "plan_block_counts", "plan_traffic_fraction",
+           "population_width_cap", "prefix_digest", "sample_token",
            "update_plan_slot"]

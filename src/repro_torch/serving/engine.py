@@ -47,8 +47,10 @@ live KV (:mod:`repro_torch.serving.refresh`), and ``width_policy="auto"``
 / ``"count"`` resolve the prefill width cap per bucket from the first
 prefill's observation (:mod:`repro_torch.serving.width_policy`).  The
 batch path ignores handles, faults, deadlines and preemption, as in the
-reference.  Prefix sharing is not ported yet: asking for it raises
-``NotImplementedError`` naming the ROADMAP.md item.
+reference.  ``prefix_sharing`` (paged) lets a request whose clipped prompt
+a completed prefill already published skip its prefill and map the
+published pages copy-on-write (:mod:`repro_torch.serving.prefix_cache`);
+``prefix_stats`` holds the serve's hits, misses, pages saved and copies.
 """
 from __future__ import annotations
 
@@ -74,22 +76,6 @@ from repro_torch.serving.width_policy import (auto_width_cap,
                                               population_width_cap)
 
 logger = logging.getLogger(__name__)
-
-
-def _refuse_unported(obj, table) -> None:
-    """Raise for a field of ``table`` set away from its default."""
-    for name, (default, item) in table.items():
-        if getattr(obj, name) != default:
-            raise NotImplementedError(
-                f"{type(obj).__name__}.{name}={getattr(obj, name)!r}: not "
-                f"ported yet (ROADMAP.md queue {item})")
-
-
-# Request fields of the reference that are not ported yet: a value other
-# than the default raises, naming the ROADMAP.md item that ports it
-_REQUEST_NOT_PORTED = {
-    "prefix_hit": (False, "A.9 (prefix sharing)"),
-}
 
 
 @dataclasses.dataclass
@@ -128,7 +114,9 @@ class Request:
                                         # admission waited on pool headroom
     preempted_count: int = 0            # evictions (pages reclaimed, tokens
                                         # carried, re-queued)
-    prefix_hit: bool = False
+    prefix_hit: bool = False            # admitted on a prefix hit: pages
+                                        # mapped from a published run, no
+                                        # prefill
     tail_fraction: float = 0.0          # share of its plan row's streamed
                                         # blocks in the dense decode tail
     plan_traffic_fraction: float = 0.0  # its plan row's streamed-block
@@ -139,9 +127,6 @@ class Request:
     resume_tokens: List[int] = dataclasses.field(default_factory=list)
     pattern_stats: Optional[Dict[str, float]] = None
 
-    def __post_init__(self):
-        _refuse_unported(self, _REQUEST_NOT_PORTED)
-
     def metrics(self) -> Dict[str, float]:
         return {"queue_s": self.queue_s, "ttft_s": self.ttft_s,
                 "prefill_s": self.prefill_s, "decode_s": self.decode_s,
@@ -149,17 +134,10 @@ class Request:
                 "prefill_stall_s": self.prefill_stall_s,
                 "waiting_deferred_steps": self.waiting_deferred_steps,
                 "preempted_count": self.preempted_count,
+                "prefix_hit": float(self.prefix_hit),
                 "tail_fraction": self.tail_fraction,
                 "plan_traffic_fraction": self.plan_traffic_fraction,
                 "refreshes": float(self.refreshes)}
-
-
-# EngineConfig fields of the reference that are not ported yet: a value
-# other than the default raises, naming the ROADMAP.md item that ports it
-_NOT_PORTED = {
-    "prefix_sharing": (False, "A.9 (prefix sharing)"),
-    "prefix_max_entries": (32, "A.9 (prefix sharing)"),
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,8 +168,11 @@ class EngineConfig:
     preempt_after_steps: int = 0        # paged: a queue head starved of
                                         # pages this many steps evicts a
                                         # decoding victim (0: never)
-    prefix_sharing: bool = False
-    prefix_max_entries: int = 32
+    prefix_sharing: bool = False        # paged: a completed solo prefill
+                                        # publishes its page run; the same
+                                        # clipped prompt later maps it
+                                        # copy-on-write and skips prefill
+    prefix_max_entries: int = 32        # LRU capacity of the prefix index
     refresh_every: int = 0              # paged sparse decode: re-estimate
                                         # a slot's plan row every this many
                                         # steps at block boundaries (0: off)
@@ -204,9 +185,6 @@ class EngineConfig:
     refresh_strip_impl: str = "auto"    # the reference's strip switch; the
                                         # port's strip follows the tensors'
                                         # device
-
-    def __post_init__(self):
-        _refuse_unported(self, _NOT_PORTED)
 
 
 class ServingEngine:
@@ -229,14 +207,16 @@ class ServingEngine:
         """Per-serve accounting: decode slot capacity and the slots that
         emitted a token (both paths), the scheduler's wall time by phase,
         admissions deferred on pool headroom, the paged pool's end-of-serve
-        summary, preemptions and refresh counters; and the serve's
-        cancellation handle and fault injector."""
+        summary, the prefix index's counters, preemptions and refresh
+        counters; and the serve's cancellation handle and fault
+        injector."""
         self.slot_steps = 0
         self.active_slot_steps = 0
         self.phase_s: Dict[str, float] = {"prefill": 0.0, "decode": 0.0,
                                           "idle": 0.0, "refresh": 0.0}
         self.pages_exhausted_steps = 0
         self.page_pool_stats: Dict[str, float] = {}
+        self.prefix_stats: Dict[str, float] = {}
         self.preemptions = 0
         self.refresh_stats: Dict[str, float] = {
             "refreshes": 0, "deferred_cow": 0, "horizon_extensions": 0}
@@ -473,6 +453,19 @@ class ServingEngine:
                  "block_density": float(st.block_density),
                  "max_row_pop": float(st.max_row_pop),
                  "prefill_width_cap": 0 if width is None else int(width)}
+        if self.ecfg.width_policy == "auto":
+            self._density_obs.setdefault(seq, []).append(
+                stats["block_density"])
+        elif self.ecfg.width_policy == "count":
+            self._pop_obs.setdefault(seq, []).append(stats["max_row_pop"])
+        return stats
+
+    def _replay_prefill_stats(self, stats: Dict[str, float],
+                              seq: int) -> Dict[str, float]:
+        """A prefix hit's stats: the donor's, whose width-policy observation
+        is fed again, since the hit's cold prefill would have made exactly
+        it (so later caps, and masks, follow the serve without sharing)."""
+        stats = dict(stats)
         if self.ecfg.width_policy == "auto":
             self._density_obs.setdefault(seq, []).append(
                 stats["block_density"])

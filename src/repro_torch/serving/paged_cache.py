@@ -206,6 +206,15 @@ def insert_prefill_layer(cache: Pool, layer: int, k: torch.Tensor,
     return cache
 
 
+def copy_page(cache: Pool, src: int, dst: int) -> Pool:
+    """Copy page ``src``'s K/V to page ``dst`` in every layer, in place:
+    the copy half of copy-on-write at the decode boundary (a slot about to
+    append into a shared page moves onto a private copy first)."""
+    for pool in cache:
+        pool[:, dst] = pool[:, src]
+    return cache
+
+
 def page_bytes(cfg, page_size: int, itemsize: int = 4) -> int:
     """Bytes one page holds across all layers, K and V."""
     return (2 * cfg.num_layers * cfg.num_kv_heads * page_size

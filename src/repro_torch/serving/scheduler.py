@@ -100,10 +100,30 @@ shared with another holder defers its refresh (:meth:`_refresh_fenced`).
 With ``refresh_every=0`` nothing is captured and every splice is the
 frozen path's.
 
+**Prefix sharing with copy-on-write** (``EngineConfig.prefix_sharing``,
+paged): a completed solo prefill publishes the request's whole page run
+(prompt pages and decode tail) to a :class:`~repro_torch.serving.
+prefix_cache.PrefixIndex` under the digest of its clipped prompt at its
+bucket; the index holds one reference a page, so the run is read-only from
+then on.  A queued request with the same digest (and the same width cap)
+skips its prefill (:meth:`_start_from_prefix`): its table maps the
+published pages (``PageAllocator.share``, no page acquired, no headroom
+gate), and the donor's first-token logits, plan row and width-policy
+observation are replayed.  The donor's prefill and the hit's would-be cold
+prefill are the same deterministic computation on the same input, so the
+hit's stream is bitwise the serve's without sharing, greedy or sampled
+(the generator is seeded from the hit's uid).  Before each decode step a
+slot about to append into a page of refcount > 1 (a hit's or the donor's
+published tail) moves onto a fresh copy (:meth:`_cow_append_page`).  The
+index is a cache: a starved cold admission (:meth:`_shed_index_for`) and a
+copy that finds no free page evict its coldest entries first, and a copy
+that still finds none preempts its own slot (resumed bitwise).  Packed
+runs are never published, and the index is cleared before the pool
+summary.
+
 Sampled (temperature > 0) streams draw from one ``torch.Generator`` per
 request, seeded from ``(seed, uid)``; they are not held against the
-reference, whose JAX key chains cannot be reproduced.  Prefix sharing
-(ROADMAP.md A.9) is not ported.
+reference, whose JAX key chains cannot be reproduced.
 """
 from __future__ import annotations
 
@@ -119,7 +139,7 @@ import numpy as np
 import torch
 
 from repro_torch.serving import decode_plan as dplan
-from repro_torch.serving import paged_cache, sparse_decode
+from repro_torch.serving import paged_cache, prefix_cache, sparse_decode
 from repro_torch.serving import refresh as refresh_mod
 from repro_torch.serving.chunked_prefill import ChunkedPrefillRun
 from repro_torch.serving.errors import RequestError
@@ -215,7 +235,13 @@ class SlotScheduler:
                     f"paged serving needs block-aligned seq buckets; got "
                     f"bucket {seq} with page_size {blk}")
             self.table_blocks = self.cache_len // blk
-            cap = ecfg.num_pages or 1 + self.nslots * self.table_blocks
+            # auto-sized: a full run for every slot and, with prefix
+            # sharing, one run the index pins plus one copied tail page a
+            # slot (else every shared decode preempts instead of copying)
+            share_extra = ((self.table_blocks + self.nslots)
+                           if ecfg.prefix_sharing else 0)
+            cap = ecfg.num_pages or (1 + self.nslots * self.table_blocks
+                                     + share_extra)
             if cap - 1 < self.table_blocks:
                 raise ValueError(
                     f"num_pages={cap} cannot hold one max-length request "
@@ -226,6 +252,16 @@ class SlotScheduler:
             self.page_table = np.full((self.nslots, self.table_blocks),
                                       paged_cache.NULL_PAGE, np.int32)
             self.slot_pages: dict = {}
+        # prompt-prefix sharing: the index, the copy-on-write count and the
+        # model part of the digest
+        self.prefix = None
+        self._cow_copies = 0
+        if self.paged and ecfg.prefix_sharing:
+            self.prefix = prefix_cache.PrefixIndex(ecfg.prefix_max_entries)
+            mcfg = engine.model.cfg
+            self._prefix_salt = (
+                f"{mcfg.name}/{mcfg.family}/{mcfg.num_layers}/"
+                f"{mcfg.num_heads}/{mcfg.resolved_head_dim}")
         # paged mode drops the bucket-wide applicability term: a bucket
         # whose prefill gives no dictionary gets the dense row per request
         self.use_sparse = (ecfg.decode_sparse and ecfg.method == "share"
@@ -276,8 +312,11 @@ class SlotScheduler:
                     self._decode_step()
             self._flush_stale_slots()   # unoccupied slots' rows are empty
         finally:
-            # injected page holds never outlive the serve, and the pool
-            # summary publishes even if the serve raised
+            # the index's page references and injected page holds never
+            # outlive the serve, and the pool summary publishes even if the
+            # serve raised
+            if self.prefix is not None:
+                self.prefix.clear(self.alloc)
             if self.faults is not None and self.paged:
                 self.faults.release_pages(self.alloc)
             self._pool_summary()
@@ -290,12 +329,15 @@ class SlotScheduler:
             self._prefill_step()
             if (self.run_ is not None and self.paged and self.queue
                     and (self.t0 + self.queue[0].arrival_s) <= time.time()
-                    and self.alloc.free_pages
-                    < self._pages_needed(self.queue[0])):
-                # the arrived head would wait on pages even once the run
-                # in flight lands: the starvation clock keeps running, so
-                # a decoding victim can be evicted mid-admission
-                self._note_starved(self.queue[0])
+                    and self._prefix_entry(self.queue[0]) is None):
+                self._shed_index_for(self.queue[0])
+                if (self.alloc.free_pages
+                        < self._pages_needed(self.queue[0])):
+                    # the arrived head would wait on pages even once the
+                    # run in flight lands: the starvation clock keeps
+                    # running, so a decoding victim can be evicted
+                    # mid-admission
+                    self._note_starved(self.queue[0])
             self._flush_stale_slots()
             if any(s is not None for s in self.slots):
                 self._decode_step()
@@ -384,7 +426,7 @@ class SlotScheduler:
         engine (``pages_in_use_at_end`` is 0 after a drained serve)."""
         if not self.paged:
             return
-        self.eng.page_pool_stats = {
+        stats = {
             "num_pages": self.num_pages,
             "page_size": self.page_size,
             "table_blocks": self.table_blocks,
@@ -393,6 +435,12 @@ class SlotScheduler:
                                  / max(1, self.num_pages - 1)),
             "pages_in_use_at_end": self.alloc.used_pages,
         }
+        if self.prefix is not None:
+            pstats = self.prefix.stats()
+            pstats["prefix_cow_copies"] = float(self._cow_copies)
+            stats.update(pstats)
+            self.eng.prefix_stats = pstats
+        self.eng.page_pool_stats = stats
 
     def _flush_stale_slots(self) -> None:
         """Empty the plan rows of slots vacated since the last decode step
@@ -466,6 +514,17 @@ class SlotScheduler:
             self.alloc.free(pages)
             self.page_table[slot, :] = paged_cache.NULL_PAGE
 
+    def _shed_index_for(self, r) -> None:
+        """Memory pressure at admission: the prefix index's pinned runs
+        yield, coldest first, before the head waits on headroom (else a
+        cold request could wait forever on pages only the index holds,
+        with no decoding slot to preempt)."""
+        if self.prefix is None:
+            return
+        while (len(self.prefix)
+               and self.alloc.free_pages < self._pages_needed(r)):
+            self.prefix.evict_one(self.alloc)
+
     def _note_starved(self, r) -> None:
         """The queue head waited on pool headroom this step; past the
         starvation window a decoding victim is preempted."""
@@ -512,6 +571,64 @@ class SlotScheduler:
         logger.info("preempted request %s after %d generated tokens (%s, "
                     "%d pages reclaimed); re-queued with its tokens",
                     r.uid, len(s.outs), why, npages)
+
+    # -- prompt-prefix sharing --------------------------------------------
+    def _prefix_digest(self, r) -> str:
+        """The (model, bucket, clipped prompt) digest: a truncated request
+        hashes what is prefilled, before and after a preemption."""
+        return prefix_cache.prefix_digest(r.prompt, self._bucket_of(r),
+                                          self._prefix_salt)
+
+    def _prefix_entry(self, r):
+        """The published entry matching ``r``, or None.  A hit needs the
+        donor's width cap: under a width policy not yet frozen the cold
+        prefill would run under another cap, with other masks and K/V."""
+        if self.prefix is None:
+            return None
+        e = self.prefix.lookup(self._prefix_digest(r))
+        if e is None or e.width != self.eng._width_cap(e.bucket):
+            return None
+        return e
+
+    def _publish_prefix(self, r, slot: int, logits, plan_row, stats,
+                        plen: int, seq: int, width) -> None:
+        """Publish a cold prefill just completed: the slot's whole page run
+        is pinned (one reference a page) and becomes read-only, so the
+        donor's own next append copies its tail page, and a later identical
+        prompt maps the run instead of prefilling."""
+        if self.prefix is None:
+            return
+        self.prefix.publish(prefix_cache.PrefixEntry(
+            digest=self._prefix_digest(r), bucket=seq, plen=plen,
+            pages=np.array(self.slot_pages[slot], np.int32),
+            prompt_pages=seq // self.page_size, logits=logits,
+            plan_row=plan_row, stats=dict(stats), width=width), self.alloc)
+
+    def _cow_append_page(self, slot: int) -> None:
+        """Copy-on-write at the decode boundary: when the page holding
+        ``pos[slot]`` is shared (refcount > 1), move the slot onto a fresh
+        copy of it — table entry rewritten, shared reference dropped — so
+        the other holders keep it bit for bit.  No free page: evict index
+        entries until one frees; still none: preempt this slot (resumed
+        bitwise) rather than append into a shared page."""
+        b = int(self.pos[slot]) // self.page_size
+        old = int(self.page_table[slot, b])
+        if old == paged_cache.NULL_PAGE or self.alloc.refcount(old) <= 1:
+            return
+        fresh = self.alloc.acquire(1)
+        while fresh is None and self.prefix is not None and len(self.prefix):
+            self.prefix.evict_one(self.alloc)
+            fresh = self.alloc.acquire(1)
+        if fresh is None:
+            self._preempt_slot(slot, "no page to copy a shared page into")
+            return
+        new = int(fresh[0])
+        paged_cache.copy_page(self.cache, old, new)
+        self.page_table[slot, b] = new
+        pages = self.slot_pages[slot]
+        pages[pages == old] = new
+        self.alloc.release([old])
+        self._cow_copies += 1
 
     # -- adaptive pattern refresh ---------------------------------------
     def _init_refresh_slot(self, slot: int, row, pos: int) -> None:
@@ -636,11 +753,14 @@ class SlotScheduler:
             if not free:
                 return
             r = self.queue[0]
-            if self.paged and self.alloc.free_pages < self._pages_needed(r):
-                # the head waits until a finishing (or preempted) slot
-                # frees pages; later, smaller requests do not jump the queue
-                self._note_starved(r)
-                return
+            if self.paged and self._prefix_entry(r) is None:
+                self._shed_index_for(r)
+                if self.alloc.free_pages < self._pages_needed(r):
+                    # the head waits until a finishing (or preempted) slot
+                    # frees pages; later, smaller requests do not jump the
+                    # queue.  A prefix hit maps pages instead: no gate.
+                    self._note_starved(r)
+                    return
             wait = (self.t0 + r.arrival_s) - time.time()
             if wait > 0:
                 if any(s is not None for s in self.slots):
@@ -667,10 +787,47 @@ class SlotScheduler:
                      t_first=t_first, replay=carry[1:],
                      carry_len=len(carry))
 
+    @staticmethod
+    def _first_token_ends(s: _Slot) -> Optional[str]:
+        """The finish reason of a request done with its first token (a
+        stop token, or ``max_new_tokens`` of 1), or None."""
+        if s.req.sampling.is_stop(s.outs[0]):
+            return "stop"
+        return "length" if len(s.outs) >= s.req.max_new_tokens else None
+
+    def _occupy(self, slot: int, s: _Slot, plen: int, seq: int,
+                row) -> None:
+        """prefilling → decode: the slot decodes from its prefill boundary
+        ``seq`` (``row``: its spliced plan row, for refresh)."""
+        self.pos[slot] = seq
+        self.plens[slot] = plen
+        self.pflens[slot] = seq
+        self.slots[slot] = s
+        s.req.state = "decode"
+        if self.refresh_on:
+            self._init_refresh_slot(slot, row, seq)
+
+    def _quarantine_prefill(self, r, e: Exception) -> None:
+        """An admission's prefill (or an injected fault) raised: only this
+        request fails — no slot is occupied and no page granted yet."""
+        err = (e if isinstance(e, RequestError) else RequestError(
+            r.uid, f"prefill raised {type(e).__name__}: {e}",
+            kind="prefill"))
+        logger.warning("quarantined: %s", err, exc_info=True)
+        self._finish_inert(r, "failed", error=err)
+
     def _start(self, r, slot: int) -> None:
         """prefilling → decode: prefill one request alone, sample its first
-        token, write its K/V and splice its plan row."""
+        token, write its K/V and splice its plan row (or, on a prefix hit,
+        :meth:`_start_from_prefix`); a prefill under prefix sharing is
+        published."""
         eng, seq = self.eng, self._bucket_of(r)
+        entry = self._prefix_entry(r)
+        if entry is not None:
+            self._start_from_prefix(r, slot, entry)
+            return
+        if self.prefix is not None:
+            self.prefix.misses += 1
         self._starved = 0               # the head is admitted
         r.state = "prefilling"
         toks = np.zeros((1, seq), np.int64)
@@ -679,8 +836,6 @@ class SlotScheduler:
         tp = time.time()
         r.queue_s = max(tp - (self.t0 + r.arrival_s), 0.0)
         try:
-            # a failing prefill fails only this request: no slot is
-            # occupied and no page granted yet, so nothing to unwind
             if self.faults is not None:
                 self.faults.check_prefill([r.uid])
             result = eng.model.prefill(
@@ -692,11 +847,7 @@ class SlotScheduler:
         except Exception as e:          # noqa: BLE001 — quarantine wall
             r.prefill_s = time.time() - tp
             eng.phase_s["prefill"] += r.prefill_s
-            err = (e if isinstance(e, RequestError) else RequestError(
-                r.uid, f"prefill raised {type(e).__name__}: {e}",
-                kind="prefill"))
-            logger.warning("quarantined: %s", err, exc_info=True)
-            self._finish_inert(r, "failed", error=err)
+            self._quarantine_prefill(r, e)
             return
         r.prefill_s = time.time() - tp
         eng.phase_s["prefill"] += r.prefill_s
@@ -717,12 +868,10 @@ class SlotScheduler:
             return
 
         s = self._first_token(r, result.last_logits)
-        if r.sampling.is_stop(s.outs[0]):
-            self._finish(s, "stop")
+        reason = self._first_token_ends(s)
+        if reason is not None:
+            self._finish(s, reason)
             return                      # the slot stays free
-        if len(s.outs) >= r.max_new_tokens:
-            self._finish(s, "length")
-            return
 
         # decode: occupy the slot (a request that finished on its first
         # token never pays for the plan build)
@@ -765,23 +914,75 @@ class SlotScheduler:
             self._splice_row(slot, rplan)
             self._stale_slots.discard(slot)    # the refill replaced the row
             prow = rplan
-        self.pos[slot] = seq
-        self.plens[slot] = plen
-        self.pflens[slot] = seq
-        self.slots[slot] = s
-        r.state = "decode"
-        if self.refresh_on:
-            self._init_refresh_slot(slot, prow, seq)
+        self._occupy(slot, s, plen, seq, prow)
+        self._publish_prefix(r, slot, result.last_logits, prow, stats, plen,
+                             seq, width)
+
+    def _start_from_prefix(self, r, slot: int, entry) -> None:
+        """Prefix hit → decode: map the donor's page run into this slot's
+        table read-only (one more reference a page, no page acquired), skip
+        the prefill and replay the donor's logits, plan row and width-policy
+        observation.  Injected prefill faults still apply, so a poisoned
+        request fails whether or not its prompt is cached."""
+        eng, seq = self.eng, self._bucket_of(r)
+        self._starved = 0               # the head is admitted
+        r.state = "prefilling"
+        # the hit never reaches _pad_prompt, so the clip is flagged here
+        r.truncated = len(np.asarray(r.prompt)) > seq
+        tp = time.time()
+        r.queue_s = max(tp - (self.t0 + r.arrival_s), 0.0)
+        try:
+            if self.faults is not None:
+                self.faults.check_prefill([r.uid])
+        except Exception as e:          # noqa: BLE001 — quarantine wall
+            self._quarantine_prefill(r, e)
+            return
+        r.prefill_s = time.time() - tp  # ≈ 0: no prefill runs
+        eng.phase_s["prefill"] += r.prefill_s
+        r.prefix_hit = True
+        entry.hits += 1
+        self.prefix.hits += 1
+        r.pattern_stats = eng._replay_prefill_stats(entry.stats, seq)
+        if r.max_new_tokens <= 0:       # prefill-only: no token is emitted
+            self._finish_inert(r, "length")
+            return
+
+        # the donor's logits ARE this prompt's: the cold admission's carry
+        # and generator contract, unchanged
+        s = self._first_token(r, entry.logits)
+        reason = self._first_token_ends(s)
+        if reason is not None:
+            self._finish(s, reason)
+            return                      # no page is mapped yet
+
+        # decode: map the run (same bucket, the serve's one decode tail)
+        if len(entry.pages) != self._pages_needed(r):
+            raise RuntimeError("prefix entry geometry mismatch")
+        self.prefix.pages_saved += len(entry.pages)
+        self.alloc.share(entry.pages)
+        self.slot_pages[slot] = np.array(entry.pages, np.int32)
+        self.page_table[slot, : len(entry.pages)] = entry.pages
+        if self.use_sparse:
+            r.tail_fraction, r.plan_traffic_fraction = \
+                dplan.plan_row_tail_stats(
+                    entry.plan_row, prefill_blocks=seq // self.page_size,
+                    num_blocks=len(entry.pages))
+            self._splice_row(slot, entry.plan_row)
+            self._stale_slots.discard(slot)
+        self._occupy(slot, s, entry.plen, seq, entry.plan_row)
 
     # -- chunked admission ----------------------------------------------
     def _pack_limit(self, seq: int) -> int:
         """The most prompts one chunked run may pack at segment length
         ``seq``: packing needs a mask-carrying prefill (the segment mask
-        has nowhere to go on the dense path) and a pattern config
-        applicable at the packed length."""
+        has nowhere to go on the dense path), a pattern config applicable
+        at the packed length and no sliding window (whose width would be
+        measured on packed positions)."""
         eng = self.eng
         p = max(eng.ecfg.prefill_pack, 1)
         if p <= 1 or eng.ecfg.method == "dense" or not eng.sp.cfg.enabled:
+            return 1
+        if eng.model.cfg.sliding_window:
             return 1
         if seq % max(eng.sp.cfg.block_size, 1):
             return 1
@@ -792,13 +993,16 @@ class SlotScheduler:
     def _assemble_run(self) -> Optional[ChunkedPrefillRun]:
         """The next chunked run from the arrived queue heads: one segment
         per free slot, up to the pack limit.  The paged pool's FIFO
-        headroom gate and the arrival wait are the one-shot loop's."""
+        headroom gate and the arrival wait are the one-shot loop's; a
+        prefix hit at the head needs no run (admitted at once) and never
+        rides in a packed one."""
         eng = self.eng
         free = [i for i, s in enumerate(self.slots) if s is None]
         if not free or not self.queue:
             return None
-        if self.paged and (self.alloc.free_pages
-                           < self._pages_needed(self.queue[0])):
+        head_hit = self._prefix_entry(self.queue[0]) is not None
+        if self.paged and not head_hit and (
+                self.alloc.free_pages < self._pages_needed(self.queue[0])):
             self._note_starved(self.queue[0])
             return None
         wait = (self.t0 + self.queue[0].arrival_s) - time.time()
@@ -807,6 +1011,9 @@ class SlotScheduler:
                 return None             # keep decoding, admit it later
             time.sleep(wait)            # fully idle: jump to next arrival
             eng.phase_s["idle"] += wait
+        if head_hit:
+            self._start(self.queue.popleft(), free[0])
+            return None
 
         seq = self._bucket_of(self.queue[0])
         chunk = self.chunk if not self.paged else eng._chunk_tokens(seq)
@@ -823,6 +1030,8 @@ class SlotScheduler:
                 r = self.queue[0]
                 if self._bucket_of(r) != seq:
                     break       # packing needs one segment length
+                if group and self._prefix_entry(r) is not None:
+                    break       # a hit is admitted without a run next
                 need = self._pages_needed(r)
                 if need > reserve:
                     break       # the rest of the group waits for headroom
@@ -830,6 +1039,8 @@ class SlotScheduler:
             group.append(self.queue.popleft())
         if not group:
             return None
+        if self.prefix is not None:
+            self.prefix.misses += len(group)
         self._starved = 0               # the head is admitted
         for r in group:
             r.queue_s = max(now - (self.t0 + r.arrival_s), 0.0)
@@ -968,8 +1179,7 @@ class SlotScheduler:
                 continue
 
             s = self._first_token(r, run.logits[j: j + 1])
-            reason = ("stop" if r.sampling.is_stop(s.outs[0]) else "length"
-                      if len(s.outs) >= r.max_new_tokens else None)
+            reason = self._first_token_ends(s)
             if reason is not None:
                 if self.paged:
                     self._release_pages(slot)
@@ -987,13 +1197,14 @@ class SlotScheduler:
                 self._splice_row(slot, rplan)
                 self._stale_slots.discard(slot)
                 prow = rplan
-            self.pos[slot] = seq
-            self.plens[slot] = run.plens[j]
-            self.pflens[slot] = seq
-            self.slots[slot] = s
-            r.state = "decode"
-            if self.refresh_on:
-                self._init_refresh_slot(slot, prow, seq)
+            self._occupy(slot, s, run.plens[j], seq, prow)
+            if run.P == 1:
+                # a packed segment is never published: its logits and K/V
+                # carry the packed row's shared strip and dictionary, not
+                # the solo prefill a hit must replay
+                self._publish_prefix(r, slot, run.logits[j: j + 1], prow,
+                                     rstats, int(run.plens[j]), seq,
+                                     run.width)
 
     def _quarantine_run(self, run: ChunkedPrefillRun, exc: Exception
                         ) -> None:
@@ -1025,6 +1236,12 @@ class SlotScheduler:
         capture before and the refresh pass after."""
         eng = self.eng
         td = time.time()
+        if self.prefix is not None:
+            # copy-on-write before the append: no shared page is written
+            # (a slot preempted for want of a page sits this step out)
+            for i, s in enumerate(self.slots):
+                if s is not None:
+                    self._cow_append_page(i)
         if self.refresh_on:
             self._horizon_guard()
         occ = [i for i, s in enumerate(self.slots) if s is not None]

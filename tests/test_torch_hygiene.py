@@ -53,10 +53,31 @@ def test_build_model_without_device_raises_without_gpu(monkeypatch):
     assert build_model(cfg, device="cpu").device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("change", [{"family": "moe"},
-                                    {"sliding_window": 4096}])
-def test_build_model_refuses_unported_configs(change):
+def _port_config(ref):
+    """A port ModelConfig with every field of the reference's ``ref``."""
+    base = configs.base
+    nested = {f.name: getattr(base, type(getattr(ref, f.name)).__name__)
+              for f in dataclasses.fields(ref)
+              if dataclasses.is_dataclass(getattr(ref, f.name))}
+    return base.ModelConfig(**{
+        f.name: (nested[f.name](**dataclasses.asdict(getattr(ref, f.name)))
+                 if f.name in nested else getattr(ref, f.name))
+        for f in dataclasses.fields(ref)})
+
+
+# the families still missing (ROADMAP.md A.10): SSM, VLM (M-RoPE), MLA
+# (deepseek-v2's smoke config), hybrid and encoder-decoder; the moe family
+# and sliding windows are served
+@pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2-vl-72b",
+                                  "deepseek-v2-236b", "recurrentgemma-9b",
+                                  "whisper-base"])
+def test_build_model_refuses_unported_configs(arch):
+    cfg = _port_config(jconfigs.get_smoke_config(arch))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jconfigs.get_smoke_config(arch))
     with pytest.raises(NotImplementedError, match="A.10"):
+        build_model(cfg, device="cpu")
+    for change in ({"family": "moe"}, {"sliding_window": 4096}):
         build_model(dataclasses.replace(
             configs.get_smoke_config("granite-3-2b"), **change),
             device="cpu")
@@ -111,9 +132,22 @@ def test_input_shapes_copy_the_reference():
 
 
 def test_registry_holds_the_dense_family():
+    """The dense family and Mixtral (moe, sliding window 4096), pinned
+    field for field against the reference's; an arch still missing is
+    refused."""
     assert set(configs.REGISTRY) == {
         "granite-3-2b", "internlm2-1.8b", "mistral-large-123b",
-        "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b"}
-    assert all(c.family == "dense" for c in configs.REGISTRY.values())
+        "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b", "mixtral-8x22b"}
+    assert {n for n, c in configs.REGISTRY.items()
+            if c.family != "dense"} == {"mixtral-8x22b"}
+    mix = configs.get_config("mixtral-8x22b")
+    assert dataclasses.asdict(mix) == dataclasses.asdict(
+        jconfigs.get_config("mixtral-8x22b"))
+    assert (mix.family, mix.num_layers, mix.d_model, mix.num_heads,
+            mix.num_kv_heads, mix.d_ff, mix.vocab_size, mix.rope_theta,
+            mix.sliding_window) == ("moe", 56, 6144, 48, 8, 16384, 32768,
+                                    1e6, 4096)
+    assert (mix.moe.num_experts, mix.moe.top_k, mix.moe.expert_d_ff,
+            mix.moe.capacity_factor) == (8, 2, 16384, 1.25)
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("mixtral-8x22b")
+        configs.get_config("deepseek-v2-236b")

@@ -15,8 +15,9 @@ What is held, and how tightly:
     the baselines' masks are sparse, at γ = 0.3;
   * the port's ``share`` trace against its own ``Model.prefill``, as the
     reference's ``test_traced_prefill_matches_jitted`` holds its trace;
-  * MoE and prefix-layer configs raise ``NotImplementedError`` naming
-    ROADMAP.md queue A.10.
+  * MLA and prefix-layer configs raise ``NotImplementedError`` naming
+    ROADMAP.md queue A.10; a MoE config is traced (``test_torch_mixtral.py``
+    holds the MoE trace against the reference's).
 """
 import dataclasses
 
@@ -141,11 +142,17 @@ def test_unported_inputs_raise(pair, what):
     cfg, toks = pair["cfg"], T(pair["toks"]).long()
     sp = pair["tm"].default_share_prefill()
     moe = dataclasses.replace(cfg.moe, num_experts=4, top_k=2)
-    if what == "moe":
-        cfg = dataclasses.replace(cfg, moe=moe)
+    mla = dataclasses.replace(cfg.mla, kv_lora_rank=16)
+    if what == "moe":               # served since the Mixtral slice
+        cfg = dataclasses.replace(cfg, family="moe", moe=moe)
+        params = checkpoint.init_params(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+        trace = profile.run_prefill_traced(params, cfg, toks, sp)
+        assert np.isfinite(trace.last_logits).all()
+        assert len(trace.per_layer) == cfg.num_layers
+        cfg = dataclasses.replace(cfg, mla=mla)      # MLA alone: refused
     elif what == "prefix":          # DeepSeek-V2's dense first layer
-        cfg = dataclasses.replace(cfg, moe=moe, mla=dataclasses.replace(
-            cfg.mla, kv_lora_rank=16))
+        cfg = dataclasses.replace(cfg, moe=moe, mla=mla)
     if what in ("moe", "prefix"):
         for fn in (lambda: profile.capture_block_attention_maps(
                        pair["tp"], cfg, toks),

@@ -17,7 +17,6 @@ Every test runs under a page-leak audit (the twin of the reference's
 zero pages in use and a consistent allocator.
 """
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -279,8 +278,8 @@ def test_per_request_metrics(pair):
         assert set(m) == {"queue_s", "ttft_s", "prefill_s", "decode_s",
                           "decode_tokens_per_s", "prefill_stall_s",
                           "waiting_deferred_steps", "preempted_count",
-                          "tail_fraction", "plan_traffic_fraction",
-                          "refreshes"}
+                          "prefix_hit", "tail_fraction",
+                          "plan_traffic_fraction", "refreshes"}
         assert m["ttft_s"] >= m["prefill_s"] > 0 and m["queue_s"] >= 0
         assert m["decode_tokens_per_s"] > 0
         assert 0 < m["plan_traffic_fraction"] <= 1
@@ -437,14 +436,14 @@ def _defaults(cls):
     return out
 
 
-@pytest.mark.parametrize("cls,ref,table", [
-    (Request, JRequest, tengine._REQUEST_NOT_PORTED),
-    (EngineConfig, JConfig, tengine._NOT_PORTED)])
-def test_fields_match_the_reference(cls, ref, table):
+@pytest.mark.parametrize("cls,ref", [(Request, JRequest),
+                                     (EngineConfig, JConfig)],
+                         ids=["Request-Request-table0",
+                              "EngineConfig-EngineConfig-table1"])
+def test_fields_match_the_reference(cls, ref):
     """Every field of the reference's dataclass is in the port with the
-    same default (a sampling config compares by its fields); those not
-    ported are listed with their ROADMAP.md item and refuse other
-    values."""
+    same default (a sampling config compares by its fields), and every one
+    is ported: no refusal table is left."""
     mine, theirs = _defaults(cls), _defaults(ref)
     assert set(theirs) <= set(mine), set(theirs) - set(mine)
     for name, default in theirs.items():
@@ -453,29 +452,22 @@ def test_fields_match_the_reference(cls, ref, table):
             default, got = dataclasses.asdict(default), \
                 dataclasses.asdict(got)
         assert got == default, name
-    for name, (default, item) in table.items():
-        assert default == theirs[name] and item.startswith("A.")
+    assert not any(n.endswith("NOT_PORTED") for n in dir(tengine))
 
 
-# each case keeps its id from when every option raised; the options this
-# slice ports are now taken and served, the prefix-sharing ones still
-# raise naming their ROADMAP.md item
-@pytest.mark.parametrize("make,item", [
-    (lambda: (dict(preempt_after_steps=4), {}), None),
-    (lambda: (dict(prefix_max_entries=8), {}), "A.9 (prefix sharing)"),
-    (lambda: (dict(refresh_mass=0.5), {}), None),
-    (lambda: (dict(width_safety=2.0), {}), None),
-    (lambda: ({}, dict(deadline_s=1.0)), None),
-    (lambda: ({}, dict(priority=2)), None)],
+# each case keeps its id from when every option raised; every option is
+# now taken and served (prefix sharing since A.9's last slice)
+@pytest.mark.parametrize("make", [
+    lambda: (dict(preempt_after_steps=4), {}),
+    lambda: (dict(prefix_max_entries=8, prefix_sharing=True), {}),
+    lambda: (dict(refresh_mass=0.5), {}),
+    lambda: (dict(width_safety=2.0), {}),
+    lambda: ({}, dict(deadline_s=1.0)),
+    lambda: ({}, dict(priority=2))],
     ids=["make0-A.9", "make1-A.9", "make2-A.9", "make3-A.5", "make4-A.9",
          "make5-A.9"])
-def test_unported_scheduler_options_raise(pair, make, item):
+def test_unported_scheduler_options_raise(pair, make):
     ecfg, req = make()
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"ROADMAP.md queue {item}")):
-            EngineConfig(**ecfg)
-        return
     eng = _engine(pair, paged=True, decode_sparse=True, seq_buckets=(256,),
                   **ecfg)
     r = Request(uid=0, prompt=np.ones(200, np.int32), max_new_tokens=3,
@@ -486,12 +478,20 @@ def test_unported_scheduler_options_raise(pair, make, item):
     assert r.finish_reason == "length" and len(r.output_tokens) == 3
 
 
-def test_prefix_sharing_still_raises():
-    for make in (lambda: EngineConfig(prefix_sharing=True),
-                 lambda: Request(uid=0, prompt=np.ones(3), prefix_hit=True)):
-        with pytest.raises(NotImplementedError,
-                           match=re.escape("A.9 (prefix sharing)")):
-            make()
+def test_prefix_sharing_still_raises(pair):
+    """Prefix sharing no longer raises (its name is kept from when it
+    did): the options are taken, a duplicated prompt is served as a hit,
+    and ``Request.prefix_hit`` is settable as in the reference."""
+    assert EngineConfig(prefix_sharing=True).prefix_sharing
+    assert Request(uid=0, prompt=np.ones(3), prefix_hit=True).prefix_hit
+    eng = _engine(pair, paged=True, decode_sparse=True, seq_buckets=(256,),
+                  prefix_sharing=True)
+    reqs = [Request(uid=i, prompt=np.ones(200, np.int32), max_new_tokens=3)
+            for i in range(2)]
+    eng.serve(reqs, seed=0)
+    assert [r.prefix_hit for r in reqs] == [False, True]
+    assert reqs[0].output_tokens.tolist() == reqs[1].output_tokens.tolist()
+    assert eng.prefix_stats["prefix_hits"] == 1
 
 
 def test_serve_refuses_handles_and_faults(pair):

@@ -11,7 +11,6 @@ to ~1e-5 here), and after a flip the streams condition on different tokens,
 so the comparison stops there.
 """
 import dataclasses
-import re
 
 import jax
 import jax.numpy as jnp
@@ -138,8 +137,8 @@ def test_serve_fills_request_metrics(served):
         assert set(m) == {"queue_s", "ttft_s", "prefill_s", "decode_s",
                           "decode_tokens_per_s", "prefill_stall_s",
                           "waiting_deferred_steps", "preempted_count",
-                          "tail_fraction", "plan_traffic_fraction",
-                          "refreshes"}
+                          "prefix_hit", "tail_fraction",
+                          "plan_traffic_fraction", "refreshes"}
         assert m["prefill_s"] > 0 and m["ttft_s"] >= m["prefill_s"]
         assert m["decode_tokens_per_s"] > 0
         assert not r.truncated
@@ -166,23 +165,17 @@ def test_stop_token_and_prefill_only_rows():
     assert reqs[2].truncated and len(reqs[2].output_tokens) == 2
 
 
-# each case keeps its id from when every option raised; the options this
-# slice ports are now taken and served (paged, sparse decode), prefix
-# sharing still raises naming its ROADMAP.md item
-@pytest.mark.parametrize("field,value,item", [
-    ("preempt_after_steps", 4, None), ("refresh_mass", 0.5, None),
-    ("width_percentile", 50.0, None),
-    ("prefix_sharing", True, "A.9 (prefix sharing)"),
-    ("refresh_every", 64, None), ("width_policy", "auto", None)],
+# each case keeps its id from when every option raised; every option is
+# now taken and served (paged, sparse decode), prefix sharing since A.9's
+# last slice
+@pytest.mark.parametrize("field,value", [
+    ("preempt_after_steps", 4), ("refresh_mass", 0.5),
+    ("width_percentile", 50.0), ("prefix_sharing", True),
+    ("refresh_every", 64), ("width_policy", "auto")],
     ids=["preempt_after_steps-4-A.9", "refresh_mass-0.5-A.9",
          "width_percentile-50.0-A.5", "prefix_sharing-True-A.9",
          "refresh_every-64-A.9", "width_policy-auto-A.5"])
-def test_unported_engine_options_raise(field, value, item):
-    if item is not None:
-        with pytest.raises(NotImplementedError,
-                           match=re.escape(f"ROADMAP.md queue {item}")):
-            EngineConfig(**{field: value})
-        return
+def test_unported_engine_options_raise(field, value):
     cfg = dataclasses.replace(get_smoke_config("llama3-8b-262k"),
                               num_heads=8, num_kv_heads=2)
     model = build_model(cfg, device="cpu")

@@ -69,11 +69,11 @@ def page_leak_audit(monkeypatch):
         assert stats["pages_in_use_at_end"] == 0, stats
 
 
-def make_pair(**cfg_kw):
+def make_pair(arch=ARCH, **cfg_kw):
     """The reference model and parameters, the port's model on the CPU
-    and the same parameters crossed over."""
-    jcfg = dataclasses.replace(j_smoke(ARCH), **cfg_kw)
-    tcfg = dataclasses.replace(get_smoke_config(ARCH), **cfg_kw)
+    and the same parameters crossed over (``arch``'s smoke config)."""
+    jcfg = dataclasses.replace(j_smoke(arch), **cfg_kw)
+    tcfg = dataclasses.replace(get_smoke_config(arch), **cfg_kw)
     jm = j_build(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tm = build_model(tcfg, device="cpu")
