@@ -128,10 +128,33 @@ run on error:
      plain decode (greedy, near-tie aware), its block density and the
      window's share of the skipped blocks; three requests (two of one
      prompt) through the paged scheduler with prefix sharing off and on,
-     bitwise.
+     bitwise;
+ 15. Qwen2-VL 72B's backbone (M-RoPE) at full width, 8 of its 80 layers,
+     after Mixtral is freed: two 8192-token rows laid out as image
+     prompts (text, a 32 × 32 grid of random patch embeddings, text) with
+     3-D positions; B.1, B.2 and B.3 against their plain versions in
+     bfloat16 and float32 on layer 0's post-M-RoPE q/k/v, real masks and a
+     real plan, timed beside their bounds at H = 64;
+     ``Model.prefill(positions=, embeds=)`` then 7 decode steps with
+     ``(3, B, 1)`` rope positions through the plan (launches exactly B.1 8,
+     B.2 8, B.3 56) against the plain decode; phase 6's first four
+     requests text-only through the paged scheduler, one-shot and with
+     ``prefill_chunk=1024``, first-step logits bitwise;
+ 16. DeepSeek-V2 236B (MLA, MoE) at full width, 3 of its 60 layers (the
+     dense prefix layer and two MoE layers): B.1 at D = 192 and B.2 and
+     B.6 at Dqk = 192, Dv = 128 against their plain versions in bfloat16
+     and float32 on layer 0's decompressed q/k/v and real masks, the
+     bodies each ran, their times beside their bounds and fused SDPA on
+     sample 0's masked problem per backend; a batch serve of 2 × 8192
+     prompts (8 new) with launches exactly B.1 3, B.2 3 and no decode
+     kernel against the same serve on the plain B.1/B.2, the same serve
+     with ``scheduler=True`` (the batch path), and the per-sample path
+     (B.6 6); the MoE FFN's share of a synchronised prefill.
 
-``python3 chip_smoke.py --phase 12`` (13, 14) builds the kernels and runs
-that phase alone, printing no result line.
+``python3 chip_smoke.py --phase 12`` (13 to 16) builds the kernels and
+runs that phase alone, printing no result line.  ``python3 chip_smoke.py
+--bitwise TREE`` holds the equal-width block-sparse and strip instances
+bitwise to another checkout's (``bitwise_instances``).
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -140,6 +163,8 @@ Weights are random, from a fixed seed.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import json
 import os
@@ -176,6 +201,11 @@ TOL = {
 }
 # near-tie tolerance of the small CUDA-vs-CPU serve comparison (float32)
 TIE_TOL = 1e-3
+# bf16 outputs at the MLA widths (phase 16) are also held row by row: each
+# row's max |kernel − plain| within this many bf16 ulps of that row's
+# max |plain|.  Rows that average thousands of keys have |out| of the order
+# of the absolute ``TOL`` itself; this bound scales with each row.
+ROW_ULPS = 4
 
 KERNELS = {
     "strip": ("src/repro_torch/csrc/strip.cu",
@@ -219,9 +249,11 @@ INSTANCES = {("bsa", "0"): "block_sparse_attn",
              ("decode", "1"): "decode_attn_paged",
              ("decode", "2"): "decode_attn_dense",
              ("decode", "3"): "decode_attn_sparse"}
-# bsa_*_kernel<BQ, D, MODE>, decode_kernel<T, MODE, GP, CH>,
+# bsa_*_kernel<BQ, DQK, DV, MODE> (<BQ, D, MODE> before the V width had
+# its own argument), decode_kernel<T, MODE, GP, CH>,
 # decode_combine_kernel<T, MODE>
-_INSTANCE = re.compile(r"\b(?:(bsa)_(?:tc|f32)_kernel<\d+,\s*\d+,\s*(\d+)>"
+_INSTANCE = re.compile(r"\b(?:(bsa)_(?:tc|f32)_kernel<\d+,\s*\d+,\s*"
+                       r"(?:\d+,\s*)?(\d+)>"
                        r"|(decode)_(?:combine_)?kernel<[^,<>]+,\s*(\d+)[,>])")
 _PORT_KERNEL = re.compile(r"\b(?:bsa|decode|strip)_\w*kernel\b")
 # csrc/strip.cu: strip_tc_kernel<D, PASS> (bf16, tensor cores) and
@@ -327,6 +359,26 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: error {err} above {tol}")
 
 
+def row_ulp_err(a, b) -> float:
+    """Largest per-row max |a − b| over the last axis, in bf16 ulps of the
+    row's max |b| (ulp 2^(floor(log2 x) − 7))."""
+    import torch
+    a, b = a.float(), b.float()
+    top = b.abs().amax(-1).clamp(min=2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(top)) - 7)
+    return float(((a - b).abs().amax(-1) / ulp).max())
+
+
+def check_rows(name: str, a, b) -> float:
+    u = row_ulp_err(a, b)
+    ok = u <= ROW_ULPS
+    print(f"  {name}: worst row {u:.2f} bf16 ulps of its max |out| "
+          f"(bound {ROW_ULPS}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: a row {u} ulps off, above {ROW_ULPS}")
+    return u
+
+
 def a_tilde_err(a, b) -> float:
     """Max |Δ| over finite entries; −inf must sit at the same places."""
     import torch
@@ -338,17 +390,18 @@ def a_tilde_err(a, b) -> float:
 
 # ---------------------------------------------------------------- phase 2
 
-def layer0_qkv(model, params, tokens):
+def layer0_qkv(model, params, tokens, positions=None, embeds=None):
     """Layer 0's post-RoPE q (B,H,N,D) and k/v (B,Hkv,N,D), as prefill
-    computes them."""
+    computes them (a VLM's from ``embeds`` under 3-D ``positions``)."""
     import torch
     from repro_torch.models import attention, common
     cfg = model.cfg
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = params["embed"][tokens] if embeds is None else embeds
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
     layer = params["layers"][0]
-    h = common.rmsnorm(layer["ln1"], params["embed"][tokens],
-                       cfg.rms_norm_eps)
+    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
     q, k, v = common.gqa_qkv(layer["attn"], h)
     q, k = attention.rope_qk(q, k, positions, cfg)
     return q.contiguous(), k.contiguous(), v.contiguous()
@@ -2042,11 +2095,15 @@ def load_model(arch: str, depth):
     torch.cuda.synchronize()
     cut = ("" if depth is None else f" (depth cut: {depth} of "
            f"{get_config(arch).num_layers} layers)")
+    m = cfg.mla
+    dims = (f"MLA Dqk {m.qk_nope_head_dim + m.qk_rope_head_dim}, Dv "
+            f"{m.v_head_dim}" if m.enabled
+            else f"head dim {cfg.resolved_head_dim}")
     print(f"{arch}: {cfg.num_layers} layers{cut}, d_model {cfg.d_model}, "
           f"{cfg.num_heads}/{cfg.num_kv_heads} heads (G = "
-          f"{cfg.num_heads // cfg.num_kv_heads}), head dim "
-          f"{cfg.resolved_head_dim}, {num_params(params) / 1e9:.3f} B params "
-          f"in bf16, init {time.time() - t:.2f} s", flush=True)
+          f"{cfg.num_heads // cfg.num_kv_heads}), {dims}, "
+          f"{num_params(params) / 1e9:.3f} B params in bf16, init "
+          f"{time.time() - t:.2f} s", flush=True)
     return model, params
 
 
@@ -3102,6 +3159,865 @@ def phase14() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 15
+
+QWEN_VL = "qwen2-vl-72b"
+QWEN_VL_LAYERS = 8          # of 80: 9.5 B parameters, 19.0 GB in bf16
+VL_NEW = 8
+VL_OFFSETS = (2048, 4096)   # each row's image offset o
+VL_SERVE = 4                # phase 6's first four requests
+
+
+def image_layout(cfg, seq: int, offsets, device):
+    """Qwen2-VL's positions of image prompts (arXiv:2409.12191 §2.1), one
+    row per offset ``o``: text at ``t = h = w = i``, then the config's
+    ``num_visual_tokens`` positions as a square grid (``t = o``, ``h = o +
+    r``, ``w = o + c``), then text from ``o + side``.  Returns positions
+    ``(3, B, S)`` int64 and the visual rows ``(B, S)`` bool."""
+    import torch
+    side = int(round(cfg.vlm.num_visual_tokens ** 0.5))
+    nv = side * side
+    pos = torch.zeros((3, len(offsets), seq), dtype=torch.int64)
+    vis = torch.zeros((len(offsets), seq), dtype=torch.bool)
+    r, c = torch.arange(nv) // side, torch.arange(nv) % side
+    for b, o in enumerate(offsets):
+        pos[:, b, :o] = torch.arange(o)
+        pos[0, b, o:o + nv] = o
+        pos[1, b, o:o + nv] = o + r
+        pos[2, b, o:o + nv] = o + c
+        pos[:, b, o + nv:] = o + side + torch.arange(seq - o - nv)
+        vis[b, o:o + nv] = True
+    return pos.to(device), vis.to(device)
+
+
+def _times(name: str, fn, bnd, reps: int, plain=None, lib=None) -> dict:
+    """A kernel's bf16 time (CUDA events and profiler device time), its
+    bound and fraction, printed; with the plain version's time."""
+    ms = cuda_ms(fn, reps)
+    r = dict(ms=ms, device_ms=device_ms(fn, 5), bound_ms=bnd[0],
+             bound_by=bnd[1], library_ms=lib,
+             plain_ms=None if plain is None else cuda_ms(plain, 1))
+    print(f"  {name} bf16: {ms:.4f} ms (device {r['device_ms']} ms), bound "
+          f"{bnd[0]:.4f} by {bnd[1]}, bound_frac {bnd[0] / ms:.4f}, plain "
+          f"{r['plain_ms']} ms, library {lib} ms", flush=True)
+    return r
+
+
+def check_vlm_kernels(model, params, embeds, positions, prompt_lens) -> dict:
+    """Phase 15 (a): B.1, B.2 and B.3 against their plain versions at
+    Qwen2-VL's shapes (H = 64 over Hkv = 8, D = 128, N = 8192, B = 2) in
+    float32 and bfloat16, on layer 0's post-M-RoPE q/k/v of the image
+    prompts, its SharePrefill masks, and layer 0's DecodePlan tables of a
+    real prefill over the grown cache; then their bf16 times beside their
+    bounds (the formulas of phases 2 and 5)."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.models.transformer import decode_valid_mask
+    from repro_torch.serving import decode_plan as dplan
+
+    cfg = model.cfg
+    bs = cfg.share_prefill.block_size
+    dev = embeds.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    q16, k16, v16 = layer0_qkv(model, params, None, positions, embeds)
+    b, h, n, d = q16.shape
+    hkv = k16.shape[1]
+    g, nb = h // hkv, n // bs
+    masks, decision = real_masks(model, q16, k16, v16)
+    sidx, scnt = (x.contiguous() for x in K.compact_block_mask(masks))
+    sp = model.default_share_prefill()
+    s, pos = n + bs, n + 5
+    nbs = s // bs
+    pre = model.prefill(params, None, sp, method="share",
+                        prompt_lens=prompt_lens, positions=positions,
+                        embeds=embeds)
+    plan = dplan.build_decode_plan(sp, pre.sp_state, cfg, prefill_len=n,
+                                   cache_len=s).layer(0)
+    del pre
+    didx, dcnt, keep = (x.contiguous() for x in plan)
+    valid = decode_valid_mask(s, pos, prompt_lens, n).contiguous()
+    print(f"Qwen2-VL layer 0 under M-RoPE: B={b} H={h} Hkv={hkv} (G = {g}) "
+          f"N={n} D={d} bs={bs}; decode S={s} pos={pos}, plan W="
+          f"{didx.shape[-1]}", flush=True)
+    out = {name: {"max_abs_err": 0.0}
+           for name in ("strip", "block_sparse_attn", "decode_attn")}
+
+    def fold(name, e):
+        out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        print(f"[{dn}]", flush=True)
+        e = max_err(K.strip_scores_cuda(q, k, bs), K.strip_scores(q, k, bs))
+        check("strip [M-RoPE]", e, TOL[("strip", dn)])
+        fold("strip", e)
+        kw = dict(block_size=bs, stats_gate=decision.use_dense)
+        o1, a1 = K.block_sparse_attention_cuda(q, k, v, sidx, scnt, **kw)
+        o2, a2 = K.block_sparse_attention_plain(q, k, v, sidx, scnt, **kw)
+        check("block_sparse_attn [M-RoPE masks] out", max_err(o1, o2),
+              TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+        fold("block_sparse_attn", max_err(o1, o2))
+        ck = torch.zeros((b, hkv, s, d), dtype=dtype, device=dev)
+        cv = torch.zeros_like(ck)
+        ck[:, :, :n], cv[:, :, :n] = k, v
+        for c in (ck, cv):
+            c[:, :, n:pos + 1] = torch.randn(
+                (b, hkv, pos + 1 - n, d), generator=gen, device=dev).to(dtype)
+        qd = q[:, :, -1].contiguous()
+        o3 = K.flash_decode_sparse_cuda(qd, ck, cv, didx, dcnt, keep, valid)
+        p3 = K.decode_plan_einsum_sliced(qd, ck, cv, plan, valid)
+        check("decode_attn [real plan] out", max_err(o3, p3),
+              TOL[("out", dn)])
+        fold("decode_attn", max_err(o3, p3))
+        if dtype != torch.bfloat16:
+            continue
+        elt = q.element_size()
+        pairs = bs * (n - bs) + bs * (bs + 1) // 2
+        sb = bound(b * h * bs * d * elt + b * hkv * n * d * elt
+                   + b * h * bs * n * 4, 2.0 * d * b * h * pairs, dtype)
+        vis = K.table_block_mask(sidx, scnt, nb)
+        entries, tiles = bsa_work(vis, g, bs, 0)
+        bb = bound(2 * b * h * n * d * elt + 2 * tiles * bs * d * elt
+                   + sidx.numel() * 4 + scnt.numel() * 4 + b * h * nb * nb * 4,
+                   4.0 * d * entries, dtype)
+        ntok = valid.reshape(b, 1, nbs, bs).sum(-1)
+        listed = K.table_block_mask(didx, dcnt, nbs)
+        kept_tok = float(((keep & listed[..., None]).float()
+                          * ntok[..., None]).sum())
+        db = bound(2 * b * h * d * elt + 2 * float(dcnt.sum()) * bs * d * elt
+                   + didx.numel() * 4 + dcnt.numel() * 4 + keep.numel()
+                   + valid.numel(), 4.0 * d * kept_tok, dtype)
+        out["strip"].update(_times(
+            "strip [H=64]", lambda: K.strip_scores_cuda(q, k, bs), sb, 20,
+            lambda: K.strip_scores(q, k, bs)))
+        out["block_sparse_attn"].update(_times(
+            "block_sparse_attn [H=64]", lambda: K.block_sparse_attention_cuda(
+                q, k, v, sidx, scnt, **kw), bb, 10))
+        out["decode_attn"].update(_times(
+            "decode_attn [H=64]", lambda: K.flash_decode_sparse_cuda(
+                qd, ck, cv, didx, dcnt, keep, valid), db, 50))
+    return out
+
+
+def vlm_batch_decode(model, params, embeds, positions, prompt_lens) -> dict:
+    """Phase 15 (b): ``Model.prefill(positions=, embeds=)`` of the image
+    prompts, then ``VL_NEW`` greedy tokens (the first from the prefill,
+    then decode steps with ``(3, B, 1)`` rope positions continuing each
+    row's text ids, apart from the cache slots) through the prefill's
+    DecodePlan, launch counts reset just before the prefill and read after
+    the kernel decode; then the same decode with the plain version (no
+    kernel launch): tokens near-tie aware; and one step roped by the cache
+    slot instead, whose logits must move."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import decode_plan as dplan
+
+    cfg = model.cfg
+    n = embeds.shape[1]
+    extra = cfg.share_prefill.block_size
+    sp = model.default_share_prefill()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    pre = model.prefill(params, None, sp, method="share",
+                        prompt_lens=prompt_lens, positions=positions,
+                        embeds=embeds)
+    torch.cuda.synchronize()
+    prefill_s = time.time() - t0
+    density = float(pre.stats.block_density)
+    cache0 = ServingEngine.grow_cache(pre.cache, n, extra)
+    plan = dplan.build_decode_plan(sp, pre.sp_state, cfg, prefill_len=n,
+                                   cache_len=n + extra)
+    last = positions[:, :, -1:]
+    kw = dict(plan=plan, prompt_lens=prompt_lens, prefill_len=n)
+    runs = {}
+    for impl in ("auto", "einsum"):
+        if impl == "einsum":
+            reset_launch_counts()
+        cache = tuple(c.clone() for c in cache0)
+        logits, steps, toks = pre.last_logits, [pre.last_logits], []
+        t1 = time.time()
+        for t in range(VL_NEW - 1):
+            toks.append(logits.argmax(-1))
+            logits, cache = model.decode(params, toks[-1][:, None], cache,
+                                         n + t, positions=last + 1 + t,
+                                         decode_impl=impl, **kw)
+            steps.append(logits)
+        toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        runs[impl] = (torch.stack(toks, 1).cpu().numpy(),
+                      torch.stack(steps, 1).float(), launch_counts(),
+                      time.time() - t1)
+    layers = cfg.num_layers
+    _expect_counts("Qwen2-VL prefill and kernel decode", runs["auto"][2],
+                   {"strip": layers, "block_sparse_attn": layers,
+                    "decode_attn": layers * (VL_NEW - 1)})
+    _expect_counts("Qwen2-VL plain decode", runs["einsum"][2], {})
+    (kt, kl, kc, ks), (pt, pl, _, ps) = runs["auto"], runs["einsum"]
+    if not bool(torch.isfinite(kl).all()) or kl.shape != (
+            len(pt), VL_NEW, cfg.vocab_size):
+        raise AssertionError("Qwen2-VL: non-finite or misshapen logits")
+    print(f"  prefill_s {prefill_s:.4f} (B={len(pt)}, N={n}), block density "
+          f"{density:.4f}; {VL_NEW - 1} decode steps: kernel {ks:.3f} s, "
+          f"plain {ps:.3f} s; launches {kc}", flush=True)
+    tol = PER_SAMPLE_RTOL * float(pl[:, 0].abs().max())
+    for i in range(len(pt)):
+        verdict = greedy_agree(pt[i], pl[i].cpu().numpy(), kt[i], tol)
+        print(f"  row {i}: kernel {kt[i].tolist()} plain {pt[i].tolist()} "
+              f"-> {verdict}; max |logit kernel - plain| "
+              f"{max_err(kl[i], pl[i]):.3e}", flush=True)
+    tok = torch.as_tensor(kt[:, :1], device=embeds.device)
+    by_rope, by_slot = (
+        model.decode(params, tok, tuple(c.clone() for c in cache0), n,
+                     positions=p, **kw)[0]
+        for p in (last + 1, None))
+    moved = max_err(by_rope, by_slot)
+    print(f"  rope ids end at {int(last.max())} < slot {n}: a step roped by "
+          f"the cache slot moves the logits by {moved:.3e}", flush=True)
+    if not moved > 0:
+        raise AssertionError("M-RoPE decode positions had no effect")
+    return dict(prefill_s=prefill_s, block_density=density, counts=kc)
+
+
+def phase15() -> dict:
+    """Phase 15: Qwen2-VL 72B's backbone at full width, 8 of its 80
+    layers, on image prompts under M-RoPE: the kernels against their plain
+    versions, the batch path with ``embeds`` and 3-D positions against its
+    plain decode, and a text-only paged scheduler serve bitwise its chunked
+    twin at the first step's logits.  Returns the kernels' numbers."""
+    import torch
+    print("== phase 15: Qwen2-VL 72B (M-RoPE) at full width", flush=True)
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = load_model(QWEN_VL, QWEN_VL_LAYERS)
+    cfg, dev = model.cfg, model.device
+    layers = cfg.num_layers
+    rng = np.random.default_rng(SEED + 15)
+    toks = np.zeros((len(PROMPT_LENS), SEQ), np.int64)
+    for i, n in enumerate(PROMPT_LENS):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    tokens = torch.as_tensor(toks, device=dev)
+    plens = torch.tensor(PROMPT_LENS, device=dev)
+    positions, visual = image_layout(cfg, SEQ, VL_OFFSETS, dev)
+    emb = params["embed"][tokens]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    patches = torch.randn(emb.shape, generator=gen, device=dev) \
+        * params["embed"].float().std()
+    embeds = torch.where(visual[..., None], patches.to(emb.dtype), emb)
+    del emb, patches
+    differ = int((positions[0] != positions[1]).sum()
+                 + (positions[1] != positions[2]).sum())
+    print(f"image prompts: offsets {VL_OFFSETS}, {cfg.vlm.num_visual_tokens}"
+          f" visual positions each, rope ids up to "
+          f"{int(positions.max())} of {SEQ} slots; (t, h, w) differ at "
+          f"{differ} entries", flush=True)
+    res = check_vlm_kernels(model, params, embeds, positions, plens)
+    torch.cuda.empty_cache()
+    print(f"Qwen2-VL batch path with embeds: prompts {PROMPT_LENS}, "
+          f"{VL_NEW} new tokens", flush=True)
+    res["serve"] = vlm_batch_decode(model, params, embeds, positions, plens)
+    del embeds
+    torch.cuda.empty_cache()
+
+    # text-only: phase 6's first four requests, one-shot and chunked
+    rng = np.random.default_rng(SEED + 2)
+    reqs = PAGED_REQUESTS[:VL_SERVE]
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n, _ in reqs]
+    news = [m for _, m in reqs]
+    runs = {}
+    for label, extra in (("one-shot", {}), ("chunked",
+                                            {"prefill_chunk": CHUNK})):
+        run = scheduler_serve(model, params, prompts, news, paged=True,
+                              num_pages=NUM_PAGES, **extra)
+        report_scheduler_serve(f"Qwen2-VL text-only paged serve ({label})",
+                               run)
+        check_paged_run(run, f"Qwen2-VL {label} serve")
+        runs[label] = run
+    one, chunked = runs["one-shot"], runs["chunked"]
+    eng = one["eng"]
+    _expect_counts("Qwen2-VL one-shot serve", one["counts"], {
+        "strip": layers * VL_SERVE, "block_sparse_attn": layers * VL_SERVE,
+        "decode_attn_paged": layers * _decode_steps(one)})
+    chunks = sum(eng._bucket(len(p)) // CHUNK for p in prompts)
+    _expect_counts("Qwen2-VL chunked serve", chunked["counts"], {
+        "strip": layers * VL_SERVE, "block_sparse_attn": layers * chunks,
+        "decode_attn_paged": layers * _decode_steps(chunked)})
+    first, ref_first = chunked["probe"].first, one["probe"].first
+    bitwise = set(first) == set(ref_first) and all(
+        torch.equal(first[k], ref_first[k]) for k in first)
+    print(f"  chunked: first-step logits bitwise the one-shot serve's "
+          f"{bitwise}", flush=True)
+    if not bitwise:
+        raise AssertionError("Qwen2-VL: chunked first-step logits differ "
+                             "from the one-shot serve's")
+    for a, c in zip(one["reqs"], chunked["reqs"]):
+        if a.output_tokens.tolist() != c.output_tokens.tolist():
+            raise AssertionError(f"Qwen2-VL chunked serve: request {a.uid} "
+                                 "tokens differ from the one-shot serve's")
+    print("  chunked: greedy tokens identical to the one-shot serve's",
+          flush=True)
+    del runs, one, chunked
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"phase 15: {time.time() - t:.1f} s, peak device memory "
+          f"{peak:.2f} GiB ({nvidia_smi()}); " + json.dumps(res), flush=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 16
+
+DEEPSEEK = "deepseek-v2-236b"
+DEEPSEEK_LAYERS = 3     # of 60: the dense prefix layer and 2 MoE layers,
+                        # 9.3 B parameters, 18.7 GB in bf16
+DEEPSEEK_NEW = 8
+# the body the dispatch picks at the MLA widths (csrc/strip.cu::repro_strip,
+# csrc/block_sparse_attn.cu::by_dim) by dtype, bfloat16 then float32,
+# printed beside what the profiler sees (in some long processes, nothing)
+MLA_BODY = {"strip": ("strip_tc_kernel<192, pass> (tensor cores)",
+                      "strip_f32_kernel<float, pass> (CUDA cores)"),
+            "bsa": ("bsa_tc_kernel<bs, 192, 128, mode> (tensor cores)",
+                    "bsa_f32_kernel<bs, 192, 128, mode> (CUDA cores)")}
+
+
+def mla_layer0_qkv(model, params, tokens):
+    """Layer 0's decompressed q and k (B, H, N, qk_nope + qk_rope) and v
+    (B, H, N, v_head_dim), as MLA prefill computes them."""
+    import torch
+    from repro_torch.models import common, mla
+    cfg = model.cfg
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    layer = params["layers"][0]
+    h = common.rmsnorm(layer["ln1"], params["embed"][tokens],
+                       cfg.rms_norm_eps)
+    q, k, v, _, _ = mla.mla_qkv(layer["attn"], h, cfg, positions)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def bodies(fn) -> list:
+    """The port's device functions one call of ``fn`` runs (the profiler's
+    names, shortened to the template)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {m.group(0) for e in prof.key_averages()
+             if kernel_group(e.key) in KERNELS
+             for m in [re.search(r"\w+_kernel<[^>]*>", e.key)] if m}
+    return sorted(names)
+
+
+def sdpa_by_backend(q, k, v, mask, reps: int) -> dict:
+    """``scaled_dot_product_attention`` under each fused backend: its time,
+    or why it refused (the first warning it gave, else its error)."""
+    import warnings
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for name in ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "FLASH_ATTENTION"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            out[name] = "absent in this torch"
+            continue
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                with sdpa_kernel(backend):
+                    out[name] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask), reps)
+            except (RuntimeError, torch.cuda.OutOfMemoryError) as exc:
+                why = [str(w.message).split("(Triggered")[0].strip()
+                       for w in caught] + [str(exc).splitlines()[0]]
+                out[name] = "refused: " + " | ".join(
+                    dict.fromkeys(w for w in why if w))[:400]
+                torch.cuda.empty_cache()
+    return out
+
+
+def check_mla_kernels(model, params, tokens) -> dict:
+    """Phase 16 (a): B.1 at D = 192, B.2 and B.6 at Dqk = 192, Dv = 128
+    against their plain versions in float32 and bfloat16, on layer 0's
+    decompressed q/k/v of the two prompts (H = Hkv = 128, N = 8192, B = 2)
+    and its SharePrefill masks (B.6 on sample 0), bf16 outputs also row by
+    row within ``ROW_ULPS`` (a plain output at the wrong scale must fail
+    that bound); the bodies each ran;
+    then their bf16 times beside their bounds (QK^T's products at Dqk,
+    PV's at Dv) and fused SDPA on sample 0's masked problem where a
+    backend takes Dqk != Dv, beside B.2 at B = 1."""
+    import torch
+    from repro_torch import kernels as K
+
+    cfg = model.cfg
+    bs = cfg.share_prefill.block_size
+    dev = tokens.device
+    q16, k16, v16 = mla_layer0_qkv(model, params, tokens)
+    b, h, n, dqk = q16.shape
+    dv = v16.shape[-1]
+    nb = n // bs
+    print(f"DeepSeek-V2 layer 0 (MLA, decompressed): B={b} H=Hkv={h} N={n} "
+          f"Dqk={dqk} Dv={dv} bs={bs}", flush=True)
+    masks, decision = real_masks(model, q16, k16, v16)
+    sidx, scnt = (x.contiguous() for x in K.compact_block_mask(masks))
+    s0idx, s0cnt = (x.contiguous() for x in K.compact_block_mask(masks[0]))
+    names = ("strip", "block_sparse_attn", "block_sparse_attn_single")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        print(f"[{dn}]", flush=True)
+        kw = dict(block_size=bs, stats_gate=decision.use_dense)
+        calls = {
+            "strip": lambda: K.strip_scores_cuda(q, k, bs),
+            "block_sparse_attn": lambda: K.block_sparse_attention_cuda(
+                q, k, v, sidx, scnt, **kw),
+            "block_sparse_attn_single":
+                lambda: K.block_sparse_attention_single_cuda(
+                    q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)}
+        for name, fn in calls.items():
+            body = MLA_BODY["strip" if name == "strip" else "bsa"][
+                dtype == torch.float32]
+            print(f"  {name} [{dn}]: {body} by the dispatch rule; the "
+                  f"profiler saw {bodies(fn) or 'no device kernel'}",
+                  flush=True)
+        e = max_err(calls["strip"](), K.strip_scores(q, k, bs))
+        check(f"strip [D={dqk}]", e, TOL[("strip", dn)])
+        out["strip"]["max_abs_err"] = max(out["strip"]["max_abs_err"], e)
+        o1, a1 = calls["block_sparse_attn"]()
+        o2, a2 = K.block_sparse_attention_plain(q, k, v, sidx, scnt, **kw)
+        if o1.shape != (b, h, n, dv):
+            raise AssertionError(f"B.2 output {tuple(o1.shape)}")
+        e2 = max_err(o1, o2)
+        check(f"block_sparse_attn [{dqk}/{dv}] out", e2, TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+        if dtype == torch.bfloat16:
+            out["block_sparse_attn"]["row_ulps"] = check_rows(
+                "  rows", o1, o2)
+            top = o2.float().abs().amax(-1)
+            print(f"  |out| (plain): mean {float(o2.float().abs().mean()):.4f}"
+                  f", row max median {float(top.median()):.4f}, min "
+                  f"{float(top.min()):.4f}, max {float(top.max()):.4f}",
+                  flush=True)
+            del top
+        o1, s1 = calls["block_sparse_attn_single"]()
+        o2, s2 = K.block_sparse_attention_single_plain(
+            q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)
+        e6 = max_err(o1, o2)
+        check(f"block_sparse_attn_single [{dqk}/{dv}] out", e6,
+              TOL[("out", dn)])
+        check("  stats", a_tilde_err(s1, s2), TOL[("a_tilde", dn)])
+        if dtype == torch.bfloat16:
+            out["block_sparse_attn_single"]["row_ulps"] = check_rows(
+                "  rows", o1, o2)
+            # the row bound must reject a body scaled by 1/sqrt(Dv): the
+            # plain version on q scaled by sqrt(Dqk / Dv)
+            wrong, _ = K.block_sparse_attention_single_plain(
+                (q[0].float() * (dqk / dv) ** 0.5).to(dtype), k[0], v[0],
+                s0idx, s0cnt, block_size=bs)
+            u = row_ulp_err(wrong, o2)
+            print(f"  rows at the scale 1/sqrt(Dv) (a control): worst "
+                  f"{u:.2f} ulps, {'rejected' if u > ROW_ULPS else 'PASSED'}"
+                  f" by the bound", flush=True)
+            if u <= ROW_ULPS:
+                raise AssertionError("the row bound passes a wrong scale")
+            del wrong
+        for name, e in (("block_sparse_attn", e2),
+                        ("block_sparse_attn_single", e6)):
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+        del o1, o2, a1, a2, s1, s2
+        if dtype != torch.bfloat16:
+            continue
+        elt = q.element_size()
+        pairs = bs * (n - bs) + bs * (bs + 1) // 2
+        sb = bound(b * h * bs * dqk * elt + b * h * n * dqk * elt
+                   + b * h * bs * n * 4, 2.0 * dqk * b * h * pairs, dtype)
+        vis = K.table_block_mask(sidx, scnt, nb)
+
+        def bsa_bound(vis, idx, cnt):
+            bb_, hh = vis.shape[:2]
+            entries, tiles = bsa_work(vis, 1, bs, 0)
+            return bound(bb_ * hh * n * (dqk + dv) * elt
+                         + tiles * bs * (dqk + dv) * elt + idx.numel() * 4
+                         + cnt.numel() * 4 + bb_ * hh * nb * nb * 4,
+                         2.0 * (dqk + dv) * entries, dtype)
+        out["strip"].update(_times(
+            f"strip [D={dqk}, H={h}]", calls["strip"], sb, 20,
+            lambda: K.strip_scores(q, k, bs)))
+        out["block_sparse_attn"].update(_times(
+            f"block_sparse_attn [{dqk}/{dv}, H={h}]", calls["block_sparse_attn"],
+            bsa_bound(vis, sidx, scnt), 10,
+            lambda: K.block_sparse_attention_plain(q, k, v, sidx, scnt,
+                                                   **kw)))
+        b6 = bsa_bound(vis[:1], s0idx, s0cnt)
+        out["block_sparse_attn_single"].update(_times(
+            f"block_sparse_attn_single [{dqk}/{dv}, sample 0]",
+            calls["block_sparse_attn_single"], b6, 10))
+        b1 = cuda_ms(lambda: K.block_sparse_attention_cuda(
+            q[:1], k[:1], v[:1], sidx[:1].contiguous(),
+            scnt[:1].contiguous(), block_size=bs,
+            stats_gate=decision.use_dense[:1]), 10)
+        torch.cuda.empty_cache()
+        tok_mask = (vis[:1].repeat_interleave(bs, 2)
+                    .repeat_interleave(bs, 3)
+                    & torch.ones(n, n, dtype=torch.bool, device=dev).tril())
+        sdpa = sdpa_by_backend(q[:1], k[:1], v[:1], tok_mask, 5)
+        del tok_mask
+        torch.cuda.empty_cache()
+        timed = [ms for ms in sdpa.values() if isinstance(ms, float)]
+        out["block_sparse_attn_single"]["library_ms"] = (
+            min(timed) if timed else None)
+        out["sdpa_sample0"] = sdpa
+        out["block_sparse_attn"]["b1_ms"] = b1
+        print(f"  SDPA on sample 0's masked problem (Dqk={dqk}, Dv={dv}): "
+              + json.dumps(sdpa) + f"; B.2 at B = 1 {b1:.4f} ms, B.6 "
+              f"{out['block_sparse_attn_single']['ms']:.4f} ms", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def plain_prefill_kernels():
+    """Within it, the dispatchers of B.1 and B.2 run the plain versions on
+    CUDA tensors (a serve's plain twin); the kernels' launch counters stay
+    untouched."""
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.kernels import strip
+    saved = strip.strip_scores_cuda, bsa.block_sparse_attention_cuda
+    strip.strip_scores_cuda = strip.strip_scores
+    bsa.block_sparse_attention_cuda = bsa.block_sparse_attention_plain
+    try:
+        yield
+    finally:
+        strip.strip_scores_cuda, bsa.block_sparse_attention_cuda = saved
+
+
+def mla_serve(model, params, prompts, **ecfg) -> tuple:
+    """One batch-path serve of ``prompts`` (``DEEPSEEK_NEW`` new tokens
+    each), launch counts reset just before and read just after: the
+    requests, the logits ``(B, steps, V)`` and the counts."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    probe = LogitProbe(model)
+    eng = ServingEngine(probe, params, model.default_share_prefill(),
+                        EngineConfig(**{**dict(method="share",
+                                               decode_sparse=True,
+                                               max_batch=2,
+                                               seq_buckets=(SEQ,)),
+                                        **ecfg}))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=DEEPSEEK_NEW)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.time()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    logits = torch.stack(probe.logits, 1)
+    st = reqs[0].pattern_stats
+    print(f"  {json.dumps(ecfg) if ecfg else 'batch path'}: {wall:.3f} s, "
+          f"prefill_s {reqs[0].prefill_s:.4f}, decode_tokens_per_s "
+          f"{reqs[0].decode_tokens_per_s:.3f}, block density "
+          f"{st['block_density']:.4f}, shared/dense/vs "
+          f"{st['num_shared']:.1f}/{st['num_dense']:.1f}/"
+          f"{st['num_vs']:.1f}; launches {counts}", flush=True)
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            len(prompts), DEEPSEEK_NEW, model.cfg.vocab_size):
+        raise AssertionError(f"DeepSeek-V2 {ecfg}: non-finite or misshapen "
+                             "logits")
+    return reqs, logits, counts
+
+
+def moe_share_of_prefill(model, params, tokens, prompt_lens) -> tuple:
+    """One ``Model.prefill`` with every MoE FFN call timed between device
+    synchronisations: (prefill s, MoE FFN s)."""
+    import torch
+    from repro_torch.models import moe
+    spent = [0.0]
+    apply = moe.moe_apply
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = apply(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.time() - t
+        return out
+
+    moe.moe_apply = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        model.prefill(params, tokens, model.default_share_prefill(),
+                      prompt_lens=prompt_lens)
+        torch.cuda.synchronize()
+    finally:
+        moe.moe_apply = apply
+    return time.time() - t0, spent[0]
+
+
+def phase16() -> dict:
+    """Phase 16: DeepSeek-V2 236B at full width, 3 of its 60 layers (the
+    dense prefix layer and 2 MoE layers): B.1, B.2 and B.6 at the MLA
+    widths against their plain versions, the engine's batch serve against
+    its plain-prefill twin with exact launches, ``scheduler=True`` on the
+    batch path, and the per-sample path.  Returns the kernels' numbers."""
+    import torch
+    from repro_torch.serving import SlotScheduler
+    print("== phase 16: DeepSeek-V2 236B (MLA, MoE) at full width",
+          flush=True)
+    t = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    model, params = load_model(DEEPSEEK, DEEPSEEK_LAYERS)
+    cfg, dev = model.cfg, model.device
+    layers = cfg.num_layers
+    m = cfg.mla
+    print(f"  MLA: kv_lora {m.kv_lora_rank}, q_lora {m.q_lora_rank}, "
+          f"qk_nope {m.qk_nope_head_dim} + qk_rope {m.qk_rope_head_dim}, v "
+          f"{m.v_head_dim}; MoE {cfg.moe.num_experts} experts top "
+          f"{cfg.moe.top_k} of width {cfg.moe.expert_d_ff} + "
+          f"{cfg.moe.num_shared_experts} shared; prefix FFN {cfg.d_ff}",
+          flush=True)
+    rng = np.random.default_rng(SEED + 16)
+    prompts = [rng.integers(0, cfg.vocab_size, SEQ) for _ in range(2)]
+    tokens = torch.as_tensor(np.stack(prompts), device=dev)
+    res = check_mla_kernels(model, params, tokens)
+    torch.cuda.empty_cache()
+
+    print(f"DeepSeek-V2 batch serve: 2 x {SEQ} prompts, {DEEPSEEK_NEW} new "
+          "tokens", flush=True)
+    kr, kl, kc = mla_serve(model, params, prompts)
+    _expect_counts("DeepSeek-V2 batch serve", kc,
+                   {"strip": layers, "block_sparse_attn": layers})
+    with plain_prefill_kernels():
+        pr, pl, pc = mla_serve(model, params, prompts)
+    _expect_counts("DeepSeek-V2 plain serve", pc, {})
+    tol = PER_SAMPLE_RTOL * float(pl[:, 0].abs().max())
+    for i, (a, c) in enumerate(zip(pr, kr)):
+        verdict = greedy_agree(a.output_tokens, pl[i].cpu().numpy(),
+                               c.output_tokens, tol)
+        print(f"  request {a.uid}: kernel {c.output_tokens.tolist()} plain "
+              f"{a.output_tokens.tolist()} -> {verdict}; max |logit "
+              f"kernel - plain| {max_err(kl[i], pl[i]):.3e}", flush=True)
+    del pl
+    run = SlotScheduler.run
+
+    def refuse(self):
+        raise AssertionError("DeepSeek-V2 reached the slot scheduler")
+    SlotScheduler.run = refuse
+    try:
+        sr, sl, sc = mla_serve(model, params, prompts, scheduler=True)
+    finally:
+        SlotScheduler.run = run
+    _expect_counts("DeepSeek-V2 scheduler=True serve", sc, kc)
+    same = all(a.output_tokens.tolist() == c.output_tokens.tolist()
+               for a, c in zip(kr, sr))
+    print(f"  scheduler=True: the batch path, tokens identical {same}, "
+          f"logits bitwise {bool(torch.equal(kl, sl))}", flush=True)
+    if not same:
+        raise AssertionError("DeepSeek-V2: scheduler=True changed tokens")
+    del sl
+
+    print("DeepSeek-V2 per-sample path (attn_impl=kernel)", flush=True)
+    cr, cl, cc = mla_serve(model, params, prompts, attn_impl="kernel")
+    _expect_counts("DeepSeek-V2 per-sample serve", cc,
+                   {"strip": layers * 2,
+                    "block_sparse_attn_single": layers * 2})
+    tol = PER_SAMPLE_RTOL * float(kl[:, 0].abs().max())
+    for i, (a, c) in enumerate(zip(kr, cr)):
+        verdict = greedy_agree(a.output_tokens, kl[i].cpu().numpy(),
+                               c.output_tokens, tol)
+        print(f"  request {a.uid}: per-sample {c.output_tokens.tolist()} "
+              f"batched {a.output_tokens.tolist()} -> {verdict}; "
+              f"first-step max |logit delta| {max_err(cl[i, 0], kl[i, 0]):.3e}",
+              flush=True)
+    del cl, kl
+    pre_s, moe_s = moe_share_of_prefill(
+        model, params, tokens, torch.tensor([SEQ, SEQ], device=dev))
+    st = kr[0].pattern_stats
+    res["serve"] = {"prefill_s": kr[0].prefill_s,
+                    "block_density": st["block_density"],
+                    "launches": kc, "per_sample_launches": cc,
+                    "moe_share_of_prefill": moe_s / pre_s}
+    print(f"  prefill_s {kr[0].prefill_s:.4f}, block density "
+          f"{st['block_density']:.4f}; MoE FFN {moe_s:.3f} s of a "
+          f"synchronised {pre_s:.3f} s prefill ({moe_s / pre_s:.3f})",
+          flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del model, params
+    torch.cuda.empty_cache()
+    print(f"phase 16: {time.time() - t:.1f} s, peak device memory "
+          f"{peak:.2f} GiB ({nvidia_smi()}); " + json.dumps(res), flush=True)
+    return res
+
+
+def build_other(tree: str) -> dict:
+    """Another checkout's ``block_sparse_attn.cu`` and ``strip.cu``, built
+    with this checkout's nvcc flags into ``build/bitwise/``."""
+    from repro_torch.kernels import _build
+    out = os.path.join(ROOT, "build", "bitwise")
+    os.makedirs(out, exist_ok=True)
+    procs = {}
+    for stem in ("block_sparse_attn", "strip"):
+        lib = os.path.join(out, f"lib{stem}.so")
+        src = os.path.join(tree, "src", "repro_torch", "csrc", f"{stem}.cu")
+        procs[stem] = (lib, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib, src]))
+    libs = {}
+    for stem, (lib, p) in procs.items():
+        if p.wait() != 0:
+            raise RuntimeError(f"nvcc failed on the other {stem}.cu")
+        libs[stem] = ctypes.CDLL(lib)
+    return libs
+
+
+def c_fn(lib, name: str, n_ptr: int, n_int: int):
+    f = getattr(lib, name)
+    f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+        + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def bitwise_instances(tree: str) -> int:
+    """``--bitwise TREE``: hold this checkout's equal-width instances
+    bitwise to another checkout's (``git archive PARENT | tar -x -C
+    build/parent``, then ``--bitwise build/parent``).  Both run on the same
+    seeded inputs: B.2, B.6 and B.5 (BATCHED, SINGLE, PAGED) at bs in {64,
+    128} and D in {64, 96, 128}, random causal tables, a random stats gate,
+    W capped and not, and B.1 at the same head dims; float32 and bfloat16.
+    Every output and Ã must be ``torch.equal``; one line per case, and a
+    non-zero exit on any difference.  The other checkout's C functions are
+    called with their own argument lists (no V width there).  Then B.2 in
+    bf16 at phase 2's shape is timed in both, other, this, this, other."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.kernels import strip as sk
+    from repro_torch.kernels.indices import compact_block_mask
+
+    libs = build_other(tree)
+    bsa_lib = libs["block_sparse_attn"]
+    other_b = c_fn(bsa_lib, "repro_block_sparse_attn", 8, 11)
+    other_s = c_fn(bsa_lib, "repro_block_sparse_attn_single", 7, 8)
+    other_p = c_fn(bsa_lib, "repro_block_sparse_attn_paged", 9, 12)
+    other_strip = c_fn(libs["strip"], "repro_strip", 4, 9)
+    P, stream = _build.ptr, _build.stream_of
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h, hkv, n = 2, 8, 2, 1024
+    bad = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        code = _build.dtype_code(torch.empty(0, dtype=dtype))
+        for bs in (64, 128):
+            nb = n // bs
+            causal = torch.ones(nb, nb, dtype=torch.bool, device=dev).tril()
+            masks = (torch.rand((b, h, nb, nb), generator=gen, device=dev)
+                     < 0.6) & causal
+            masks |= torch.eye(nb, dtype=torch.bool, device=dev)
+            gate = (torch.rand((b, h), generator=gen, device=dev)
+                    < 0.5).int()
+            for d in (64, 96, 128):
+                q, k, v = (torch.randn(shape, generator=gen, device=dev)
+                           .to(dtype) for shape in
+                           ((b, h, n, d), (b, hkv, n, d), (b, hkv, n, d)))
+                results = []
+                for width in (None, nb // 2):
+                    idx, cnt = (x.contiguous() for x in
+                                compact_block_mask(masks, width=width))
+                    w = idx.shape[-1]
+                    mine = bsa.block_sparse_attention_cuda(
+                        q, k, v, idx, cnt, block_size=bs, stats_gate=gate)
+                    out = torch.empty_like(q)
+                    at = torch.full_like(mine[1], float("-inf"))
+                    _build.check(other_b(
+                        P(q), P(k), P(v), P(idx), P(cnt), P(gate), P(out),
+                        P(at), code, b, h, hkv, n, n, d, bs, w, 0, 1,
+                        stream(q)), "other batched")
+                    results.append(("BATCHED", mine, (out, at)))
+                    i0, c0 = idx[0].contiguous(), cnt[0].contiguous()
+                    mine = bsa.block_sparse_attention_single_cuda(
+                        q[0], k[0], v[0], i0, c0, block_size=bs)
+                    out = torch.empty_like(q[0])
+                    st = torch.full_like(mine[1], float("-inf"))
+                    _build.check(other_s(
+                        P(q[0]), P(k[0]), P(v[0]), P(i0), P(c0), P(out),
+                        P(st), code, h, hkv, n, d, bs, w, 1, stream(q)),
+                        "other single")
+                    results.append(("SINGLE", mine, (out, st)))
+                    pages = (1 + torch.randperm(b * nb + 2, generator=gen,
+                                                device=dev)[:b * nb]).int()
+                    table = pages.reshape(b, nb).contiguous()
+                    pool_k, pool_v = (torch.zeros((b * nb + 3, hkv, bs, d),
+                                                  dtype=dtype, device=dev)
+                                      for _ in range(2))
+                    for pool, x in ((pool_k, k), (pool_v, v)):
+                        pool[table.reshape(-1).long()] = x.reshape(
+                            b, hkv, nb, bs, d).transpose(1, 2).reshape(
+                            -1, hkv, bs, d)
+                    mine = bsa.block_sparse_attention_paged_cuda(
+                        q, pool_k, pool_v, table, idx, cnt, block_size=bs,
+                        stats_gate=gate)
+                    out = torch.empty_like(q)
+                    at = torch.full_like(mine[1], float("-inf"))
+                    _build.check(other_p(
+                        P(q), P(pool_k), P(pool_v), P(table), P(idx),
+                        P(cnt), P(gate), P(out), P(at), code, b, h, hkv, n,
+                        nb, d, bs, w, 0, 1, b * nb + 3, stream(q)),
+                        "other paged")
+                    results.append(("PAGED", mine, (out, at)))
+                mine = sk.strip_scores_cuda(q, k, bs)
+                out = torch.empty_like(mine)
+                chunk = sk.strip_chunk(n)
+                ml = torch.empty((2, b, h, bs, -(-n // chunk)),
+                                 dtype=torch.float32, device=dev)
+                _build.check(other_strip(P(q), P(k), P(out), P(ml), code, b,
+                                         h, hkv, n, n, d, bs, chunk,
+                                         stream(q)), "other strip")
+                results.append(("STRIP", (mine,), (out,)))
+                torch.cuda.synchronize()
+                for mode, a, c in results:
+                    same = all(torch.equal(x, y) for x, y in zip(a, c))
+                    bad += not same
+                    print(f"{str(dtype)[6:]} bs={bs} D={d} {mode}: bitwise "
+                          f"{same}", flush=True)
+    print(f"bitwise_instances: {bad} cases differ", flush=True)
+    # B.2 in bf16 at phase 2's shape, the other checkout's body beside this
+    # one's in the order other, this, this, other
+    b, h, hkv, n, d, bs = 2, 32, 8, SEQ, 128, 128
+    nb = n // bs
+    masks = ((torch.rand((b, h, nb, nb), generator=gen, device=dev) < 0.86)
+             & torch.ones(nb, nb, dtype=torch.bool, device=dev).tril()
+             ) | torch.eye(nb, dtype=torch.bool, device=dev)
+    idx, cnt = (x.contiguous() for x in compact_block_mask(masks))
+    gate = torch.zeros((b, h), dtype=torch.int32, device=dev)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, h, n, d), (b, hkv, n, d), (b, hkv, n, d)))
+    out = torch.empty_like(q)
+    at = torch.empty((b, h, nb, nb), dtype=torch.float32, device=dev)
+    code = _build.dtype_code(q)
+    runs = {
+        "other": lambda: _build.check(other_b(
+            P(q), P(k), P(v), P(idx), P(cnt), P(gate), P(out), P(at), code,
+            b, h, hkv, n, n, d, bs, idx.shape[-1], 0, 1, stream(q)), "other"),
+        "this": lambda: bsa.block_sparse_attention_cuda(
+            q, k, v, idx, cnt, block_size=bs, stats_gate=gate)}
+    times = [(who, cuda_ms(runs[who], 20))
+             for who in ("other", "this", "this", "other")]
+    print("B.2 bf16 at B=2 H=32 Hkv=8 N=8192 D=128 bs=128, ms: "
+          + ", ".join(f"{who} {ms:.4f}" for who, ms in times), flush=True)
+    return 1 if bad else 0
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3125,9 +4041,11 @@ def main() -> int:
     _build.build_all()
     print(f"build_s {time.time() - t:.2f}", flush=True)
     only = sys.argv[1:]
-    if only == ["--phase", "14"]:
-        # a check of phase 14 alone; it prints no result line
-        phase14()
+    if len(only) == 2 and only[0] == "--bitwise":
+        return bitwise_instances(only[1])  # no result line
+    if only in (["--phase", "14"], ["--phase", "15"], ["--phase", "16"]):
+        # a check of phase 14, 15 or 16 alone; it prints no result line
+        {"14": phase14, "15": phase15, "16": phase16}[only[1]]()
         return 0
 
     cfg = get_config(ARCH)
@@ -3158,8 +4076,8 @@ def main() -> int:
         phase13(model, params, layers)  # alone; no result line
         return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12, 13 "
-                         "or 14, or none")
+        raise SystemExit(f"unknown arguments {only}; use --phase 12, "
+                         "13, 14, 15 or 16, --bitwise TREE, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
     res = check_kernels(model, params, tokens, plens)
@@ -3260,6 +4178,11 @@ def main() -> int:
                  "decode_attn", "decode_attn_paged"):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                        mix[name]["max_abs_err"])
+    for later in (phase15(), phase16()):
+        for name, r in later.items():
+            if name in KERNELS:
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                               r["max_abs_err"])
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

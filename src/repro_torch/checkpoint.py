@@ -19,9 +19,18 @@ and for the ``moe`` family the FFN leaves are the experts' instead::
     stack::ffn::shared::w_gate (L, d, F·S)     — and w_up, w_down (shared
                                                  experts, when S > 0)
 
+A ``vlm`` config (Qwen2-VL's backbone) has the dense family's leaves.  With
+MLA the attention leaves are the latent projections of
+:func:`repro_torch.models.mla.mla_leaf_shapes` (``stack::attn::w_kv_down``
+…), and DeepSeek-V2 (MoE with MLA) has its dense-FFN prefix layer apart
+from the stack, unstacked, as ``prefix_0::attn::…``, ``prefix_0::ffn::
+w_gate`` (d, F) …, ``prefix_0::ln1::scale``; the stack then holds
+``L − 1`` layers.
+
 The port's parameters are a plain dict with the same leaves and layouts,
-except that the leading layer axis becomes a list ``layers`` of per-layer
-dicts (views into one stacked tensor per leaf).
+except that the layers become one list ``layers`` of per-layer dicts, the
+prefix layers first (stack layers are views into one stacked tensor per
+leaf).
 """
 from __future__ import annotations
 
@@ -31,7 +40,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, moe
+from repro_torch.models import common, mla, moe
+from repro_torch.models.transformer import num_prefix_layers
 
 SEP = "::"
 
@@ -43,23 +53,25 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.mla.enabled:
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}{' with MLA' if cfg.mla.enabled else ''}:"
-            " the port serves the dense and moe families so far (ROADMAP.md "
-            "queue A.10)")
+            f"family {cfg.family!r}: the port serves the dense, vlm and moe "
+            "families so far (ROADMAP.md queue A.10)")
 
 
-def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Every per-layer leaf (``::`` keys under ``stack``) and its shape."""
+def _layer_shapes(cfg: ModelConfig, *, moe_ffn: bool) -> Dict[str, tuple]:
+    """Every leaf of one layer (``::`` keys under ``stack``, or a prefix
+    layer's with ``moe_ffn=False``) and its shape."""
     d, f = cfg.d_model, cfg.d_ff
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    shapes = {
-        "attn::wq": (d, h, hd), "attn::wk": (d, hkv, hd),
-        "attn::wv": (d, hkv, hd), "attn::wo": (h, hd, d),
-        "ln1::scale": (d,), "ln2::scale": (d,),
-    }
-    if cfg.moe.enabled:
+    if cfg.mla.enabled:
+        shapes = {f"attn{SEP}{k}": v
+                  for k, v in mla.mla_leaf_shapes(cfg).items()}
+    else:
+        shapes = {"attn::wq": (d, h, hd), "attn::wk": (d, hkv, hd),
+                  "attn::wv": (d, hkv, hd), "attn::wo": (h, hd, d)}
+    shapes.update({"ln1::scale": (d,), "ln2::scale": (d,)})
+    if moe_ffn:
         shapes.update({f"ffn{SEP}{k}": v
                        for k, v in moe.moe_leaf_shapes(cfg).items()})
     else:
@@ -68,18 +80,26 @@ def _layer_shapes(cfg: ModelConfig) -> Dict[str, tuple]:
     return shapes
 
 
-def _assemble(stacked: Dict[str, torch.Tensor], top: Dict[str, torch.Tensor],
-              cfg: ModelConfig) -> Dict:
-    layers = []
-    for i in range(cfg.num_layers):
-        layer: Dict = {}
-        for name, full in stacked.items():
-            *path, leaf = name.split(SEP)
-            node = layer
-            for part in path:
-                node = node.setdefault(part, {})
-            node[leaf] = full[i]
-        layers.append(layer)
+def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
+    """``{"a::b": t}`` → ``{"a": {"b": t}}``."""
+    out: Dict = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(SEP)
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+    return out
+
+
+def _assemble(prefix, stacked: Dict[str, torch.Tensor],
+              top: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
+    """``prefix``: each prefix layer's flat leaves; ``stacked``: the stack's
+    ``(L', …)`` leaves."""
+    n_stack = cfg.num_layers - len(prefix)
+    layers = [_nest(p) for p in prefix] + [
+        _nest({name: full[i] for name, full in stacked.items()})
+        for i in range(n_stack)]
     params = {"embed": top["embed"],
               "final_norm": {"scale": top["final_norm::scale"]},
               "layers": layers}
@@ -94,18 +114,26 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
     _check_family(cfg)
     conv = lambda a: torch.tensor(np.asarray(a)).to(device=device,
                                                     dtype=dtype)
-    stacked = {}
-    for name, shape in _layer_shapes(cfg).items():
-        arr = flat[f"stack{SEP}{name}"]
-        if arr.shape != (cfg.num_layers,) + shape:
-            raise ValueError(f"stack::{name}: shape {arr.shape}, expected "
-                             f"{(cfg.num_layers,) + shape}")
-        stacked[name] = conv(arr)
+
+    def take(key, shape):
+        arr = flat[key]
+        if arr.shape != shape:
+            raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
+        return conv(arr)
+
+    n_prefix = num_prefix_layers(cfg)
+    n_stack = cfg.num_layers - n_prefix
+    stacked = {name: take(f"stack{SEP}{name}", (n_stack,) + shape)
+               for name, shape in _layer_shapes(
+                   cfg, moe_ffn=cfg.moe.enabled).items()}
+    prefix = [{name: take(f"prefix_{i}{SEP}{name}", shape)
+               for name, shape in _layer_shapes(cfg, moe_ffn=False).items()}
+              for i in range(n_prefix)]
     top = {"embed": conv(flat["embed"]),
            "final_norm::scale": conv(flat[f"final_norm{SEP}scale"])}
     if not cfg.tie_embeddings:
         top["lm_head"] = conv(flat["lm_head"])
-    return _assemble(stacked, top, cfg)
+    return _assemble(prefix, stacked, top, cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -119,24 +147,30 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     on ``device`` (``generator`` must live there) and stored in
     ``dtype``."""
     _check_family(cfg)
-    shapes = _layer_shapes(cfg)
-    stacked = {name: torch.empty((cfg.num_layers,) + shape, dtype=dtype,
-                                 device=device)
-               for name, shape in shapes.items()}
+    n_prefix = num_prefix_layers(cfg)
+    n_stack = cfg.num_layers - n_prefix
+    empty = lambda shape: torch.empty(shape, dtype=dtype, device=device)
+    stacked = {name: empty((n_stack,) + shape)
+               for name, shape in _layer_shapes(
+                   cfg, moe_ffn=cfg.moe.enabled).items()}
+    prefix = [{name: empty(shape) for name, shape in _layer_shapes(
+        cfg, moe_ffn=False).items()} for _ in range(n_prefix)]
     ffn = f"ffn{SEP}"
     experts = {name[len(ffn):]: full for name, full in stacked.items()
                if cfg.moe.enabled and name.startswith(ffn)}
+    fill = lambda t: (t.fill_(1.0) if t.dim() == 1
+                      else common.dense_init_(t, generator))
     for name, full in stacked.items():
         if cfg.moe.enabled and name.startswith(ffn):
             continue                    # drawn per expert below
-        for i in range(cfg.num_layers):
-            if name.endswith("scale"):
-                full[i].fill_(1.0)
-            else:
-                common.dense_init_(full[i], generator)
-    for i in range(cfg.num_layers if experts else 0):
+        for i in range(n_stack):
+            fill(full[i])
+    for i in range(n_stack if experts else 0):
         moe.init_moe_layer(cfg, generator, device=device,
                            out={n: full[i] for n, full in experts.items()})
+    for layer in prefix:
+        for t in layer.values():
+            fill(t)
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
                         dtype=torch.float32, device=device).mul_(0.02)
     top = {"embed": embed.to(dtype),
@@ -146,7 +180,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         top["lm_head"] = common.dense_init_(
             torch.empty((cfg.d_model, cfg.vocab_size), dtype=dtype,
                         device=device), generator)
-    return _assemble(stacked, top, cfg)
+    return _assemble(prefix, stacked, top, cfg)
 
 
 def num_params(params) -> int:

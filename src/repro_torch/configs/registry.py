@@ -1,14 +1,16 @@
-"""Architecture registry of the port: the dense-family configs and Mixtral
-(MoE with sliding-window attention).
+"""Architecture registry of the port: the dense-family configs, Mixtral
+(MoE with sliding-window attention), Qwen2-VL (the VLM backbone, M-RoPE)
+and DeepSeek-V2 (MLA with a dense prefix layer ahead of the MoE stack).
 
-The other families (MLA, SSM, hybrid, encoder-decoder, VLM) join the
-registry with the slices that port their models (ROADMAP.md queue A.10).
+The other families (SSM, hybrid, encoder-decoder) join the registry with
+the slices that port their models (ROADMAP.md queue A.10).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig, reduced_config
+from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek_v2
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.internlm2_1_8b import CONFIG as _internlm2
 from repro_torch.configs.llama3_8b_262k import CONFIG as _llama3_262k
@@ -16,6 +18,7 @@ from repro_torch.configs.mistral_large_123b import CONFIG as _mistral_large
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen2_5_7b import CONFIG as _qwen2_5
+from repro_torch.configs.qwen2_vl_72b import CONFIG as _qwen2_vl
 
 REGISTRY: Dict[str, ModelConfig] = {
     "granite-3-2b": _granite,
@@ -25,6 +28,8 @@ REGISTRY: Dict[str, ModelConfig] = {
     "phi3-mini-3.8b": _phi3,
     "llama3-8b-262k": _llama3_262k,
     "qwen2.5-7b": _qwen2_5,
+    "qwen2-vl-72b": _qwen2_vl,
+    "deepseek-v2-236b": _deepseek_v2,
 }
 
 

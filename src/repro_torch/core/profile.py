@@ -15,7 +15,9 @@ builders as the model's (the strip kernel for CUDA tensors).
 
 Both take the port's params (``params["layers"][i]``) and one sample,
 as the reference does, and run on the device of the tokens; a MoE config
-runs its MoE FFN after each layer's attention.
+runs its MoE FFN after each layer's attention, and a VLM is traced on
+tokens under plain RoPE.  MLA layers are refused: the reference's trace
+cannot capture them either.
 """
 from __future__ import annotations
 
@@ -50,11 +52,15 @@ def _check_model(cfg: ModelConfig, tokens: torch.Tensor) -> None:
     if tokens.shape[0] != 1:
         raise ValueError("profiling uses a single sample (paper §5.2); got "
                          f"a batch of {tokens.shape[0]}")
-    if (cfg.family not in ("dense", "moe") or cfg.mla.enabled
-            or num_prefix_layers(cfg)):
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"profiling {cfg.name!r}: MLA, prefix layers and the other "
-            "families come with ROADMAP.md queue A.10")
+            f"profiling {cfg.name!r}: the {cfg.family!r} family comes with "
+            "ROADMAP.md queue A.10")
+    if cfg.mla.enabled or num_prefix_layers(cfg):
+        raise NotImplementedError(
+            f"profiling {cfg.name!r}: the trace captures GQA layers only; "
+            "MLA and prefix layers are not captured, as in the reference "
+            "(its trace projects every layer through gqa_qkv)")
 
 
 def _layer_qkv(layer, x, cfg: ModelConfig, positions):

@@ -11,7 +11,11 @@
 // anchored at q_block_offset:  (q_block_offset + row) * bs + i >= j * bs + t.
 // It also emits, for every visited block j, the mean of the scaled logits
 // over the causally valid entries (-inf when the block has none).  Rows with
-// nothing visited write zeros.
+// nothing visited write zeros.  Q and K have width Dqk (the template's
+// DQK) and V and the output width Dv (DV); they are equal except at
+// DeepSeek-V2's MLA prefill, Dqk = 192 and Dv = 128 (BATCHED and SINGLE),
+// whose instances stand beside the equal-width ones (by_dim).  The scale is
+// 1 / sqrt(Dqk), from Q's width.
 //
 // BATCHED and PAGED take the reference's ragged schedule: a row visits
 // n = min(counts, min(causal bound, W)) blocks, stats only for heads with
@@ -32,7 +36,8 @@
 // diagonal is visited, contributes nothing to the output and gets -inf.
 // The per-row arithmetic does not depend on the instance.
 //
-// Bound on an H100: the products, 4 * bs^2 * D flops per visited block.  One
+// Bound on an H100: the products, 2 * bs^2 * (Dqk + Dv) flops per visited
+// block (4 * bs^2 * D at equal widths).  One
 // llama3-8b layer at N = 8192, B = 2 and ~0.93 block density visits ~124k
 // blocks of 8.4 MFLOP each, ~1 TFLOP, ~0.9 ms at the bf16 tensor-core rate,
 // far above its bytes (q, out, K and V once: ~0.34 GB, 0.1 ms).
@@ -64,8 +69,8 @@
 //     with the most blocks start first.
 // float32 body (bsa_f32_kernel): products as FMAs on CUDA cores, one CTA per
 // (row, h, b) of 2 * bs threads, Q, K, V and P in shared memory in float32,
-// each thread owning 4 query rows x 4 keys of S and 4 rows x D/8 columns of
-// the output.
+// each thread owning 4 query rows x 4 keys of S and 4 rows x Dv/8 columns
+// of the output.
 #include "common.cuh"
 
 namespace {
@@ -78,8 +83,8 @@ struct Dims {
   int B, H, Hkv, N, NBkv, W, q_block_offset, causal, P;
 };
 
-// Everything a launch needs.  k / v are (B, Hkv, NBkv * bs, D) for BATCHED
-// and SINGLE and the pools (P, Hkv, bs, D) for PAGED; stats is a_tilde
+// Everything a launch needs.  k / v are (B, Hkv, NBkv * bs, Dqk / Dv) for
+// BATCHED and SINGLE and the pools (P, Hkv, bs, D) for PAGED; stats is a_tilde
 // (B, H, NBq, NBkv) or, for SINGLE, the compact (H, NBq, W).
 struct Args {
   const void* q;
@@ -111,7 +116,7 @@ __device__ __forceinline__ int visited(const Dims& a, int count, int row) {
 
 // The float32 body: products as FMAs on CUDA cores (TF32 would miss the
 // 1e-4 float32 tolerance, and float32 is on no serving path).
-template <int BQ, int D, int MODE>
+template <int BQ, int DQK, int DV, int MODE>
 __global__ void __launch_bounds__(2 * BQ)
 bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
            const float* __restrict__ v, const int* __restrict__ page_table,
@@ -120,14 +125,14 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
            float* __restrict__ stats, Dims a, float scale) {
   using T = float;
   constexpr int NT = 2 * BQ;          // threads
-  constexpr int QS = D + 1;           // padded row stride of Q and K tiles
+  constexpr int QS = DQK + 1;         // padded row stride of Q and K tiles
   constexpr int PS = KT + 1;          // padded row stride of P
-  constexpr int DC = D / 8;           // output columns per thread
+  constexpr int DC = DV / 8;          // output columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                  // BQ x QS
   float* k_s = q_s + BQ * QS;         // KT x QS
-  float* v_s = k_s + KT * QS;         // KT x D
-  float* p_s = v_s + KT * D;          // BQ x PS
+  float* v_s = k_s + KT * QS;         // KT x DV
+  float* p_s = v_s + KT * DV;         // BQ x PS
   __shared__ float red_sum[NT / 32], red_cnt[NT / 32];
 
   const int H = a.H, W = a.W, NBkv = a.NBkv;
@@ -137,15 +142,15 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int hk = h / (H / a.Hkv);
   const size_t bh = (size_t)b * H + h;
   const size_t trow = bh * NBq + row;  // table row
-  const T* qb = q + (bh * a.N + (size_t)row * BQ) * D;
-  // K/V of this (batch, kv head) in the contiguous instances
-  const size_t kv0 = ((size_t)b * a.Hkv + hk) * (size_t)NBkv * BQ * D;
+  const T* qb = q + (bh * a.N + (size_t)row * BQ) * DQK;
+  // first K/V row of this (batch, kv head) in the contiguous instances
+  const size_t kv0 = ((size_t)b * a.Hkv + hk) * (size_t)NBkv * BQ;
 
   const int n = visited<MODE>(a, counts[trow], row);
   const bool emit = MODE == SINGLE || gate[bh] != 0;
 
-  for (int i = tid; i < BQ * D; i += NT)
-    q_s[(i / D) * QS + (i % D)] = repro::to_f(qb[i]);
+  for (int i = tid; i < BQ * DQK; i += NT)
+    q_s[(i / DQK) * QS + (i % DQK)] = repro::to_f(qb[i]);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -159,27 +164,24 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int w = 0; w < n; ++w) {
     const int j = indices[trow * W + w];
-    // K/V rows from the base kb / vb: the cache's (row j * bs on) or the
-    // block's page (row 0 on)
-    const T* kb = k + kv0;
-    const T* vb = v + kv0;
-    size_t jrow = (size_t)j * BQ;
+    // the block's first K/V row: the cache's (row j * bs of the head) or
+    // the block's page
+    size_t jrow = kv0 + (size_t)j * BQ;
     if constexpr (MODE == PAGED) {
       const int page = page_table[(size_t)b * NBkv + j];
       if (page < 0 || page >= a.P) continue;    // uniform across the CTA
-      const size_t tile = ((size_t)page * a.Hkv + hk) * (size_t)BQ * D;
-      kb = k + tile;
-      vb = v + tile;
-      jrow = 0;
+      jrow = ((size_t)page * a.Hkv + hk) * (size_t)BQ;
     }
     float s_sum = 0.f, s_cnt = 0.f;
     for (int t0 = 0; t0 < BQ; t0 += KT) {
       __syncthreads();                // previous sub-tile fully consumed
-      for (int i = tid; i < KT * D; i += NT) {
-        int r = i / D, c = i - r * D;
-        size_t off = (jrow + t0 + r) * D + c;
-        k_s[r * QS + c] = repro::to_f(kb[off]);
-        v_s[r * D + c] = repro::to_f(vb[off]);
+      for (int i = tid; i < KT * DQK; i += NT) {
+        int r = i / DQK, c = i - r * DQK;
+        k_s[r * QS + c] = repro::to_f(k[(jrow + t0 + r) * DQK + c]);
+      }
+      for (int i = tid; i < KT * DV; i += NT) {
+        int r = i / DV, c = i - r * DV;
+        v_s[r * DV + c] = repro::to_f(v[(jrow + t0 + r) * DV + c]);
       }
       __syncthreads();
 
@@ -189,7 +191,7 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) {
+      for (int d = 0; d < DQK; ++d) {
         float qv[4], kv[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) qv[i] = q_s[(4 * ty + i) * QS + d];
@@ -241,7 +243,7 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int i = 0; i < 4; ++i) pv[i] = p_s[(4 * ty + i) * PS + kk];
 #pragma unroll
         for (int c = 0; c < DC; ++c) {
-          const float vv = v_s[kk * D + tx + 8 * c];
+          const float vv = v_s[kk * DV + tx + 8 * c];
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
         }
@@ -271,7 +273,7 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* ob = out + (bh * a.N + (size_t)row * BQ + 4 * ty + i) * D;
+    T* ob = out + (bh * a.N + (size_t)row * BQ + 4 * ty + i) * DV;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       ob[tx + 8 * c] = repro::from_f<T>(acc[i][c] * inv);
@@ -280,7 +282,7 @@ bsa_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // The bfloat16 body (header comment).  The pointers stay __restrict__
 // kernel parameters (read-only loads).
-template <int BQ, int D, int MODE>
+template <int BQ, int DQK, int DV, int MODE>
 __global__ void __launch_bounds__(2 * BQ, 1)
 bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k,
@@ -295,15 +297,17 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int NW = NT / 32;         // warps, 16 query rows each
   constexpr int KN = 64;              // keys per sub-tile
   constexpr int TPB = BQ / KN;        // sub-tiles per kv block
-  constexpr int DP = D + 8;           // padded smem row (bf16)
-  constexpr int DK = D / 16;          // k-steps of QK^T
+  constexpr int DP = DQK + 8;         // padded smem row of Q and K (bf16)
+  constexpr int VP = DV + 8;          // padded smem row of V (bf16)
+  constexpr int DK = DQK / 16;        // k-steps of QK^T
   constexpr int NN = KN / 8;          // n-tiles of S
-  constexpr int DN = D / 8;           // n-tiles of O
-  constexpr int CPR = D / 8;          // 16-byte chunks per row
+  constexpr int DN = DV / 8;          // n-tiles of O
+  constexpr int CPR = DQK / 8;        // 16-byte chunks per Q / K row
+  constexpr int CPV = DV / 8;         // 16-byte chunks per V row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // BQ x DP
   bf16* k_s = q_s + BQ * DP;                       // 2 stages x KN x DP
-  bf16* v_s = k_s + 2 * KN * DP;                   // 2 stages x KN x DP
+  bf16* v_s = k_s + 2 * KN * DP;                   // 2 stages x KN x VP
   __shared__ float red_sum[2][NW];
   __shared__ int red_cnt[2][NW];
 
@@ -322,44 +326,47 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int gq = lane >> 2, tq = lane & 3;   // fragment row / column group
   const size_t bh = (size_t)b * H + h;
   const size_t trow = bh * NBq + row;        // table row
-  const bf16* qb = q + (bh * a.N + (size_t)row * BQ) * D;
-  // K/V of this (batch, kv head) in the contiguous instances
-  const size_t kv0 = ((size_t)b * a.Hkv + hk) * (size_t)NBkv * BQ * D;
+  const bf16* qb = q + (bh * a.N + (size_t)row * BQ) * DQK;
+  // first K/V row of this (batch, kv head) in the contiguous instances
+  const size_t kv0 = ((size_t)b * a.Hkv + hk) * (size_t)NBkv * BQ;
 
   const int n = visited<MODE>(a, counts[trow], row);
   const bool emit = MODE == SINGLE || gate[bh] != 0;
   const int ntiles = n * TPB;
 
-  // sub-tile i: its block (rank w, id j) and K/V source; false for a block
-  // on a page outside [0, P) (uniform across the CTA)
-  auto source = [&](int i, int& j, size_t& off) -> bool {
+  // sub-tile i: its block (rank w, id j) and first K/V row; false for a
+  // block on a page outside [0, P) (uniform across the CTA)
+  auto source = [&](int i, int& j, size_t& r0) -> bool {
     j = indices[trow * W + i / TPB];
     const int sub = i % TPB;
     if constexpr (MODE == PAGED) {
       const int page = page_table[(size_t)b * NBkv + j];
       if (page < 0 || page >= a.P) return false;
-      off = (((size_t)page * a.Hkv + hk) * BQ + (size_t)sub * KN) * D;
+      r0 = ((size_t)page * a.Hkv + hk) * BQ + (size_t)sub * KN;
     } else {
-      off = kv0 + ((size_t)j * BQ + (size_t)sub * KN) * D;
+      r0 = kv0 + (size_t)j * BQ + (size_t)sub * KN;
     }
     return true;
   };
   auto prefetch = [&](int i) {
     int j;
-    size_t off;
-    if (!source(i, j, off)) return;
+    size_t r0;
+    if (!source(i, j, r0)) return;
     bf16* ks = k_s + (i & 1) * KN * DP;
-    bf16* vs = v_s + (i & 1) * KN * DP;
+    bf16* vs = v_s + (i & 1) * KN * VP;
     for (int c = tid; c < KN * CPR; c += NT) {
       const int r = c / CPR, cc = (c % CPR) * 8;
-      repro::cp_async16(ks + r * DP + cc, k + off + (size_t)r * D + cc);
-      repro::cp_async16(vs + r * DP + cc, v + off + (size_t)r * D + cc);
+      repro::cp_async16(ks + r * DP + cc, k + (r0 + r) * DQK + cc);
+    }
+    for (int c = tid; c < KN * CPV; c += NT) {
+      const int r = c / CPV, cc = (c % CPV) * 8;
+      repro::cp_async16(vs + r * VP + cc, v + (r0 + r) * DV + cc);
     }
   };
 
   for (int c = tid; c < BQ * CPR; c += NT) {
     const int r = c / CPR, cc = (c % CPR) * 8;
-    repro::cp_async16(q_s + r * DP + cc, qb + (size_t)r * D + cc);
+    repro::cp_async16(q_s + r * DP + cc, qb + (size_t)r * DQK + cc);
   }
   if (ntiles > 0) prefetch(0);
   repro::cp_async_commit();
@@ -409,11 +416,11 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     if (i + 1 < ntiles) prefetch(i + 1);
     repro::cp_async_commit();
     int j;
-    size_t off;
-    if (!source(i, j, off)) continue;
+    size_t r0;
+    if (!source(i, j, r0)) continue;
     const int sub = i % TPB;
     const bf16* ks = k_s + (i & 1) * KN * DP;
-    const bf16* vs = v_s + (i & 1) * KN * DP;
+    const bf16* vs = v_s + (i & 1) * KN * VP;
 
     // S = Q K^T (16 rows x 64 keys per warp)
     float s[NN][4];
@@ -482,10 +489,10 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
           repro::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
           repro::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vb[4];
         repro::ldmatrix_x4_trans(
-            vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * DP +
+            vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * VP +
                     dp * 16 + (lane >> 4) * 8);
         repro::mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
         repro::mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
@@ -518,90 +525,109 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
     l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
     inv[rr] = 1.f / fmaxf(l[rr], 1e-30f);
   }
-  bf16* ob = out + (bh * a.N + (size_t)row * BQ + warp * 16 + gq) * D;
+  bf16* ob = out + (bh * a.N + (size_t)row * BQ + warp * 16 + gq) * DV;
 #pragma unroll
   for (int dn = 0; dn < DN; ++dn)
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rr * 8 * D + dn * 8 +
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)rr * 8 * DV + dn * 8 +
                                          2 * tq) =
           __floats2bfloat162_rn(o[dn][2 * rr] * inv[rr],
                                 o[dn][2 * rr + 1] * inv[rr]);
 }
 
-template <int BQ, int D, int MODE>
+template <int BQ, int DQK, int DV, int MODE>
 int launch_f32(const Args& a, void* stream) {
-  constexpr int QS = D + 1;
+  constexpr int QS = DQK + 1;
   const size_t smem =
-      (size_t)(BQ * QS + KT * QS + KT * D + BQ * (KT + 1)) * sizeof(float);
+      (size_t)(BQ * QS + KT * QS + KT * DV + BQ * (KT + 1)) * sizeof(float);
   const cudaError_t e = cudaFuncSetAttribute(
-      bsa_f32_kernel<BQ, D, MODE>,
+      bsa_f32_kernel<BQ, DQK, DV, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(a.d.N / BQ, a.d.H, a.d.B);
-  bsa_f32_kernel<BQ, D, MODE><<<grid, 2 * BQ, smem, (cudaStream_t)stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v, a.page_table,
-      a.indices, a.counts, a.gate, (float*)a.out, a.stats, a.d,
-      1.0f / sqrtf((float)D));
+  bsa_f32_kernel<BQ, DQK, DV, MODE>
+      <<<grid, 2 * BQ, smem, (cudaStream_t)stream>>>(
+          (const float*)a.q, (const float*)a.k, (const float*)a.v,
+          a.page_table, a.indices, a.counts, a.gate, (float*)a.out, a.stats,
+          a.d, 1.0f / sqrtf((float)DQK));
   return (int)cudaGetLastError();
 }
 
-template <int BQ, int D, int MODE>
+template <int BQ, int DQK, int DV, int MODE>
 int launch_tc(const Args& a, void* stream) {
-  constexpr int DP = D + 8;
-  const size_t smem = (size_t)(BQ + 4 * 64) * DP * sizeof(__nv_bfloat16);
+  const size_t smem =
+      ((size_t)(BQ + 2 * 64) * (DQK + 8) + (size_t)2 * 64 * (DV + 8)) *
+      sizeof(__nv_bfloat16);
   const cudaError_t e = cudaFuncSetAttribute(
-      bsa_tc_kernel<BQ, D, MODE>,
+      bsa_tc_kernel<BQ, DQK, DV, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const unsigned ctas = (unsigned)(a.d.N / BQ) * a.d.H * a.d.B;
-  bsa_tc_kernel<BQ, D, MODE><<<ctas, 2 * BQ, smem, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
-      (const __nv_bfloat16*)a.v, a.page_table, a.indices, a.counts, a.gate,
-      (__nv_bfloat16*)a.out, a.stats, a.d, 1.0f / sqrtf((float)D));
+  bsa_tc_kernel<BQ, DQK, DV, MODE>
+      <<<ctas, 2 * BQ, smem, (cudaStream_t)stream>>>(
+          (const __nv_bfloat16*)a.q, (const __nv_bfloat16*)a.k,
+          (const __nv_bfloat16*)a.v, a.page_table, a.indices, a.counts,
+          a.gate, (__nv_bfloat16*)a.out, a.stats, a.d,
+          1.0f / sqrtf((float)DQK));
   return (int)cudaGetLastError();
 }
 
+template <int BQ, int DQK, int DV, int MODE>
+int launch(bool tc, const Args& a, void* stream) {
+  return tc ? launch_tc<BQ, DQK, DV, MODE>(a, stream)
+            : launch_f32<BQ, DQK, DV, MODE>(a, stream);
+}
+
 // bfloat16 takes the tensor-core body, float32 the CUDA-core one; bs in
-// {64, 128} and D in {64, 96, 128}, anything else is refused.  D = 96
+// {64, 128} and equal Q/K and V widths D in {64, 96, 128}, or (Dqk, Dv) =
+// (192, 128) (DeepSeek-V2's MLA prefill: qk_nope 128 + qk_rope 64 against
+// v 128) for BATCHED and SINGLE; anything else is refused.  D = 96
 // (phi3-mini) divides both bodies' tiles: 6 k-steps of QK^T and 12 n-tiles
 // of O on the tensor cores, 12 output columns a thread on CUDA cores; its
 // padded row of 104 bf16 (208 bytes) keeps ldmatrix's 16-byte row
-// addresses aligned and its eight rows on distinct bank quads.
+// addresses aligned and its eight rows on distinct bank quads.  At 192/128
+// the tensor-core body takes 12 k-steps of QK^T and 16 n-tiles of O (the
+// Q fragments 48 registers); the Q tile and K ring rows are padded to 200
+// bf16 (400 bytes: eight rows at 16 r mod 128 bytes, distinct bank quads)
+// and the V ring to 136, 137 KB of shared memory at bs = 128; the float32
+// body holds Q and K at 193 floats a row, 157 KB at bs = 128.  The scale is
+// 1 / sqrt(Dqk) and Ã the block mean of Q K^T, whatever Dv.
 template <int BQ, int MODE>
-int by_dim(bool tc, int D, const Args& a, void* stream) {
-  if (D == 128)
-    return tc ? launch_tc<BQ, 128, MODE>(a, stream)
-              : launch_f32<BQ, 128, MODE>(a, stream);
-  if (D == 96)
-    return tc ? launch_tc<BQ, 96, MODE>(a, stream)
-              : launch_f32<BQ, 96, MODE>(a, stream);
-  if (D == 64)
-    return tc ? launch_tc<BQ, 64, MODE>(a, stream)
-              : launch_f32<BQ, 64, MODE>(a, stream);
+int by_dim(bool tc, int D, int Dv, const Args& a, void* stream) {
+  if (D == Dv) {
+    if (D == 128) return launch<BQ, 128, 128, MODE>(tc, a, stream);
+    if (D == 96) return launch<BQ, 96, 96, MODE>(tc, a, stream);
+    if (D == 64) return launch<BQ, 64, 64, MODE>(tc, a, stream);
+  }
+  if constexpr (MODE != PAGED) {
+    if (D == 192 && Dv == 128)
+      return launch<BQ, 192, 128, MODE>(tc, a, stream);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
 template <int MODE>
-int dispatch(int dtype, int bs, int D, const Args& a, void* stream) {
+int dispatch(int dtype, int bs, int D, int Dv, const Args& a, void* stream) {
   const bool tc = dtype == REPRO_BF16;
-  if (bs == 128) return by_dim<128, MODE>(tc, D, a, stream);
-  if (bs == 64) return by_dim<64, MODE>(tc, D, a, stream);
+  if (bs == 128) return by_dim<128, MODE>(tc, D, Dv, a, stream);
+  if (bs == 64) return by_dim<64, MODE>(tc, D, Dv, a, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q (B, H, N, D); k / v (B, Hkv, Nkv, D); tables (B, H, N / bs, W);
-// gate (B, H); a_tilde (B, H, N / bs, Nkv / bs), filled with -inf.
+// q (B, H, N, D); k (B, Hkv, Nkv, D); v (B, Hkv, Nkv, Dv); out (B, H, N,
+// Dv); tables (B, H, N / bs, W); gate (B, H); a_tilde (B, H, N / bs,
+// Nkv / bs), filled with -inf.
 extern "C" int repro_block_sparse_attn(
     const void* q, const void* k, const void* v, const int* indices,
     const int* counts, const int* gate, void* out, float* a_tilde, int dtype,
-    int B, int H, int Hkv, int N, int Nkv, int D, int bs, int W,
+    int B, int H, int Hkv, int N, int Nkv, int D, int Dv, int bs, int W,
     int q_block_offset, int causal, void* stream) {
   const Args a{q, k, v, nullptr, indices, counts, gate, out, a_tilde,
                {B, H, Hkv, N, Nkv / bs, W, q_block_offset, causal, 0}};
-  return dispatch<BATCHED>(dtype, bs, D, a, stream);
+  return dispatch<BATCHED>(dtype, bs, D, Dv, a, stream);
 }
 
 // pool_k / pool_v (P, Hkv, bs, D); page_table (B, NBkv); the rest as above,
@@ -614,16 +640,16 @@ extern "C" int repro_block_sparse_attn_paged(
     int causal, int P, void* stream) {
   const Args a{q, pool_k, pool_v, page_table, indices, counts, gate, out,
                a_tilde, {B, H, Hkv, N, NBkv, W, q_block_offset, causal, P}};
-  return dispatch<PAGED>(dtype, bs, D, a, stream);
+  return dispatch<PAGED>(dtype, bs, D, D, a, stream);
 }
 
-// q (H, N, D); k / v (Hkv, N, D); tables (H, N / bs, W); stats (H, N / bs,
-// W), filled with -inf.
+// q (H, N, D); k (Hkv, N, D); v (Hkv, N, Dv); out (H, N, Dv); tables
+// (H, N / bs, W); stats (H, N / bs, W), filled with -inf.
 extern "C" int repro_block_sparse_attn_single(
     const void* q, const void* k, const void* v, const int* indices,
     const int* counts, void* out, float* stats, int dtype, int H, int Hkv,
-    int N, int D, int bs, int W, int causal, void* stream) {
+    int N, int D, int Dv, int bs, int W, int causal, void* stream) {
   const Args a{q, k, v, nullptr, indices, counts, nullptr, out, stats,
                {1, H, Hkv, N, N / bs, W, 0, causal, 0}};
-  return dispatch<SINGLE>(dtype, bs, D, a, stream);
+  return dispatch<SINGLE>(dtype, bs, D, Dv, a, stream);
 }

@@ -37,7 +37,7 @@
 //   * A ragged last chunk is masked and never read past N (the source row
 //     of a key >= N is clamped to N - 1; its logits are masked).
 //
-// bfloat16 body (strip_tc_kernel, D in {64, 96, 128}), the serving path:
+// bfloat16 body (strip_tc_kernel, D in {64, 96, 128, 192}), the serving path:
 // 4 warps of 32 rows each, as two 16-row mma.sync m16n8k16 A fragments
 // (bf16 in, float32 accumulate: a bf16 x bf16 product is exact in float32,
 // so only the summation order differs from the reference) loaded once per
@@ -49,6 +49,10 @@
 // streaming stores, two whole 256-byte rows per warp instruction: on an H100
 // pass 2 took ~15 % less time than with 8-byte stores straight from the
 // accumulator fragments (scripts/torch_strip_variants.py).
+// D = 192 (DeepSeek-V2's MLA: qk_nope 128 + qk_rope 64) takes this body
+// too: its 2 x 12 Q fragments a warp fit in 242 (pass 1) and 255 (pass 2)
+// registers with no spill (ptxas, sm_90a), and its Q tile and K ring take
+// 128000 bytes of shared memory, one CTA an SM.
 // CUDA-core body (strip_f32_kernel): float32 inputs (TF32 would miss the
 // 1e-5 tolerance) and bf16 at other head dims, the same chunks, scratch and
 // merge; 64 rows per CTA, each thread a 4-row x 4-key tile with its query
@@ -546,6 +550,7 @@ extern "C" int repro_strip(const void* q, const void* k, void* out,
   const auto st = (cudaStream_t)stream;
   float* o = (float*)out;
   if (dtype == REPRO_BF16) {
+    if (D == 192) return launch_tc<192>(q, k, o, ml, a, sl2, st);
     if (D == 128) return launch_tc<128>(q, k, o, ml, a, sl2, st);
     if (D == 96) return launch_tc<96>(q, k, o, ml, a, sl2, st);
     if (D == 64) return launch_tc<64>(q, k, o, ml, a, sl2, st);

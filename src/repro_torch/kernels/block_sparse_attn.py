@@ -23,7 +23,10 @@ so the semantics equal the TPU kernel's exactly.
     bfloat16 runs its products on the tensor cores, float32 on CUDA cores;
   * :func:`block_sparse_attention_batched` — the dispatcher.
 
-All return ``(out (B, H, N, D) in q's dtype, Ã (B, H, NBq, NBkv) f32)``.
+All return ``(out (B, H, N, Dv) in q's dtype, Ã (B, H, NBq, NBkv) f32)``:
+q and k have width Dqk, v and the output width Dv.  The kernel takes Dqk
+= Dv in {64, 96, 128}, and (Dqk, Dv) = (192, 128) (DeepSeek-V2's MLA
+prefill) in the batched and single-sample instances.
 Two more instances of the same kernel, each with its plain version and
 dispatcher:
 
@@ -132,11 +135,17 @@ def block_sparse_attention_plain(
     return out, torch.where(visit, means, NEG_INF)
 
 
+# the (Dqk, Dv) pairs of unequal widths the kernel takes (MLA prefill)
+UNEQUAL_WIDTHS = ((192, 128),)
+
+
 def _check_shapes(what: str, q: torch.Tensor, hkv: int, nkv: int, d_kv: int,
-                  block_size: int) -> None:
-    """q ``(B, H, N, D)`` against K/V of ``Hkv`` heads, ``Nkv`` tokens and
-    head dim ``d_kv``: the sizes the kernel takes."""
+                  block_size: int, d_v: Optional[int] = None) -> None:
+    """q ``(B, H, N, D)`` against K of ``Hkv`` heads, ``Nkv`` tokens and
+    head dim ``d_kv``, and V of width ``d_v`` (default ``d_kv``): the sizes
+    the kernel takes."""
     n, d = q.shape[2], q.shape[3]
+    d_v = d_kv if d_v is None else d_v
     if d_kv != d or q.shape[1] % hkv:
         raise ValueError(f"{what}: q {tuple(q.shape)} against {hkv} kv "
                          f"heads of dim {d_kv}")
@@ -144,9 +153,11 @@ def _check_shapes(what: str, q: torch.Tensor, hkv: int, nkv: int, d_kv: int,
     if n % bs or nkv % bs:
         raise ValueError(f"{what} kernel needs block-aligned lengths "
                          f"(N={n}, Nkv={nkv}, bs={bs})")
-    if bs not in (64, 128) or d not in (64, 96, 128):
+    if bs not in (64, 128) or not (
+            (d == d_v and d in (64, 96, 128)) or (d, d_v) in UNEQUAL_WIDTHS):
         raise ValueError(f"{what} kernel takes bs in (64, 128) and D in "
-                         f"(64, 96, 128); got bs={bs}, D={d}")
+                         f"(64, 96, 128), or (Dqk, Dv) in {UNEQUAL_WIDTHS}; "
+                         f"got bs={bs}, D={d}, Dv={d_v}")
 
 
 def _check_tables(indices, counts, grid: tuple) -> int:
@@ -192,25 +203,26 @@ def block_sparse_attention_cuda(
     """The kernel (``csrc/block_sparse_attn.cu``) on CUDA tensors; raises
     on what it does not take."""
     b, h, n, d = q.shape
-    if k.shape != v.shape or k.dim() != 4 or k.shape[0] != b:
+    if k.shape[:3] != v.shape[:3] or k.dim() != 4 or v.dim() != 4 \
+            or k.shape[0] != b:
         raise ValueError(f"block-sparse attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    hkv, nkv = k.shape[1], k.shape[2]
-    _check_shapes("block-sparse", q, hkv, nkv, k.shape[3], block_size)
+    hkv, nkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    _check_shapes("block-sparse", q, hkv, nkv, k.shape[3], block_size, dv)
     nbq, nbkv = n // block_size, nkv // block_size
     w = _check_tables(indices, counts, (b, h, nbq))
     _check_tensors("block-sparse", q, (k, v), (indices, counts))
     gate = _gate(stats_gate, b, h, q.device)
     off = nbkv - nbq if q_block_offset is None else int(q_block_offset)
-    out = torch.empty_like(q)
+    out = q.new_empty((b, h, n, dv))
     a_tilde = torch.full((b, h, nbq, nbkv), NEG_INF, dtype=torch.float32,
                          device=q.device)
     fn = _build.function("block_sparse_attn", "repro_block_sparse_attn", 8,
-                         11)
+                         12)
     code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
               _build.ptr(indices), _build.ptr(counts), _build.ptr(gate),
               _build.ptr(out), _build.ptr(a_tilde), _build.dtype_code(q),
-              b, h, hkv, n, nkv, d, block_size, w, off, int(causal),
+              b, h, hkv, n, nkv, d, dv, block_size, w, off, int(causal),
               _build.stream_of(q))
     _build.check(code, "block-sparse attention kernel")
     block_sparse_attention_cuda.launches += 1
@@ -243,9 +255,9 @@ def block_sparse_attention_single_plain(
     indices: torch.Tensor, counts: torch.Tensor, *, block_size: int,
     causal: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the single-sample kernel: q ``(H, N, D)``, k/v
-    ``(Hkv, N, D)``, tables ``(H, NBq, W)`` / ``(H, NBq)`` → ``(out (H, N,
-    D), stats (H, NBq, W) f32)``."""
+    """Plain version of the single-sample kernel: q ``(H, N, D)``, k ``(Hkv,
+    N, D)``, v ``(Hkv, N, Dv)``, tables ``(H, NBq, W)`` / ``(H, NBq)`` →
+    ``(out (H, N, Dv), stats (H, NBq, W) f32)``."""
     h, n, _ = q.shape
     w = indices.shape[-1]
     nb = n // block_size
@@ -267,27 +279,29 @@ def block_sparse_attention_single_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The single-sample instance of ``csrc/block_sparse_attn.cu`` on CUDA
     tensors; raises on what it does not take."""
-    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape \
-            or k.shape[1] != q.shape[1]:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
+            or k.shape[:2] != v.shape[:2] or k.shape[1] != q.shape[1]:
         raise ValueError(f"single-sample block-sparse attention: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
                          f"{tuple(v.shape)}")
     h, n, _ = q.shape
+    dv = v.shape[2]
     _check_shapes("single-sample block-sparse", q[None], k.shape[0], n,
-                  k.shape[2], block_size)
+                  k.shape[2], block_size, dv)
     nb = n // block_size
     w = _check_tables(indices, counts, (h, nb))
     _check_tensors("single-sample block-sparse", q, (k, v),
                    (indices, counts))
-    out = torch.empty_like(q)
+    out = q.new_empty((h, n, dv))
     stats = torch.full((h, nb, w), NEG_INF, dtype=torch.float32,
                        device=q.device)
     fn = _build.function("block_sparse_attn",
-                         "repro_block_sparse_attn_single", 7, 8)
+                         "repro_block_sparse_attn_single", 7, 9)
     code = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v),
               _build.ptr(indices), _build.ptr(counts), _build.ptr(out),
               _build.ptr(stats), _build.dtype_code(q), h, k.shape[0], n,
-              q.shape[2], block_size, w, int(causal), _build.stream_of(q))
+              q.shape[2], dv, block_size, w, int(causal),
+              _build.stream_of(q))
     _build.check(code, "single-sample block-sparse attention kernel")
     block_sparse_attention_single_cuda.launches += 1
     return out, stats
@@ -343,10 +357,15 @@ def block_sparse_attention_paged_cuda(
     q_block_offset: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The paged instance of ``csrc/block_sparse_attn.cu`` on CUDA tensors;
-    raises on what it does not take.  Page ids outside ``[0, P)`` are never
-    read (their blocks are skipped)."""
+    raises on what it does not take (pools of unequal K and V widths among
+    it).  Page ids outside ``[0, P)`` are never read (their blocks are
+    skipped)."""
     _check_page_size(pool_v, block_size)
     b, h, n, _ = q.shape
+    if pool_k.shape[-1] != pool_v.shape[-1]:
+        raise ValueError(f"paged block-sparse kernel takes equal K and V "
+                         f"widths D in (64, 96, 128); got Dqk="
+                         f"{pool_k.shape[-1]}, Dv={pool_v.shape[-1]}")
     if pool_k.shape != pool_v.shape or pool_k.dim() != 4 \
             or page_table.dim() != 2 or page_table.shape[0] != b:
         raise ValueError(f"paged block-sparse attention: q {tuple(q.shape)}"

@@ -1,11 +1,13 @@
 """Model API of the port (``repro/models/api.py``'s counterpart) for the
-``dense`` and ``moe`` families (the transformer, with the MoE FFN and
-sliding-window attention for Mixtral)::
+``dense``, ``vlm`` and ``moe`` families (the transformer, with the MoE FFN
+and sliding-window attention for Mixtral, M-RoPE for Qwen2-VL, and latent
+attention with a dense prefix layer for DeepSeek-V2)::
 
     model = build_model(cfg, dtype=torch.bfloat16)        # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
     result = model.prefill(params, tokens, sp, method="share")
     logits, cache = model.decode(params, token, cache, pos, plan=plan)
+    # a VLM: prefill(params, None, sp, positions=(3, B, S), embeds=...)
     # collect_queries=True also returns each layer's query (L, B, H, hd)
     # the slot scheduler: per-slot pos (B,), and page_table= for the pool
     # chunked admission runs repro_torch.models.chunked_prefill's quanta
@@ -52,17 +54,20 @@ class Model:
 
     def prefill(self, params, tokens, sp: SharePrefill, *,
                 method: str = "share", attn_impl: str = "auto",
-                attn_width: Optional[int] = None, prompt_lens=None):
+                attn_width: Optional[int] = None, prompt_lens=None,
+                positions=None, embeds=None):
         return transformer.prefill(params, self.cfg, tokens, sp,
                                    method=method, attn_impl=attn_impl,
                                    attn_width=attn_width,
-                                   prompt_lens=prompt_lens)
+                                   prompt_lens=prompt_lens,
+                                   positions=positions, embeds=embeds)
 
-    def decode(self, params, token, cache, pos, *, plan=None,
-               prompt_lens=None, prefill_len=0, decode_impl: str = "auto",
-               page_table=None, collect_queries: bool = False,
-               window: int = 0):
+    def decode(self, params, token, cache, pos, *, positions=None,
+               embeds=None, plan=None, prompt_lens=None, prefill_len=0,
+               decode_impl: str = "auto", page_table=None,
+               collect_queries: bool = False, window: int = 0):
         return transformer.decode_step(params, self.cfg, token, cache, pos,
+                                       positions=positions, embeds=embeds,
                                        plan=plan, prompt_lens=prompt_lens,
                                        prefill_len=prefill_len,
                                        decode_impl=decode_impl,
@@ -89,15 +94,13 @@ class Model:
 
 def build_model(cfg: ModelConfig, dtype=torch.float32,
                 device=None) -> Model:
-    """The transformer of a ``dense`` or ``moe`` config; MLA, prefix layers
-    (DeepSeek-V2) and the other families raise, naming ROADMAP.md A.10."""
-    if cfg.family not in ("dense", "moe"):
+    """The transformer of a ``dense``, ``vlm`` or ``moe`` config (MLA and
+    prefix layers included); the other families raise, naming ROADMAP.md
+    A.10.  MLA takes no chunked admission (``prefill_chunk`` False) and a
+    scalar decode ``pos`` only."""
+    if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense and moe "
+            f"family {cfg.family!r}: the port serves the dense, vlm and moe "
             "families so far (ROADMAP.md queue A.10)")
-    if cfg.mla.enabled or transformer.num_prefix_layers(cfg):
-        raise NotImplementedError(
-            "multi-head latent attention and prefix layers (DeepSeek-V2) "
-            "are not ported yet (ROADMAP.md queue A.10)")
     return Model(cfg, resolve_device(device), dtype,
                  prefill_chunk=chunk_prefill_supported(cfg))

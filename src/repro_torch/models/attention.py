@@ -99,7 +99,16 @@ class AttnStats(NamedTuple):
 
 
 def rope_qk(q, k, positions, cfg: ModelConfig):
-    """Rotate q/k by RoPE; positions (B, S) broadcast over heads."""
+    """Rotate q/k ``(B, H, S, D)`` by RoPE at positions ``(B, S)``, or by
+    M-RoPE at ``(3, B, S)`` when the config is a VLM (the reference's rule:
+    a VLM given 2-D positions takes plain RoPE); positions broadcast over
+    heads."""
+    if cfg.vlm.enabled and positions.dim() == 3:
+        pos = positions[:, :, None, :]              # (3, B, 1, S)
+        return (common.apply_mrope(q, pos, cfg.rope_theta,
+                                   cfg.vlm.mrope_sections),
+                common.apply_mrope(k, pos, cfg.rope_theta,
+                                   cfg.vlm.mrope_sections))
     pos = positions[:, None, :]
     return (common.apply_rope(q, pos, cfg.rope_theta),
             common.apply_rope(k, pos, cfg.rope_theta))
@@ -293,7 +302,7 @@ def attention_prefill(
     params,
     x: torch.Tensor,                    # (B, S, d)
     cfg: ModelConfig,
-    positions: torch.Tensor,            # (B, S)
+    positions: torch.Tensor,            # (B, S), or M-RoPE (3, B, S)
     *,
     method: str,
     sp: SharePrefill,
@@ -355,7 +364,7 @@ def attention_decode(
     cache_k: torch.Tensor,              # (B, Hkv, S, hd), written in place
     cache_v: torch.Tensor,
     pos,                                # int, or (B,) per-slot write index
-    positions: torch.Tensor,            # (B, 1) rope positions
+    positions: torch.Tensor,            # (B, 1) or M-RoPE (3, B, 1)
     *,
     valid_mask: Optional[torch.Tensor] = None,   # (B, S) slot validity
     plan: Optional[DecodePlan] = None,  # this layer's sparse-decode tables
@@ -365,6 +374,8 @@ def attention_decode(
 ):
     """One decode step; returns ``(B, 1, d)``, and with ``return_q`` also
     the step's post-rope queries ``(B, H, hd)`` (refresh's window capture).
+    ``positions`` are the rope positions (:func:`rope_qk`), apart from the
+    cache slot ``pos``.
 
     ``pos`` is the cache write index: an int for the lockstep batch path,
     or a ``(B,)`` tensor for the slot scheduler, where each row writes and

@@ -3,7 +3,8 @@
 and RoPE in float32, SwiGLU, and the GQA projections with the reference's
 ``(d, H, hd)`` / ``(H, hd, d)`` weight layouts.  Plain
 ``torch.matmul``/``einsum`` products, as the reference leaves these to XLA
-outside any Pallas kernel.
+outside any Pallas kernel.  :func:`apply_mrope` is Qwen2-VL's multimodal
+RoPE.
 """
 from __future__ import annotations
 
@@ -47,6 +48,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     d = x.shape[-1]
     inv = rope_frequencies(d, theta, device=x.device)
     ang = positions[..., None].to(torch.float32) * inv       # (…, S, D/2)
+    sin, cos = torch.sin(ang), torch.cos(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: rotate ``(…, S, D)`` by 3-D positions
+    ``(3, …, S)`` (temporal, height, width ids); frequency slot ``i`` of
+    the D/2 takes its angle from stream 0 for the first ``sections[0]``
+    slots, stream 1 for the next ``sections[1]`` and stream 2 for the
+    last ``sections[2]`` (Σ sections = D/2).  Equal streams give
+    :func:`apply_rope`."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"D/2 = {d // 2}")
+    inv = rope_frequencies(d, theta, device=x.device)           # (D/2,)
+    sec = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.tensor(list(sections), device=x.device))          # (D/2,)
+    pos = positions.movedim(0, -1).to(torch.float32)            # (…, S, 3)
+    ang = pos[..., sec] * inv                                   # (…, S, D/2)
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

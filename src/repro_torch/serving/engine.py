@@ -13,7 +13,9 @@ decode step as slot validity (right-pad K/V is never attended).  With
 dictionaries are compiled into a
 :class:`~repro_torch.kernels.decode_attn.DecodePlan` once per batch, and
 every decode step streams only the plan's blocks; other methods decode
-densely.
+densely.  An MLA config (DeepSeek-V2) serves through this path only, with
+no plan, and its absorbed decode attends the right-pad slots too (the
+latent cache carries no validity mask), as in the reference.
 
 ``scheduler=True`` serves each bucket through a
 :class:`~repro_torch.serving.scheduler.SlotScheduler`: ``max_batch`` slots
@@ -331,7 +333,8 @@ class ServingEngine:
 
     def _supports_scheduler(self) -> bool:
         """Per-slot decode needs the GQA cache (per-row writes and
-        validity); MLA latent caches keep the batch path."""
+        validity); MLA latent caches keep the batch path (``scheduler``
+        and ``paged`` fall to it), as in the reference."""
         return (self.model.cfg.family in ("dense", "vlm", "moe")
                 and not self.model.cfg.mla.enabled)
 
@@ -339,18 +342,34 @@ class ServingEngine:
 
     @staticmethod
     def grow_cache(cache, old_len: int, extra: int):
-        """Grow the stacked ``(L, B, Hkv, S, hd)`` K/V by ``extra`` zero
-        slots on the sequence axis (one copy per batch)."""
-        return tuple(cache_ops.grow_leaf(x, old_len, extra) for x in cache)
+        """Grow the cache by ``extra`` zero slots on the sequence axis (one
+        copy per batch): the stacked ``(L, B, Hkv, S, hd)`` K/V, or MLA's
+        latent dict, whose prefix leaves ``(B, S, ·)`` and stacked leaves
+        ``(L', B, S, ·)`` keep the sequence axis before the feature axis."""
+        grow = lambda c: tuple(cache_ops.grow_leaf(x, old_len, extra)
+                               for x in c)
+        if isinstance(cache, dict):
+            return {"prefix": [grow(c) for c in cache["prefix"]],
+                    "stack": grow(cache["stack"])}
+        return grow(cache)
 
     @staticmethod
     def cache_insert(cache, new, slot: int):
-        """Write one freshly prefilled request's K/V (``(L, 1, Hkv, S,
-        hd)``) into row ``slot`` of the running ``(L, B, Hkv, S', hd)``
-        cache, at sequence offset 0 and in place.  The slot's decode tail
-        keeps what the previous occupant wrote; validity masks it."""
-        for dst, src in zip(cache, new):
-            cache_ops.write_slot(dst, src, {1: slot})
+        """Write one freshly prefilled request's cache (batch axis of size
+        1: ``(L, 1, Hkv, S, hd)`` K/V, or MLA's latent dict, batch axis 0
+        for prefix leaves and 1 for stacked ones) into row ``slot`` of the
+        running cache, at sequence offset 0 and in place.  The slot's
+        decode tail keeps what the previous occupant wrote; validity masks
+        it."""
+        def ins(dst, src, axis):
+            for d, x in zip(dst, src):
+                cache_ops.write_slot(d, x, {axis: slot})
+        if isinstance(cache, dict):
+            for c, n in zip(cache["prefix"], new["prefix"]):
+                ins(c, n, 0)
+            ins(cache["stack"], new["stack"], 1)
+        else:
+            ins(cache, new, 1)
         return cache
 
     @staticmethod

@@ -65,9 +65,10 @@ def _port_config(ref):
         for f in dataclasses.fields(ref)})
 
 
-# the families still missing (ROADMAP.md A.10): SSM, VLM (M-RoPE), MLA
-# (deepseek-v2's smoke config), hybrid and encoder-decoder; the moe family
-# and sliding windows are served
+# the families still missing (ROADMAP.md A.10): SSM, hybrid and
+# encoder-decoder raise; the VLM backbone (M-RoPE) and MLA (deepseek-v2's
+# smoke config, with its dense prefix layer) build, as do the moe family
+# and sliding windows
 @pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2-vl-72b",
                                   "deepseek-v2-236b", "recurrentgemma-9b",
                                   "whisper-base"])
@@ -75,8 +76,13 @@ def test_build_model_refuses_unported_configs(arch):
     cfg = _port_config(jconfigs.get_smoke_config(arch))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        build_model(cfg, device="cpu")
+    if arch in ("qwen2-vl-72b", "deepseek-v2-236b"):
+        model = build_model(cfg, device="cpu")
+        assert model.cfg == cfg
+        assert model.prefill_chunk == (arch == "qwen2-vl-72b")
+    else:
+        with pytest.raises(NotImplementedError, match="A.10"):
+            build_model(cfg, device="cpu")
     for change in ({"family": "moe"}, {"sliding_window": 4096}):
         build_model(dataclasses.replace(
             configs.get_smoke_config("granite-3-2b"), **change),
@@ -132,22 +138,42 @@ def test_input_shapes_copy_the_reference():
 
 
 def test_registry_holds_the_dense_family():
-    """The dense family and Mixtral (moe, sliding window 4096), pinned
-    field for field against the reference's; an arch still missing is
-    refused."""
+    """The dense family, Mixtral (moe, sliding window 4096), Qwen2-VL (vlm,
+    M-RoPE) and DeepSeek-V2 (moe with MLA), pinned field for field against
+    the reference's; an arch still missing is refused."""
     assert set(configs.REGISTRY) == {
         "granite-3-2b", "internlm2-1.8b", "mistral-large-123b",
-        "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b", "mixtral-8x22b"}
-    assert {n for n, c in configs.REGISTRY.items()
-            if c.family != "dense"} == {"mixtral-8x22b"}
+        "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b", "mixtral-8x22b",
+        "qwen2-vl-72b", "deepseek-v2-236b"}
+    assert {n: c.family for n, c in configs.REGISTRY.items()
+            if c.family != "dense"} == {"mixtral-8x22b": "moe",
+                                        "qwen2-vl-72b": "vlm",
+                                        "deepseek-v2-236b": "moe"}
+    for name in ("mixtral-8x22b", "qwen2-vl-72b", "deepseek-v2-236b"):
+        assert dataclasses.asdict(configs.get_config(name)) == \
+            dataclasses.asdict(jconfigs.get_config(name))
     mix = configs.get_config("mixtral-8x22b")
-    assert dataclasses.asdict(mix) == dataclasses.asdict(
-        jconfigs.get_config("mixtral-8x22b"))
     assert (mix.family, mix.num_layers, mix.d_model, mix.num_heads,
             mix.num_kv_heads, mix.d_ff, mix.vocab_size, mix.rope_theta,
             mix.sliding_window) == ("moe", 56, 6144, 48, 8, 16384, 32768,
                                     1e6, 4096)
     assert (mix.moe.num_experts, mix.moe.top_k, mix.moe.expert_d_ff,
             mix.moe.capacity_factor) == (8, 2, 16384, 1.25)
+    vl = configs.get_config("qwen2-vl-72b")
+    assert (vl.family, vl.num_layers, vl.d_model, vl.num_heads,
+            vl.num_kv_heads, vl.resolved_head_dim, vl.d_ff, vl.vocab_size,
+            vl.rope_theta, vl.tie_embeddings) == (
+        "vlm", 80, 8192, 64, 8, 128, 29568, 152064, 1e6, False)
+    assert (vl.vlm.mrope_sections, vl.vlm.num_visual_tokens,
+            vl.vlm.visual_embed_dim) == ((16, 24, 24), 1024, 1280)
+    ds = configs.get_config("deepseek-v2-236b")
+    assert (ds.family, ds.num_layers, ds.d_model, ds.num_heads,
+            ds.num_kv_heads, ds.d_ff, ds.vocab_size, ds.rope_theta) == (
+        "moe", 60, 5120, 128, 128, 12288, 102400, 1e4)
+    assert (ds.moe.num_experts, ds.moe.top_k, ds.moe.num_shared_experts,
+            ds.moe.expert_d_ff) == (160, 6, 2, 1536)
+    assert (ds.mla.kv_lora_rank, ds.mla.q_lora_rank,
+            ds.mla.qk_nope_head_dim, ds.mla.qk_rope_head_dim,
+            ds.mla.v_head_dim) == (512, 1536, 128, 64, 128)
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("deepseek-v2-236b")
+        configs.get_config("mamba2-370m")

@@ -15,9 +15,10 @@ What is held, and how tightly:
     the baselines' masks are sparse, at γ = 0.3;
   * the port's ``share`` trace against its own ``Model.prefill``, as the
     reference's ``test_traced_prefill_matches_jitted`` holds its trace;
-  * MLA and prefix-layer configs raise ``NotImplementedError`` naming
-    ROADMAP.md queue A.10; a MoE config is traced (``test_torch_mixtral.py``
-    holds the MoE trace against the reference's).
+  * MLA and prefix-layer configs raise ``NotImplementedError``: their
+    layers are not captured, as the reference's trace cannot capture them;
+    a MoE config is traced (``test_torch_mixtral.py`` holds the MoE trace
+    against the reference's).
 """
 import dataclasses
 
@@ -158,7 +159,7 @@ def test_unported_inputs_raise(pair, what):
                        pair["tp"], cfg, toks),
                    lambda: profile.run_prefill_traced(pair["tp"], cfg, toks,
                                                       sp)):
-            with pytest.raises(NotImplementedError, match="A.10"):
+            with pytest.raises(NotImplementedError, match="not captured"):
                 fn()
     elif what == "batch":
         with pytest.raises(ValueError, match="single sample"):

@@ -442,6 +442,13 @@ def test_tensor_core_body_fits_the_bf16_tolerance(bs, width):
      "block_sparse_attn_paged"),
     ("void (anonymous namespace)::bsa_f32_kernel<128, 64, 2>(x)",
      "block_sparse_attn_single"),
+    ("void (anonymous namespace)::bsa_tc_kernel<128, 192, 128, 0>(x)",
+     "block_sparse_attn"),
+    ("void (anonymous namespace)::bsa_tc_kernel<64, 128, 128, 1>(x)",
+     "block_sparse_attn_paged"),
+    ("void (anonymous namespace)::bsa_f32_kernel<64, 192, 128, 2>(x)",
+     "block_sparse_attn_single"),
+    ("void (anonymous namespace)::strip_tc_kernel<192, 2>(x)", "strip"),
     ("void (anonymous namespace)::decode_kernel<__nv_bfloat16, 0, 4, 1>(x)",
      "decode_attn"),
     ("void (anonymous namespace)::decode_kernel<float, 1, 8, 4>(x)",
