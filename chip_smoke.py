@@ -149,12 +149,35 @@ run on error:
      prompts (8 new) with launches exactly B.1 3, B.2 3 and no decode
      kernel against the same serve on the plain B.1/B.2, the same serve
      with ``scheduler=True`` (the batch path), and the per-sample path
-     (B.6 6); the MoE FFN's share of a synchronised prefill.
+     (B.6 6); the MoE FFN's share of a synchronised prefill;
+ 17. offline head clustering on llama3-8b-262k at full width (after
+     phase 13, the model still loaded): the block attention maps of
+     prompt 0 (``core/profile.py``), ``cluster_heads`` on the card at the
+     reference's bench settings (200 epochs, the adaptive threshold,
+     clusters of 2 or more), the JSON artifact written under ``build/``
+     and read back equal, a cluster spanning head indices asserted; phase
+     4's serve under ``SharePrefill.from_clustering`` with launches
+     exactly B.1 32, B.2 32, B.3 480, beside the trivial clustering's serve
+     (shared/dense/VS heads per layer, prefill_s) and against a serve on
+     the plain B.1/B.2 under the same artifact (greedy, near-tie aware);
+     B.2 against its plain version under the clustered masks of layer 0
+     and of the layer with the most shared heads, timed beside its bound
+     and phase 2's row;
+ 18. Mamba-2 370M (the attention-free SSM family) at full width, all 48
+     layers: a batch serve of phase 4's prompt lengths with every kernel's
+     launches exactly 0, ``scheduler=True`` on the batch path with the
+     same tokens, the float32 recurrence (prefill of 2048 tokens and one
+     decode step against the prefill of 2049) and the bf16 serve's tokens
+     against a float32 serve's (near-tie aware).
 
-``python3 chip_smoke.py --phase 12`` (13 to 16) builds the kernels and
-runs that phase alone, printing no result line.  ``python3 chip_smoke.py
---bitwise TREE`` holds the equal-width block-sparse and strip instances
-bitwise to another checkout's (``bitwise_instances``).
+Every phase that times a kernel also reads its device time from
+``torch.profiler``; a port kernel that ran with no device time traced
+fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 18) builds
+the kernels and runs that phase alone, printing no result line.
+``python3 chip_smoke.py --bitwise TREE`` holds the equal-width
+block-sparse and strip instances bitwise to another checkout's
+(``bitwise_instances``); ``--profiler-probe`` checks whether the
+profiler keeps tracing the card after sessions of many launches.
 
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
@@ -305,24 +328,147 @@ def _device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def device_ms(fn, reps: int):
+# device kernels one call of each wrapper launches: the strip's partial-
+# stats pass and its normalised write, a decode's split kernel and its
+# combine, one block-sparse kernel
+DEVICE_KERNELS = {name: 2 if name == "strip" or name.startswith("decode")
+                  else 1 for name in KERNELS}
+
+
+def device_ms(fn, reps: int) -> float:
     """Device time per call of ``fn`` summed over the port's kernels it
-    launches (a decode call launches its split kernel and its combine), read
-    from ``torch.profiler``; None where the profiler traces no device time.
+    launches, read from ``torch.profiler``.  Fails where the profiler
+    traced no port kernel, or another number of device kernels than the
+    wrapper launches per call (``DEVICE_KERNELS``: a strip call is two).
     ``cuda_ms`` of back-to-back calls also counts the host's enqueue when
     that is the longer."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if kernel_group(e.key) in KERNELS)
-    return us / 1e3 / reps if us > 0 else None
+    groups = {}
+    for e in prof.key_averages():
+        g = kernel_group(e.key)
+        if g in KERNELS and _device_us(e) > 0:
+            us_n = groups.setdefault(g, [0.0, 0])
+            us_n[0] += _device_us(e)
+            us_n[1] += e.count
+    if not groups:
+        raise AssertionError("the profiler traced no device time for a "
+                             "port kernel that ran")
+    for g, (_, n) in groups.items():
+        if n != reps * DEVICE_KERNELS[g]:
+            raise AssertionError(
+                f"{g}: the profiler traced {n} device kernels in {reps} "
+                f"calls, expected {reps * DEVICE_KERNELS[g]}")
+    return sum(us for us, _ in groups.values()) / 1e3 / reps
+
+
+# what each traced session waits for before its body: CUPTI, torn down
+# after each session (TEARDOWN_CUPTI=1), comes back up; and the pause
+# after it, before another session may start
+TRACE_PAD_S = 0.3
+TRACE_GAP_S = 0.2
+
+
+@contextlib.contextmanager
+def traced(activities):
+    """A ``torch.profiler`` session over the ``with`` body.  In a process
+    that has run a while, the tracer drops the first kernels of each
+    session, more of them the older the process (``--profiler-probe``).
+    ``main`` therefore sets ``TEARDOWN_CUPTI=1``, so that CUPTI starts
+    afresh in each session; each session waits ``TRACE_PAD_S`` before its
+    body, and ``TRACE_GAP_S`` after it."""
+    import torch
+    from torch.profiler import profile
+    with profile(activities=activities) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+    time.sleep(TRACE_GAP_S)
+
+
+PROBE_OPS = ("add", "mul", "sqrt", "div", "exp", "log", "sin", "cos", "tanh",
+             "sigmoid")
+
+
+def probe_session(helper: bool) -> list:
+    """One traced session of ten distinct elementwise ops (~0.1 ms each),
+    through :func:`traced` or a bare ``torch.profiler`` session: the ops
+    whose kernel the profiler kept, in launch order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    x = torch.rand(1 << 25, device="cuda") + 0.5
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with (traced(acts) if helper else profile(activities=acts)) as prof:
+        for op in PROBE_OPS:
+            fn = getattr(torch, op)
+            fn(x, x) if op in ("add", "mul", "div") else fn(x)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events()
+           if e.name in {f"aten::{o}" for o in PROBE_OPS}]
+    return [e.name[6:] for e in sorted(ops, key=lambda e: e.time_range.start)
+            if e.kernels]
+
+
+def profiler_probe_run(variant: str) -> None:
+    """One process of ``--profiler-probe``: a bare session fresh, then, once
+    the process has aged under two sessions of 400k launches and 30 s, a
+    bare session and 60 :func:`traced` sessions in a row (their pad and
+    gap as the variant says)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    global TRACE_PAD_S, TRACE_GAP_S
+    show = lambda kept: f"{len(kept)} of {len(PROBE_OPS)} {kept}"
+    print(f"  [{variant}] fresh, bare: {show(probe_session(False))}",
+          flush=True)
+    x = torch.zeros(1, device="cuda")
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            for _ in range(400_000):
+                x.add_(1)
+            torch.cuda.synchronize()
+    time.sleep(30)
+    print(f"  [{variant}] aged, bare: {show(probe_session(False))}",
+          flush=True)
+    if "pad 0" in variant:
+        TRACE_PAD_S = TRACE_GAP_S = 0.0
+    t = time.time()
+    kept = [len(probe_session(True)) for _ in range(60)]
+    print(f"  [{variant}] aged, 60 traced() sessions in a row: kept "
+          f"{min(kept)}-{max(kept)} of {len(PROBE_OPS)}, "
+          f"{sum(k == len(PROBE_OPS) for k in kept)} whole; "
+          f"{(time.time() - t) / 60:.3f} s a session", flush=True)
+
+
+def profiler_probe() -> int:
+    """``--profiler-probe``: :func:`profiler_probe_run` in a process of its
+    own per variant of the tracer's settings, each cut at 150 s."""
+    for variant, env in (
+            ("TEARDOWN_CUPTI unset", {}),
+            ("TEARDOWN_CUPTI=1", {"TEARDOWN_CUPTI": "1"}),
+            ("TEARDOWN_CUPTI=1, pad 0", {"TEARDOWN_CUPTI": "1"})):
+        base = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+        try:
+            p = subprocess.run(
+                [sys.executable, __file__, "--profiler-probe-run", variant],
+                capture_output=True, text=True, env={**base, **env},
+                timeout=150)
+        except subprocess.TimeoutExpired as exc:
+            out = exc.stdout or b""
+            print((out.decode() if isinstance(out, bytes) else out)
+                  + f"  [{variant}] cut at 150 s", flush=True)
+            continue
+        print(p.stdout, end="", flush=True)
+        if p.returncode:
+            print(p.stderr[-3000:], flush=True)
+    return 0
 
 
 def library_ms(fn, reps: int):
@@ -538,10 +684,12 @@ def check_baseline_masks(q, k, v, bs: int, gamma: float, out: dict
         check("  out", e, TOL[("out", dn)])
         r["max_abs_err"] = max(r["max_abs_err"], e)
         if q.dtype == torch.bfloat16:
-            r["ms"] = cuda_ms(lambda: block_sparse_attention_cuda(
-                q, k, v, idx, cnt, **kw), 10)
+            call = lambda: block_sparse_attention_cuda(q, k, v, idx, cnt,
+                                                       **kw)
+            r["ms"], r["device_ms"] = cuda_ms(call, 10), device_ms(call, 10)
             print(f"  block_sparse_attn bf16 [{method} masks]: "
-                  f"{r['ms']:.3f} ms", flush=True)
+                  f"{r['ms']:.3f} ms (device {r['device_ms']:.4f} ms)",
+                  flush=True)
     return out
 
 
@@ -763,6 +911,8 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
         res["block_sparse_attn"].update(
             ms=cuda_ms(lambda: block_sparse_attention_cuda(
                 q, k, v, bidx, bcnt, block_size=bs, stats_gate=dg), 10),
+            device_ms=device_ms(lambda: block_sparse_attention_cuda(
+                q, k, v, bidx, bcnt, block_size=bs, stats_gate=dg), 10),
             plain_ms=cuda_ms(lambda: block_sparse_attention_plain(
                 q, k, v, bidx, bcnt, block_size=bs, stats_gate=dg), 2),
             bound_ms=bb[0], bound_by=bb[1], library_ms=lib)
@@ -775,14 +925,14 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
         bc = bound(2 * qc.numel() * elt + 2 * ctiles * bs * d * elt
                    + cidx.numel() * 4 + ccnt.numel() * 4 + cvis.numel() * 4,
                    4.0 * d * centries, dtype)
+        run96 = lambda: block_sparse_attention_cuda(
+            q96, k96, v96, bidx, bcnt, block_size=bs, stats_gate=dg)
+        run_chunk = lambda: block_sparse_attention_cuda(
+            qc, k, v, cidx, ccnt, q_block_offset=off, **kwc)
         res["block_sparse_attn"].update(
-            d96_ms=cuda_ms(lambda: block_sparse_attention_cuda(
-                q96, k96, v96, bidx, bcnt, block_size=bs, stats_gate=dg),
-                10),
-            d96_bound_ms=b96[0],
-            chunk_ms=cuda_ms(lambda: block_sparse_attention_cuda(
-                qc, k, v, cidx, ccnt, q_block_offset=off, **kwc), 10),
-            chunk_bound_ms=bc[0])
+            d96_ms=cuda_ms(run96, 10), d96_device_ms=device_ms(run96, 10),
+            d96_bound_ms=b96[0], chunk_ms=cuda_ms(run_chunk, 10),
+            chunk_device_ms=device_ms(run_chunk, 10), chunk_bound_ms=bc[0])
 
         # decode: the table's blocks of K and V, q, out and the tables
         # moved once; QK and PV products over the kept, valid keys
@@ -819,11 +969,14 @@ def check_kernels(model, params, tokens, prompt_lens) -> dict:
                          f"{r['b1_ms']:.4f} ms, device {r['b1_device_ms']}"
                          f" ms; float32 {r['f32_ms']:.4f} ms")
             if name == "block_sparse_attn":
-                split = (f"; D=96 {r['d96_ms']:.3f} ms, bound "
+                split = (f", device {r['device_ms']:.4f} ms a call; D=96 "
+                         f"{r['d96_ms']:.3f} ms (device "
+                         f"{r['d96_device_ms']:.4f}), bound "
                          f"{r['d96_bound_ms']:.4f}, bound_frac "
                          f"{r['d96_bound_ms'] / r['d96_ms']:.4f}; 16-block "
-                         f"chunk at q block {off} {r['chunk_ms']:.3f} ms, "
-                         f"bound {r['chunk_bound_ms']:.4f}, bound_frac "
+                         f"chunk at q block {off} {r['chunk_ms']:.3f} ms "
+                         f"(device {r['chunk_device_ms']:.4f}), bound "
+                         f"{r['chunk_bound_ms']:.4f}, bound_frac "
                          f"{r['chunk_bound_ms'] / r['chunk_ms']:.4f}")
             print(f"  {name} bf16: {r['ms']:.3f} ms (plain "
                   f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
@@ -943,16 +1096,18 @@ def _to(params, dev):
 
 
 def serve_full(model, params, prompts, need: dict,
-               attn_impl: str = "auto", method: str = "share") -> dict:
-    """Phases 4, 8 and 11: the main path at full width, launch counts reset
-    just before it and read just after; fails unless each kernel in
-    ``need`` launched at least that often."""
+               attn_impl: str = "auto", method: str = "share",
+               sp=None) -> dict:
+    """Phases 4, 8, 11 and 17: the main path at full width (under ``sp``,
+    by default the model's trivial clustering), launch counts reset just
+    before it and read just after; fails unless each kernel in ``need``
+    launched at least that often."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import EngineConfig, Request, ServingEngine
 
     probe = LogitProbe(model)
-    eng = ServingEngine(probe, params, model.default_share_prefill(),
+    eng = ServingEngine(probe, params, sp or model.default_share_prefill(),
                         EngineConfig(method=method, attn_impl=attn_impl,
                                      decode_sparse=True, max_batch=2,
                                      seq_buckets=(SEQ,)))
@@ -1020,14 +1175,13 @@ def profile_serve(label: str, serve) -> None:
     """Where a serve's device time goes: ``serve(model_wrapper)`` under
     ``torch.profiler``, device time summed by kernel, with prefill and
     decode steps marked as spans.  A measurement only: the launch counts
-    were read before it, and where the profiler traces no device time it
-    prints "not measured"."""
+    were read before it.  Fails where the profiler traced no device
+    time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         serve(Spans)
         torch.cuda.synchronize()
@@ -1042,9 +1196,7 @@ def profile_serve(label: str, serve) -> None:
                if on_device(e) and _device_us(e) > 0 and not is_span(e)]
     busy_ms = sum(_device_us(e) for e in kernels) / 1e3
     if busy_ms == 0:
-        print(f"profile {label}: no device time traced (not measured)",
-              flush=True)
-        return
+        raise AssertionError(f"profile {label}: no device time traced")
     groups = {g: [0.0, 0] for g in (*KERNELS, "gemm", "other")}
     for e in kernels:
         g = kernel_group(e.key)
@@ -1610,6 +1762,8 @@ def check_kernel_api(model, params, tokens, prompt) -> dict:
         out["block_sparse_attn_single"].update(
             ms=cuda_ms(lambda: K.block_sparse_attention_single_cuda(
                 q[0], k[0], v[0], sidx, scnt, block_size=bs), 10),
+            device_ms=device_ms(lambda: K.block_sparse_attention_single_cuda(
+                q[0], k[0], v[0], sidx, scnt, block_size=bs), 10),
             plain_ms=cuda_ms(lambda: K.block_sparse_attention_single_plain(
                 q[0], k[0], v[0], sidx, scnt, block_size=bs), 2),
             bound_ms=sb[0], bound_by=sb[1], library_ms=lib)
@@ -1631,6 +1785,8 @@ def check_kernel_api(model, params, tokens, prompt) -> dict:
         del gkx, gvx, tmask
         out["block_sparse_attn_paged"].update(
             ms=cuda_ms(lambda: K.block_sparse_attention_paged_cuda(
+                qc, pool_k, pool_v, table, pidx, pcnt, **kw), 10),
+            device_ms=device_ms(lambda: K.block_sparse_attention_paged_cuda(
                 qc, pool_k, pool_v, table, pidx, pcnt, **kw), 10),
             plain_ms=cuda_ms(lambda: K.block_sparse_attention_paged_plain(
                 qc, pool_k, pool_v, table, pidx, pcnt, **kw), 2),
@@ -3498,20 +3654,32 @@ def mla_layer0_qkv(model, params, tokens):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def bodies(fn) -> list:
+def bodies(fn, reps: int = 5) -> dict:
     """The port's device functions one call of ``fn`` runs (the profiler's
-    names, shortened to the template)."""
+    names, shortened to the template) and each one's device ms per call.
+    A strip call must run both its passes (the partial-stats kernel
+    ``<·, 1>`` and the normalised write ``<·, 2>``), once each a call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    with traced([ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-    names = {m.group(0) for e in prof.key_averages()
-             if kernel_group(e.key) in KERNELS
-             for m in [re.search(r"\w+_kernel<[^>]*>", e.key)] if m}
-    return sorted(names)
+    out, counts = {}, {}
+    for e in prof.key_averages():
+        if kernel_group(e.key) in KERNELS and _device_us(e) > 0:
+            m = re.search(r"\w+_kernel<[^>]*>", e.key)
+            name = m.group(0) if m else e.key[:60]
+            out[name] = out.get(name, 0.0) + _device_us(e) / 1e3 / reps
+            counts[name] = counts.get(name, 0) + e.count
+    strips = sorted(n for n in out if _STRIP.search(n))
+    if strips and ([n[-2] for n in strips] != ["1", "2"]
+                   or any(counts[n] != reps for n in strips)):
+        raise AssertionError(f"a strip call ran {counts}, expected both "
+                             f"passes once each in {reps} calls")
+    return dict(sorted(out.items()))
 
 
 def sdpa_by_backend(q, k, v, mask, reps: int) -> dict:
@@ -3585,9 +3753,13 @@ def check_mla_kernels(model, params, tokens) -> dict:
         for name, fn in calls.items():
             body = MLA_BODY["strip" if name == "strip" else "bsa"][
                 dtype == torch.float32]
+            seen = bodies(fn)
             print(f"  {name} [{dn}]: {body} by the dispatch rule; the "
-                  f"profiler saw {bodies(fn) or 'no device kernel'}",
+                  "profiler saw " + ", ".join(
+                      f"{n} {ms:.4f} ms" for n, ms in seen.items()),
                   flush=True)
+            if not seen:
+                raise AssertionError(f"{name}: no device kernel traced")
         e = max_err(calls["strip"](), K.strip_scores(q, k, bs))
         check(f"strip [D={dqk}]", e, TOL[("strip", dn)])
         out["strip"]["max_abs_err"] = max(out["strip"]["max_abs_err"], e)
@@ -3659,7 +3831,9 @@ def check_mla_kernels(model, params, tokens) -> dict:
         b6 = bsa_bound(vis[:1], s0idx, s0cnt)
         out["block_sparse_attn_single"].update(_times(
             f"block_sparse_attn_single [{dqk}/{dv}, sample 0]",
-            calls["block_sparse_attn_single"], b6, 10))
+            calls["block_sparse_attn_single"], b6, 10,
+            lambda: K.block_sparse_attention_single_plain(
+                q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)))
         b1 = cuda_ms(lambda: K.block_sparse_attention_cuda(
             q[:1], k[:1], v[:1], sidx[:1].contiguous(),
             scnt[:1].contiguous(), block_size=bs,
@@ -3859,6 +4033,340 @@ def phase16() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 17
+
+CLUSTER_BLOCK = 64          # the reference's bench capture block
+CLUSTER_EPOCHS = 200        # and its cluster_heads settings
+CLUSTER_MIN_SIZE = 2
+
+
+def layer_decisions(model, params, tokens, sp, keep=()) -> tuple:
+    """Layer by layer through the batch prefill of ``tokens`` under ``sp``:
+    each layer's shared, dense and VS head counts (over the batch), and for
+    the layers in ``keep`` the q/k/v, masks and decision its attention
+    ran on (the masks ``layer_prefill`` builds from the same state)."""
+    import torch
+    from repro_torch.core.share_attention import build_share_masks
+    from repro_torch.models import attention, common, transformer
+    cfg = model.cfg
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = params["embed"][tokens]
+    state = sp.init_state(b, s, device=tokens.device)
+    ids = sp.layer_cluster_ids(device=tokens.device)
+    counts, kept = [], {}
+    for li, layer in enumerate(params["layers"]):
+        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+        q, k, v = common.gqa_qkv(layer["attn"], h)
+        q, k = attention.rope_qk(q, k, positions, cfg)
+        masks, dec = build_share_masks(q, k, state, ids[li],
+                                       cfg.share_prefill)
+        counts.append([int(dec.use_shared.sum()), int(dec.use_dense.sum()),
+                       int(dec.use_vs.sum())])
+        if li in keep:
+            kept[li] = (q.contiguous(), k.contiguous(), v.contiguous(),
+                        masks, dec)
+        x, _, state, _ = transformer.layer_prefill(
+            layer, x, cfg, positions, sp, state, ids[li], method="share",
+            attn_impl="auto")
+    return counts, kept
+
+
+def check_clustered_b2(label: str, q16, k16, v16, masks, dec, bs: int,
+                       phase2) -> dict:
+    """B.2 against its plain version under one layer's clustered masks in
+    float32 and bfloat16 (``TOL``), then its bf16 time beside its bound and
+    phase 2's row."""
+    import torch
+    from repro_torch import kernels as K
+    idx, cnt = (x.contiguous() for x in K.compact_block_mask(masks))
+    b, h, n, d = q16.shape
+    g, nb = h // k16.shape[1], n // bs
+    out = {"max_abs_err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        kw = dict(block_size=bs, stats_gate=dec.use_dense)
+        o1, a1 = K.block_sparse_attention_cuda(q, k, v, idx, cnt, **kw)
+        o2, a2 = K.block_sparse_attention_plain(q, k, v, idx, cnt, **kw)
+        check(f"block_sparse_attn [{label}, {dn}] out", max_err(o1, o2),
+              TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+        out["max_abs_err"] = max(out["max_abs_err"], max_err(o1, o2))
+    elt = q.element_size()
+    vis = K.table_block_mask(idx, cnt, nb)
+    entries, tiles = bsa_work(vis, g, bs, 0)
+    bb = bound(2 * b * h * n * d * elt + 2 * tiles * bs * d * elt
+               + idx.numel() * 4 + cnt.numel() * 4 + b * h * nb * nb * 4,
+               4.0 * d * entries, q.dtype)
+    density = float(vis.float().sum() / (b * h * nb * (nb + 1) / 2))
+    out.update(_times(f"block_sparse_attn [{label}, density {density:.4f}]",
+                      lambda: K.block_sparse_attention_cuda(
+                          q, k, v, idx, cnt, **kw), bb, 10))
+    out["density"] = density
+    if phase2:
+        print(f"    beside phase 2's row 3 (trivial clustering, layer 0): "
+              f"{phase2['ms']:.4f} ms (device {phase2['device_ms']:.4f} "
+              f"ms), bound {phase2['bound_ms']:.4f}, frac "
+              f"{phase2['bound_ms'] / phase2['ms']:.4f}", flush=True)
+    return out
+
+
+def phase17(model, params, prompts, tokens, phase2=None) -> dict:
+    """Phase 17: offline head clustering (``core/clustering.py``) on
+    llama3-8b-262k at full width, driving SharePrefill across heads: the
+    block attention maps of prompt 0, ``cluster_heads`` on the card at the
+    reference's bench settings, the JSON artifact written and read back,
+    then phase 4's serve under ``SharePrefill.from_clustering`` with exact
+    launches beside the trivial clustering's serve and a plain-B.1/B.2
+    serve under the same artifact, and B.2 under the clustered masks of
+    layer 0 and of the layer with the most shared heads."""
+    import torch
+    from repro_torch.core.api import SharePrefill
+    from repro_torch.core.clustering import cluster_heads
+    from repro_torch.core.profile import capture_block_attention_maps
+    print("== phase 17: offline head clustering, SharePrefill across heads",
+          flush=True)
+    t = time.time()
+    cfg = model.cfg
+    layers, bs = cfg.num_layers, cfg.share_prefill.block_size
+    torch.cuda.synchronize()
+    t0 = time.time()
+    maps = capture_block_attention_maps(params, cfg, tokens[:1],
+                                        block_size=CLUSTER_BLOCK)
+    capture_s = time.time() - t0
+    res = cluster_heads(torch.as_tensor(maps, device=tokens.device),
+                        distance_threshold=None,
+                        min_cluster_size=CLUSTER_MIN_SIZE,
+                        ae_epochs=CLUSTER_EPOCHS)
+    ids = res.cluster_ids
+    sizes = sorted((int((ids == c).sum()) for c in range(res.num_clusters)),
+                   reverse=True)
+    print(f"  maps {maps.shape} {maps.dtype} of prompt 0; autoencoder "
+          f"{res.epochs} epochs, final loss {res.final_loss:.6g}; threshold "
+          f"{res.distance_threshold:.6g}; {res.num_clusters} clusters, noise "
+          f"heads {int((ids < 0).sum())} of {ids.size}, sizes {sizes}; "
+          f"seconds: capture {capture_s:.2f}, autoencoder "
+          f"{res.seconds['autoencoder']:.2f}, agglomerative "
+          f"{res.seconds['agglomerative']:.2f}", flush=True)
+    del maps
+    path = os.path.join(ROOT, "build", "phase17_clusters.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"cluster_ids": ids.tolist(),
+                   "num_clusters": int(res.num_clusters)}, f)
+    with open(path) as f:
+        art = json.load(f)
+    back = np.asarray(art["cluster_ids"], np.int32)
+    if not (np.array_equal(back, ids)
+            and art["num_clusters"] == res.num_clusters):
+        raise AssertionError("the clustering artifact did not round-trip")
+    spans = [c for c in range(res.num_clusters)
+             if len(set(np.nonzero(ids == c)[1])) > 1]
+    print(f"  artifact {os.path.relpath(path, ROOT)} round-trips; clusters "
+          f"spanning two or more head indices: {len(spans)} of "
+          f"{res.num_clusters}", flush=True)
+    if not spans:
+        raise AssertionError("no cluster holds two head indices")
+    sp = SharePrefill.from_clustering(cfg.share_prefill, back,
+                                      art["num_clusters"])
+    trivial = model.default_share_prefill()
+
+    want = {"strip": layers, "block_sparse_attn": layers,
+            "decode_attn": layers * (NEW_TOKENS - 1)}
+    # each clustering's decisions layer by layer first (these prefills
+    # also warm the card up for the serves, run alone or late)
+    per_layer = {label: layer_decisions(model, params, tokens, s)[0]
+                 for label, s in (("trivial", trivial), ("clustered", sp))}
+    runs = {}
+    for label, s in (("clustered", sp), ("trivial", trivial)):
+        run = serve_full(model, params, prompts, want, sp=s)
+        _expect_counts(f"phase 17 {label} serve", run["counts"], want)
+        counts = run["per_layer"] = per_layer[label]
+        st = run["reqs"][0].pattern_stats
+        print(f"  {label}: prefill_s {run['reqs'][0].prefill_s:.4f}, "
+              f"density {st['block_density']:.4f}; shared/dense/vs heads "
+              f"summed over layers and both rows "
+              f"{[sum(c[i] for c in counts) for i in range(3)]}; per layer "
+              + json.dumps(counts), flush=True)
+        runs[label] = run
+    with plain_prefill_kernels():
+        plain = serve_full(model, params, prompts, {}, sp=sp)
+    _expect_counts("phase 17 plain serve", plain["counts"],
+                   {"decode_attn": layers * (NEW_TOKENS - 1)})
+    kl = torch.stack(runs["clustered"]["logits"], 1)
+    pl = torch.stack(plain["logits"], 1)
+    tol = PER_SAMPLE_RTOL * float(pl[:, 0].abs().max())
+    for i, (a, c) in enumerate(zip(plain["reqs"], runs["clustered"]["reqs"])):
+        verdict = greedy_agree(a.output_tokens, pl[i].cpu().numpy(),
+                               c.output_tokens, tol)
+        print(f"  request {a.uid}: kernels {c.output_tokens.tolist()} plain "
+              f"B.1/B.2 {a.output_tokens.tolist()} -> {verdict}; max |logit "
+              f"kernel - plain| {max_err(kl[i], pl[i]):.3e}", flush=True)
+    del kl, pl, plain
+
+    counts = runs["clustered"]["per_layer"]
+    top = max(range(layers), key=lambda li: counts[li][0])
+    _, kept = layer_decisions(model, params, tokens, sp, keep=(0, top))
+    out = {}
+    for li in sorted(kept):
+        q, k, v, masks, dec = kept[li]
+        print(f"  layer {li}: shared/dense/vs {counts[li]}", flush=True)
+        out[li] = check_clustered_b2(f"clustered layer {li}", q, k, v, masks,
+                                     dec, bs, phase2)
+    del kept
+    torch.cuda.empty_cache()
+    result = {"num_clusters": res.num_clusters,
+              "noise": int((ids < 0).sum()), "sizes": sizes,
+              "threshold": res.distance_threshold, "epochs": res.epochs,
+              "final_loss": res.final_loss, "capture_s": capture_s,
+              "seconds": res.seconds,
+              "prefill_s": {k: r["reqs"][0].prefill_s
+                            for k, r in runs.items()},
+              "heads": {k: [sum(c[i] for c in r["per_layer"])
+                            for i in range(3)] for k, r in runs.items()},
+              "launches": runs["clustered"]["counts"],
+              "block_sparse_attn": {f"layer {li}": r
+                                    for li, r in out.items()}}
+    print(f"phase 17: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(result), flush=True)
+    return result
+
+
+# ---------------------------------------------------------------- phase 18
+
+MAMBA = "mamba2-370m"
+MAMBA_CHECK_SEQ = 2048      # the float32 recurrence check: S, then S + 1
+# max |Δ| between prefill(S) + one decode and prefill(S + 1), float32 logits
+# over 48 layers: the decode state is one cumsum, the prefill a chunk scan
+MAMBA_STEP_TOL = 2e-3
+
+
+def mamba_serve(model, params, prompts, **ecfg) -> dict:
+    """Phase 18's batch serve (``NEW_TOKENS`` greedy tokens each), launch
+    counts reset just before and read just after."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+    probe = LogitProbe(model)
+    eng = ServingEngine(probe, params, model.default_share_prefill(),
+                        EngineConfig(max_batch=2, seq_buckets=(SEQ,), **ecfg))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.time()
+    eng.serve(reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = launch_counts()
+    logits = torch.stack(probe.logits, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {json.dumps(ecfg) if ecfg else 'batch path'} "
+          f"[{str(model.dtype)[6:]}]: {wall:.3f} s, prefill_s "
+          f"{reqs[0].prefill_s:.4f}, decode_tokens_per_s "
+          f"{reqs[0].decode_tokens_per_s:.3f}, peak {peak:.2f} GiB; "
+          f"launches {counts}", flush=True)
+    if not bool(torch.isfinite(logits).all()) or logits.shape != (
+            len(prompts), NEW_TOKENS, model.cfg.vocab_size):
+        raise AssertionError("mamba2: non-finite or misshapen logits")
+    _expect_counts("mamba2 serve", counts, {})
+    return dict(reqs=reqs, logits=logits, counts=counts, peak=peak)
+
+
+def phase18() -> dict:
+    """Phase 18: mamba2-370m (the attention-free SSM family) at full width,
+    all 48 layers: the engine's batch serve of phase 4's prompt lengths
+    with no kernel launched, ``scheduler=True`` on the batch path, the
+    float32 recurrence (prefill then one decode against a longer prefill),
+    and bf16 tokens against a float32 serve."""
+    import torch
+    from repro_torch.checkpoint import num_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import SlotScheduler
+    print("== phase 18: Mamba-2 370M (SSM) at full width", flush=True)
+    t = time.time()
+    cfg = get_config(MAMBA)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    t0 = time.time()
+    params = model.init(torch.Generator(device=model.device)
+                        .manual_seed(SEED))
+    torch.cuda.synchronize()
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    print(f"{MAMBA}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"d_inner {d_inner}, {d_inner // s.head_dim} SSD heads of "
+          f"{s.head_dim}, state {s.state_dim}, "
+          f"chunk {s.chunk_size}, conv {s.conv_width}, vocab "
+          f"{cfg.vocab_size}; {num_params(params) / 1e6:.1f} M params in "
+          f"bf16, init {time.time() - t0:.2f} s; SharePrefill "
+          f"{model.default_share_prefill().cfg.enabled}", flush=True)
+    rng = np.random.default_rng(SEED + 18)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    with torch.no_grad():               # a warm-up prefill, untimed
+        model.prefill(params, torch.as_tensor(
+            np.stack([prompts[0]] * 2), device=model.device),
+            model.default_share_prefill())
+    bf = mamba_serve(model, params, prompts)
+    run = SlotScheduler.run
+
+    def refuse(self):
+        raise AssertionError("mamba2 reached the slot scheduler")
+    SlotScheduler.run = refuse
+    try:
+        sched = mamba_serve(model, params, prompts, scheduler=True)
+    finally:
+        SlotScheduler.run = run
+    same = all(a.output_tokens.tolist() == c.output_tokens.tolist()
+               for a, c in zip(bf["reqs"], sched["reqs"]))
+    print(f"  scheduler=True: the batch path, tokens identical {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("mamba2: scheduler=True changed tokens")
+    del sched
+
+    m32 = build_model(cfg, dtype=torch.float32)
+    p32 = _to(params, torch.float32)        # the same weights, widened
+    toks = torch.as_tensor(np.stack([p[:MAMBA_CHECK_SEQ + 1]
+                                     for p in prompts]), device=m32.device)
+    sp = m32.default_share_prefill()
+    with torch.no_grad():
+        head = m32.prefill(p32, toks[:, :MAMBA_CHECK_SEQ], sp)
+        step, _ = m32.decode(p32, toks[:, MAMBA_CHECK_SEQ:], head.cache,
+                             MAMBA_CHECK_SEQ)
+        whole = m32.prefill(p32, toks, sp)
+    err = max_err(step, whole.last_logits)
+    check(f"float32 prefill({MAMBA_CHECK_SEQ}) + decode against prefill("
+          f"{MAMBA_CHECK_SEQ + 1}) last logits (max |logit| "
+          f"{float(whole.last_logits.abs().max()):.3f})", err,
+          MAMBA_STEP_TOL)
+    del head, step, whole
+    torch.cuda.empty_cache()
+    f32 = mamba_serve(m32, p32, prompts)
+    # bf16 rounding over 48 layers: a flip is allowed where float32's top-2
+    # margin is below twice the bf16 serve's first-step logit error
+    first = max_err(bf["logits"][:, 0], f32["logits"][:, 0])
+    for i, (a, c) in enumerate(zip(f32["reqs"], bf["reqs"])):
+        verdict = greedy_agree(a.output_tokens,
+                               f32["logits"][i].cpu().numpy(),
+                               c.output_tokens, 2 * first)
+        print(f"  request {a.uid}: bf16 {c.output_tokens.tolist()} float32 "
+              f"{a.output_tokens.tolist()} -> {verdict}; first-step max "
+              f"|logit bf16 - float32| {first:.3e}", flush=True)
+    result = {"prefill_s": bf["reqs"][0].prefill_s,
+              "decode_tokens_per_s": bf["reqs"][0].decode_tokens_per_s,
+              "peak_gib": bf["peak"], "f32_prefill_s": f32["reqs"][0]
+              .prefill_s, "step_err": err, "bf16_f32_first_err": first,
+              "launches": bf["counts"]}
+    del model, params, m32, p32, bf, f32
+    torch.cuda.empty_cache()
+    print(f"phase 18: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(result), flush=True)
+    return result
+
+
 def build_other(tree: str) -> dict:
     """Another checkout's ``block_sparse_attn.cu`` and ``strip.cu``, built
     with this checkout's nvcc flags into ``build/bitwise/``."""
@@ -4036,6 +4544,12 @@ def main() -> int:
           flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--profiler-probe"]:
+        return profiler_probe()         # no kernels, no result line
+    if sys.argv[1:2] == ["--profiler-probe-run"]:
+        profiler_probe_run(sys.argv[2])
+        return 0
+    os.environ["TEARDOWN_CUPTI"] = "1"  # before the first session: traced()
 
     t = time.time()
     _build.build_all()
@@ -4043,9 +4557,11 @@ def main() -> int:
     only = sys.argv[1:]
     if len(only) == 2 and only[0] == "--bitwise":
         return bitwise_instances(only[1])  # no result line
-    if only in (["--phase", "14"], ["--phase", "15"], ["--phase", "16"]):
-        # a check of phase 14, 15 or 16 alone; it prints no result line
-        {"14": phase14, "15": phase15, "16": phase16}[only[1]]()
+    if only in (["--phase", "14"], ["--phase", "15"], ["--phase", "16"],
+                ["--phase", "18"]):
+        # a check of phase 14, 15, 16 or 18 alone; it prints no result line
+        {"14": phase14, "15": phase15, "16": phase16,
+         "18": phase18}[only[1]]()
         return 0
 
     cfg = get_config(ARCH)
@@ -4075,9 +4591,12 @@ def main() -> int:
     if only == ["--phase", "13"]:
         phase13(model, params, layers)  # alone; no result line
         return 0
+    if only == ["--phase", "17"]:
+        phase17(model, params, prompts, tokens)     # alone; no result line
+        return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12, "
-                         "13, 14, 15 or 16, --bitwise TREE, or none")
+        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 18, "
+                         "--bitwise TREE, --profiler-probe, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
     res = check_kernels(model, params, tokens, plens)
@@ -4171,6 +4690,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase12(model, params, prompts, paged_prompts, layers)
     phase13(model, params, layers)
+    clustered = phase17(model, params, prompts, tokens,
+                        res["block_sparse_attn"])
+    for r in clustered["block_sparse_attn"].values():
+        res["block_sparse_attn"]["max_abs_err"] = max(
+            res["block_sparse_attn"]["max_abs_err"], r["max_abs_err"])
     del model, params
     torch.cuda.empty_cache()
     mix = phase14()
@@ -4183,6 +4707,7 @@ def main() -> int:
             if name in KERNELS:
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                r["max_abs_err"])
+    phase18()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():
@@ -4210,4 +4735,9 @@ if __name__ == "__main__":
         traceback.print_exc()
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         code = 1
-    sys.exit(code)
+    # a process whose profiler sessions tore CUPTI down (TEARDOWN_CUPTI=1,
+    # see traced()) can hang in the interpreter's exit (--profiler-probe):
+    # leave without it
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)

@@ -19,6 +19,16 @@ and for the ``moe`` family the FFN leaves are the experts' instead::
     stack::ffn::shared::w_gate (L, d, F·S)     — and w_up, w_down (shared
                                                  experts, when S > 0)
 
+the ``ssm`` family (Mamba-2) has one SSM block and one norm a layer
+(:func:`repro_torch.models.ssm.ssm_leaf_shapes`)::
+
+    stack::ssm::w_in           (L, d, 2·d_inner + 2·N + nh)
+    stack::ssm::conv_w         (L, W, conv_dim)  — and conv_b (L, conv_dim)
+    stack::ssm::a_log          (L, nh)           — and dt_bias, d_skip
+    stack::ssm::out_norm::scale (L, d_inner)
+    stack::ssm::w_out          (L, d_inner, d)
+    stack::ln::scale           (L, d)
+
 A ``vlm`` config (Qwen2-VL's backbone) has the dense family's leaves.  With
 MLA the attention leaves are the latent projections of
 :func:`repro_torch.models.mla.mla_leaf_shapes` (``stack::attn::w_kv_down``
@@ -40,7 +50,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, mla, moe
+from repro_torch.models import common, mla, moe, ssm
 from repro_torch.models.transformer import num_prefix_layers
 
 SEP = "::"
@@ -53,16 +63,21 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense, vlm and moe "
-            "families so far (ROADMAP.md queue A.10)")
+            f"family {cfg.family!r}: the port serves the dense, vlm, moe "
+            "and ssm families so far (ROADMAP.md queue A.10)")
 
 
 def _layer_shapes(cfg: ModelConfig, *, moe_ffn: bool) -> Dict[str, tuple]:
     """Every leaf of one layer (``::`` keys under ``stack``, or a prefix
     layer's with ``moe_ffn=False``) and its shape."""
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.family == "ssm":
+        shapes = {f"ssm{SEP}{k}": v
+                  for k, v in ssm.ssm_leaf_shapes(cfg).items()}
+        shapes["ln::scale"] = (d,)
+        return shapes
     h, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     if cfg.mla.enabled:
         shapes = {f"attn{SEP}{k}": v
@@ -142,7 +157,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     (``repro/models/common.py``): matrices truncated-normal in [−2, 2]
     scaled by 1/√fan_in (:func:`~repro_torch.models.common.dense_init_`;
     an expert stack one expert at a time, as the reference's
-    ``stack_init``), the embedding normal × 0.02, norm scales ones.  Same
+    ``stack_init``; an SSM block's leaves as
+    :func:`~repro_torch.models.ssm.init_ssm_layer`), the embedding normal ×
+    0.02, norm scales ones.  Same
     distributions, not the same numbers.  Each matrix is drawn in float32
     on ``device`` (``generator`` must live there) and stored in
     ``dtype``."""
@@ -155,19 +172,22 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                    cfg, moe_ffn=cfg.moe.enabled).items()}
     prefix = [{name: empty(shape) for name, shape in _layer_shapes(
         cfg, moe_ffn=False).items()} for _ in range(n_prefix)]
-    ffn = f"ffn{SEP}"
-    experts = {name[len(ffn):]: full for name, full in stacked.items()
-               if cfg.moe.enabled and name.startswith(ffn)}
+    # the leaves a family draws itself, layer by layer: the MoE FFN's
+    # (expert by expert) and the SSM block's
+    own, init_own = ((f"ffn{SEP}", moe.init_moe_layer) if cfg.moe.enabled
+                     else (f"ssm{SEP}", ssm.init_ssm_layer))
+    owned = {name[len(own):]: full for name, full in stacked.items()
+             if name.startswith(own)}
     fill = lambda t: (t.fill_(1.0) if t.dim() == 1
                       else common.dense_init_(t, generator))
     for name, full in stacked.items():
-        if cfg.moe.enabled and name.startswith(ffn):
-            continue                    # drawn per expert below
+        if name.startswith(own):
+            continue                    # drawn by the family below
         for i in range(n_stack):
             fill(full[i])
-    for i in range(n_stack if experts else 0):
-        moe.init_moe_layer(cfg, generator, device=device,
-                           out={n: full[i] for n, full in experts.items()})
+    for i in range(n_stack if owned else 0):
+        init_own(cfg, generator, device=device,
+                 out={n: full[i] for n, full in owned.items()})
     for layer in prefix:
         for t in layer.values():
             fill(t)

@@ -1,9 +1,10 @@
 """Architecture registry of the port: the dense-family configs, Mixtral
-(MoE with sliding-window attention), Qwen2-VL (the VLM backbone, M-RoPE)
-and DeepSeek-V2 (MLA with a dense prefix layer ahead of the MoE stack).
+(MoE with sliding-window attention), Qwen2-VL (the VLM backbone, M-RoPE),
+DeepSeek-V2 (MLA with a dense prefix layer ahead of the MoE stack) and
+Mamba-2 (the attention-free SSM family).
 
-The other families (SSM, hybrid, encoder-decoder) join the registry with
-the slices that port their models (ROADMAP.md queue A.10).
+The other families (hybrid, encoder-decoder) join the registry with the
+slices that port their models (ROADMAP.md queue A.10).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from repro_torch.configs.deepseek_v2_236b import CONFIG as _deepseek_v2
 from repro_torch.configs.granite_3_2b import CONFIG as _granite
 from repro_torch.configs.internlm2_1_8b import CONFIG as _internlm2
 from repro_torch.configs.llama3_8b_262k import CONFIG as _llama3_262k
+from repro_torch.configs.mamba2_370m import CONFIG as _mamba2
 from repro_torch.configs.mistral_large_123b import CONFIG as _mistral_large
 from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
@@ -22,6 +24,7 @@ from repro_torch.configs.qwen2_vl_72b import CONFIG as _qwen2_vl
 
 REGISTRY: Dict[str, ModelConfig] = {
     "granite-3-2b": _granite,
+    "mamba2-370m": _mamba2,
     "internlm2-1.8b": _internlm2,
     "mistral-large-123b": _mistral_large,
     "mixtral-8x22b": _mixtral,

@@ -10,10 +10,11 @@
   baselines        the paper's baselines (MInference, FlexPrefill, dense)
   profile          block attention maps and the layer-by-layer traced
                    prefill behind the paper's analyses
+  clustering       offline head clustering (autoencoder + agglomerative)
   api              SharePrefill — the module models consume
 """
 from repro_torch.core.api import SharePrefill
-from repro_torch.core.pattern_dict import PivotalState
+from repro_torch.core.pattern_dict import PivotalState, init_pivotal_state
 from repro_torch.core.share_attention import (
     LayerStats,
     batched_share_prefill_attention_layer,
@@ -23,7 +24,7 @@ from repro_torch.core.share_attention import (
 )
 
 __all__ = [
-    "SharePrefill", "PivotalState", "LayerStats",
+    "SharePrefill", "PivotalState", "init_pivotal_state", "LayerStats",
     "share_prefill_attention_layer", "batched_share_prefill_attention_layer",
     "gqa_head_vmap", "init_batched_state",
 ]

@@ -32,3 +32,9 @@ def js_distance_to_uniform(p: torch.Tensor) -> torch.Tensor:
     """d_sparse = √JSD(p‖u), u uniform over the last axis."""
     u = torch.full_like(p, 1.0 / p.shape[-1])
     return js_distance(p, u)
+
+
+def normalize(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Project non-negative scores onto the simplex along ``axis``."""
+    x = torch.clamp(x, min=0.0)
+    return x / torch.clamp(x.sum(dim=axis, keepdim=True), min=_EPS)

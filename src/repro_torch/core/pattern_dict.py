@@ -23,6 +23,20 @@ class PivotalState(NamedTuple):
         return self.masks.shape[1]
 
 
+def init_pivotal_state(num_clusters: int, nb: int, dtype=torch.float32, *,
+                       device=None) -> PivotalState:
+    """One sample's empty dictionary, leaves ``(C, NB, NB)``, ``(C, NB)``
+    and ``(C,)``: no pivots, uniform representatives (the reference's
+    layout; :func:`~repro_torch.core.share_attention.init_batched_state`
+    stacks it per sample)."""
+    return PivotalState(
+        masks=torch.zeros((num_clusters, nb, nb), dtype=torch.bool,
+                          device=device),
+        reps=torch.full((num_clusters, nb), 1.0 / nb, dtype=dtype,
+                        device=device),
+        valid=torch.zeros((num_clusters,), dtype=torch.bool, device=device))
+
+
 def lookup(state: PivotalState, cluster_ids: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-head ``(M (B, H, NB, NB), ã (B, H, NB), valid (B, H))``; noise ids

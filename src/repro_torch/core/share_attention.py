@@ -71,14 +71,9 @@ class LayerStats(NamedTuple):
 def init_batched_state(batch: int, num_clusters: int, nb: int, *,
                        device=None) -> pdict.PivotalState:
     """Empty dictionaries for a batch: no pivots, uniform representatives."""
-    return pdict.PivotalState(
-        masks=torch.zeros((batch, num_clusters, nb, nb), dtype=torch.bool,
-                          device=device),
-        reps=torch.full((batch, num_clusters, nb), 1.0 / nb,
-                        dtype=torch.float32, device=device),
-        valid=torch.zeros((batch, num_clusters), dtype=torch.bool,
-                          device=device),
-    )
+    one = pdict.init_pivotal_state(num_clusters, nb, device=device)
+    return pdict.PivotalState(*(x.expand(batch, *x.shape).clone()
+                                for x in one))
 
 
 def build_share_masks(

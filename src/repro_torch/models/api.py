@@ -1,7 +1,8 @@
 """Model API of the port (``repro/models/api.py``'s counterpart) for the
 ``dense``, ``vlm`` and ``moe`` families (the transformer, with the MoE FFN
 and sliding-window attention for Mixtral, M-RoPE for Qwen2-VL, and latent
-attention with a dense prefix layer for DeepSeek-V2)::
+attention with a dense prefix layer for DeepSeek-V2) and the attention-free
+``ssm`` family (Mamba-2, :mod:`repro_torch.models.ssm_stack`)::
 
     model = build_model(cfg, dtype=torch.bfloat16)        # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -12,6 +13,8 @@ attention with a dense prefix layer for DeepSeek-V2)::
     # the slot scheduler: per-slot pos (B,), and page_table= for the pool
     # chunked admission runs repro_torch.models.chunked_prefill's quanta
     # where model.prefill_chunk is True
+    # the ssm family takes the plain signatures only: no attn_width,
+    # prompt_lens, plan, page table or query collection (as the reference)
 
 ``build_model`` runs on CUDA unless the caller passes ``device="cpu"``; with
 no device and no GPU it raises rather than run quietly on the CPU.
@@ -26,7 +29,7 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
-from repro_torch.models import transformer
+from repro_torch.models import ssm_stack, transformer
 from repro_torch.models.chunked_prefill import chunk_prefill_supported
 
 
@@ -52,10 +55,27 @@ class Model:
         return checkpoint.init_params(self.cfg, generator,
                                       device=self.device, dtype=self.dtype)
 
+    @property
+    def transformer_family(self) -> bool:
+        """Whether prefill and decode take the transformer's arguments
+        (width caps, prompt lengths, plans, page tables)."""
+        return self.cfg.family in TRANSFORMER_FAMILIES
+
+    def _plain_only(self, **given) -> None:
+        bad = sorted(k for k, v in given.items() if v)
+        if bad and not self.transformer_family:
+            raise TypeError(f"family {self.cfg.family!r} takes no {bad}")
+
     def prefill(self, params, tokens, sp: SharePrefill, *,
                 method: str = "share", attn_impl: str = "auto",
                 attn_width: Optional[int] = None, prompt_lens=None,
                 positions=None, embeds=None):
+        if not self.transformer_family:
+            self._plain_only(attn_width=attn_width,
+                             prompt_lens=prompt_lens is not None)
+            return ssm_stack.prefill(params, self.cfg, tokens, sp,
+                                     method=method, attn_impl=attn_impl,
+                                     positions=positions, embeds=embeds)
         return transformer.prefill(params, self.cfg, tokens, sp,
                                    method=method, attn_impl=attn_impl,
                                    attn_width=attn_width,
@@ -66,6 +86,16 @@ class Model:
                embeds=None, plan=None, prompt_lens=None, prefill_len=0,
                decode_impl: str = "auto", page_table=None,
                collect_queries: bool = False, window: int = 0):
+        if not self.transformer_family:
+            self._plain_only(plan=plan is not None,
+                             prompt_lens=prompt_lens is not None,
+                             prefill_len=prefill_len,
+                             decode_impl=decode_impl != "auto",
+                             page_table=page_table is not None,
+                             collect_queries=collect_queries)
+            return ssm_stack.decode_step(params, self.cfg, token, cache, pos,
+                                         positions, window=window,
+                                         embeds=embeds)
         return transformer.decode_step(params, self.cfg, token, cache, pos,
                                        positions=positions, embeds=embeds,
                                        plan=plan, prompt_lens=prompt_lens,
@@ -78,29 +108,42 @@ class Model:
     def init_cache(self, batch: int, cache_len: int, *, dtype=None):
         """Zeroed contiguous cache in ``dtype`` (default: the model's); the
         slot scheduler passes its prefill cache's dtype."""
+        if not self.transformer_family:
+            return ssm_stack.init_cache(self.cfg, batch, cache_len,
+                                        dtype=dtype or self.dtype,
+                                        device=self.device)
         return transformer.init_cache(self.cfg, batch, cache_len,
                                       dtype=dtype or self.dtype,
                                       device=self.device)
 
     def default_share_prefill(self) -> SharePrefill:
         """Trivial clustering (per-head clusters) until an offline artifact
-        exists."""
-        if not self.cfg.share_prefill.enabled:
+        exists (:mod:`repro_torch.core.clustering`); disabled for a config
+        without attention."""
+        if not self.cfg.share_prefill.enabled or not self.cfg.has_attention:
             return SharePrefill.disabled()
         return SharePrefill.trivial(self.cfg.share_prefill,
                                     self.cfg.num_layers,
                                     max(self.cfg.num_heads, 1))
 
 
+TRANSFORMER_FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "hybrid", "encdec")
+
+
 def build_model(cfg: ModelConfig, dtype=torch.float32,
                 device=None) -> Model:
     """The transformer of a ``dense``, ``vlm`` or ``moe`` config (MLA and
-    prefix layers included); the other families raise, naming ROADMAP.md
-    A.10.  MLA takes no chunked admission (``prefill_chunk`` False) and a
-    scalar decode ``pos`` only."""
-    if cfg.family not in ("dense", "vlm", "moe"):
+    prefix layers included), or the SSM stack of an ``ssm`` config; the
+    hybrid and encoder-decoder families raise, naming ROADMAP.md A.10.
+    MLA and the SSM family take no chunked admission (``prefill_chunk``
+    False); MLA takes a scalar decode ``pos`` only."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.family not in TRANSFORMER_FAMILIES + ("ssm",):
         raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense, vlm and moe "
-            "families so far (ROADMAP.md queue A.10)")
+            f"family {cfg.family!r}: the port serves the dense, vlm, moe "
+            "and ssm families so far (ROADMAP.md queue A.10)")
     return Model(cfg, resolve_device(device), dtype,
-                 prefill_chunk=chunk_prefill_supported(cfg))
+                 prefill_chunk=(cfg.family in TRANSFORMER_FAMILIES
+                                and chunk_prefill_supported(cfg)))

@@ -15,7 +15,11 @@ dictionaries are compiled into a
 every decode step streams only the plan's blocks; other methods decode
 densely.  An MLA config (DeepSeek-V2) serves through this path only, with
 no plan, and its absorbed decode attends the right-pad slots too (the
-latent cache carries no validity mask), as in the reference.
+latent cache carries no validity mask), as in the reference.  The
+attention-free ``ssm`` family (Mamba-2) serves through this path too, with
+the family's plain prefill and decode signatures: no width cap, no prompt
+lengths (each row's first token follows the padded final position, as in
+the reference), no plan.
 
 ``scheduler=True`` serves each bucket through a
 :class:`~repro_torch.serving.scheduler.SlotScheduler`: ``max_batch`` slots
@@ -65,7 +69,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import SharePrefill
-from repro_torch.models.api import Model
+from repro_torch.models.api import TRANSFORMER_FAMILIES, Model
 from repro_torch.models.attention import (ROW_ATTN_IMPLS,
                                          prefill_block_size,
                                          resolved_attn_impl)
@@ -331,12 +335,18 @@ class ServingEngine:
                                   seed, t0=t0)
         return requests
 
+    def _transformer_family(self) -> bool:
+        """Whether the model's prefill takes ``attn_width`` and
+        ``prompt_lens`` and its decode the prompt lengths (the reference's
+        gate); the ssm family takes neither."""
+        return self.model.cfg.family in TRANSFORMER_FAMILIES
+
     def _supports_scheduler(self) -> bool:
         """Per-slot decode needs the GQA cache (per-row writes and
-        validity); MLA latent caches keep the batch path (``scheduler``
-        and ``paged`` fall to it), as in the reference."""
-        return (self.model.cfg.family in ("dense", "vlm", "moe")
-                and not self.model.cfg.mla.enabled)
+        validity); MLA latent caches and the ssm family keep the batch
+        path (``scheduler``, ``paged``, chunked admission and prefix
+        sharing fall to it), as in the reference."""
+        return self._transformer_family() and not self.model.cfg.mla.enabled
 
     _supports_sparse_decode = _supports_scheduler
 
@@ -345,7 +355,11 @@ class ServingEngine:
         """Grow the cache by ``extra`` zero slots on the sequence axis (one
         copy per batch): the stacked ``(L, B, Hkv, S, hd)`` K/V, or MLA's
         latent dict, whose prefix leaves ``(B, S, ·)`` and stacked leaves
-        ``(L', B, S, ·)`` keep the sequence axis before the feature axis."""
+        ``(L', B, S, ·)`` keep the sequence axis before the feature axis.
+        Every non-trailing axis whose size equals ``old_len`` grows
+        (``cache_ops.grow_leaf``), as in the reference: an SSM state has no
+        sequence axis and passes through, unless one of its state axes
+        happens to equal the bucket."""
         grow = lambda c: tuple(cache_ops.grow_leaf(x, old_len, extra)
                                for x in c)
         if isinstance(cache, dict):
@@ -393,7 +407,9 @@ class ServingEngine:
         """The prefill width cap W of a bucket: ``prefill_width`` under
         ``width_policy="off"``; otherwise uncapped until the bucket's first
         prefill was observed, then resolved once and frozen (a cap of NB or
-        more resolves to None, uncapped)."""
+        more resolves to None, uncapped).  None for the ssm family."""
+        if not self._transformer_family():
+            return None
         if self.ecfg.width_policy not in ("auto", "count"):
             return self.ecfg.prefill_width
         if seq in self._width_frozen:
@@ -520,10 +536,11 @@ class ServingEngine:
         tp = time.time()
         for r in grp:
             r.queue_s = max(tp - (t0 + r.arrival_s), 0.0)
+        ragged = (dict(attn_width=width, prompt_lens=plens)
+                  if self._transformer_family() else {})
         result = self.model.prefill(
             self.params, torch.as_tensor(toks, device=self.device), self.sp,
-            method=self.ecfg.method, attn_impl=self.ecfg.attn_impl,
-            attn_width=width, prompt_lens=plens)
+            method=self.ecfg.method, attn_impl=self.ecfg.attn_impl, **ragged)
         self._sync()
         prefill_s = time.time() - tp
         stats = self._record_prefill_stats(result, width, seq)
@@ -580,10 +597,11 @@ class ServingEngine:
             self.slot_steps += self.ecfg.max_batch
             self.active_slot_steps += b - sum(done)
             tok_t = torch.as_tensor(tok, device=self.device)[:, None]
-            logits, cache = self.model.decode(
-                self.params, tok_t, cache, seq + t, plan=plan,
-                prompt_lens=plens, prefill_len=seq,
-                decode_impl=self.ecfg.decode_impl)
+            lens = (dict(plan=plan, prompt_lens=plens, prefill_len=seq,
+                         decode_impl=self.ecfg.decode_impl)
+                    if self._transformer_family() else {})
+            logits, cache = self.model.decode(self.params, tok_t, cache,
+                                              seq + t, **lens)
 
         for i, r in enumerate(grp):
             r.output_tokens = np.asarray(outs[i], np.int32)

@@ -43,9 +43,10 @@ def test_port_has_no_top_level_init():
     assert not (ROOT / "src" / "repro_torch" / "__init__.py").exists()
 
 
-def test_build_model_without_device_raises_without_gpu(monkeypatch):
+@pytest.mark.parametrize("arch", ["llama3-8b-262k", "mamba2-370m"])
+def test_build_model_without_device_raises_without_gpu(monkeypatch, arch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = configs.get_smoke_config("llama3-8b-262k")
+    cfg = configs.get_smoke_config(arch)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -65,10 +66,10 @@ def _port_config(ref):
         for f in dataclasses.fields(ref)})
 
 
-# the families still missing (ROADMAP.md A.10): SSM, hybrid and
-# encoder-decoder raise; the VLM backbone (M-RoPE) and MLA (deepseek-v2's
-# smoke config, with its dense prefix layer) build, as do the moe family
-# and sliding windows
+# the families still missing (ROADMAP.md A.10): hybrid and
+# encoder-decoder raise; the VLM backbone (M-RoPE), MLA (deepseek-v2's
+# smoke config, with its dense prefix layer) and the SSM family (mamba2)
+# build, as do the moe family and sliding windows
 @pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2-vl-72b",
                                   "deepseek-v2-236b", "recurrentgemma-9b",
                                   "whisper-base"])
@@ -76,10 +77,11 @@ def test_build_model_refuses_unported_configs(arch):
     cfg = _port_config(jconfigs.get_smoke_config(arch))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_smoke_config(arch))
-    if arch in ("qwen2-vl-72b", "deepseek-v2-236b"):
+    if arch in ("mamba2-370m", "qwen2-vl-72b", "deepseek-v2-236b"):
         model = build_model(cfg, device="cpu")
         assert model.cfg == cfg
         assert model.prefill_chunk == (arch == "qwen2-vl-72b")
+        assert model.transformer_family == (arch != "mamba2-370m")
     else:
         with pytest.raises(NotImplementedError, match="A.10"):
             build_model(cfg, device="cpu")
@@ -139,17 +141,19 @@ def test_input_shapes_copy_the_reference():
 
 def test_registry_holds_the_dense_family():
     """The dense family, Mixtral (moe, sliding window 4096), Qwen2-VL (vlm,
-    M-RoPE) and DeepSeek-V2 (moe with MLA), pinned field for field against
-    the reference's; an arch still missing is refused."""
+    M-RoPE), DeepSeek-V2 (moe with MLA) and Mamba-2 (ssm), pinned field for
+    field against the reference's; an arch still missing is refused."""
     assert set(configs.REGISTRY) == {
         "granite-3-2b", "internlm2-1.8b", "mistral-large-123b",
         "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b", "mixtral-8x22b",
-        "qwen2-vl-72b", "deepseek-v2-236b"}
+        "qwen2-vl-72b", "deepseek-v2-236b", "mamba2-370m"}
     assert {n: c.family for n, c in configs.REGISTRY.items()
             if c.family != "dense"} == {"mixtral-8x22b": "moe",
                                         "qwen2-vl-72b": "vlm",
-                                        "deepseek-v2-236b": "moe"}
-    for name in ("mixtral-8x22b", "qwen2-vl-72b", "deepseek-v2-236b"):
+                                        "deepseek-v2-236b": "moe",
+                                        "mamba2-370m": "ssm"}
+    for name in ("mixtral-8x22b", "qwen2-vl-72b", "deepseek-v2-236b",
+                 "mamba2-370m"):
         assert dataclasses.asdict(configs.get_config(name)) == \
             dataclasses.asdict(jconfigs.get_config(name))
     mix = configs.get_config("mixtral-8x22b")
@@ -175,5 +179,11 @@ def test_registry_holds_the_dense_family():
     assert (ds.mla.kv_lora_rank, ds.mla.q_lora_rank,
             ds.mla.qk_nope_head_dim, ds.mla.qk_rope_head_dim,
             ds.mla.v_head_dim) == (512, 1536, 128, 64, 128)
+    mb = configs.get_config("mamba2-370m")
+    assert (mb.family, mb.num_layers, mb.d_model, mb.num_heads,
+            mb.vocab_size, mb.share_prefill.enabled) == (
+        "ssm", 48, 1024, 0, 50280, False)
+    assert (mb.ssm.state_dim, mb.ssm.head_dim, mb.ssm.expand,
+            mb.ssm.chunk_size, mb.ssm.conv_width) == (128, 64, 2, 256, 4)
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("mamba2-370m")
+        configs.get_config("recurrentgemma-9b")
