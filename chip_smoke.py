@@ -168,11 +168,29 @@ run on error:
      launches exactly 0, ``scheduler=True`` on the batch path with the
      same tokens, the float32 recurrence (prefill of 2048 tokens and one
      decode step against the prefill of 2049) and the bf16 serve's tokens
-     against a float32 serve's (near-tie aware).
+     against a float32 serve's (near-tie aware);
+ 19. RecurrentGemma 9B (the RG-LRU hybrid: 12 super-blocks of two
+     recurrent layers and one local-attention layer, then 2 recurrent
+     layers) at full width, all 38 layers: the registers and spills of
+     the D = 256 instances; B.1 at D = 256, G = 16 and B.2 and B.6 at
+     D = 256 against their plain versions in bfloat16 and float32 on layer
+     2's q/k/v under its window ∧ SharePrefill masks, the bodies each ran,
+     their times beside their bounds and SDPA per fused backend under the
+     tables' token mask; a batch serve of phase 4's prompt lengths (16
+     new) with launches exactly B.1 12, B.2 12 and no decode kernel,
+     ``scheduler=True`` on the batch path, the per-sample path (B.1 24,
+     B.6 24) and a float32 serve (the weights widened) against the bf16
+     serve's tokens (near-tie aware);
+ 20. Whisper base (the encoder-decoder) at full width (6 + 6 layers, 1500
+     stub frames drawn from the seed): B.1 and B.2 at D = 64, G = 1 on
+     decoder layer 0's tables as phase 19's; a batch serve of 448 and 385
+     prompt tokens in a 448-token bucket with launches exactly B.1 6, B.2
+     6 and no decode kernel; the card's float32 serve against the port's
+     float32 serve on the CPU, same weights and frames.
 
 Every phase that times a kernel also reads its device time from
 ``torch.profiler``; a port kernel that ran with no device time traced
-fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 18) builds
+fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 20) builds
 the kernels and runs that phase alone, printing no result line.
 ``python3 chip_smoke.py --bitwise TREE`` holds the equal-width
 block-sparse and strip instances bitwise to another checkout's
@@ -3872,42 +3890,59 @@ def plain_prefill_kernels():
         strip.strip_scores_cuda, bsa.block_sparse_attention_cuda = saved
 
 
-def mla_serve(model, params, prompts, **ecfg) -> tuple:
-    """One batch-path serve of ``prompts`` (``DEEPSEEK_NEW`` new tokens
-    each), launch counts reset just before and read just after: the
-    requests, the logits ``(B, steps, V)`` and the counts."""
+def plain_serve(model, params, prompts, new: int, seq: int,
+                frames=None, **ecfg) -> dict:
+    """A batch-path serve of ``prompts`` (``new`` greedy tokens each),
+    launch counts reset just before and read just after (phases 16, 18,
+    19, 20: MLA and the plain families serve through the batch path);
+    ``frames`` (Whisper's stub frontend output) go to prefill as
+    ``embeds``.  Returns the requests, the logits ``(B, steps, V)``, the
+    counts, the wall time and the peak device memory."""
     import torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import EngineConfig, Request, ServingEngine
-    probe = LogitProbe(model)
+
+    class Frames(LogitProbe):
+        def prefill(self, *args, **kwargs):
+            if frames is not None:
+                kwargs["embeds"] = frames
+            return super().prefill(*args, **kwargs)
+
+    probe = Frames(model)
     eng = ServingEngine(probe, params, model.default_share_prefill(),
-                        EngineConfig(**{**dict(method="share",
+                        EngineConfig(**{**dict(method="share", max_batch=2,
                                                decode_sparse=True,
-                                               max_batch=2,
-                                               seq_buckets=(SEQ,)),
-                                        **ecfg}))
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=DEEPSEEK_NEW)
+                                               seq_buckets=(seq,)), **ecfg}))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new)
             for i, p in enumerate(prompts)]
-    torch.cuda.synchronize()
+    cuda = model.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.time()
     eng.serve(reqs)
-    torch.cuda.synchronize()
+    if cuda:
+        torch.cuda.synchronize()
     wall = time.time() - t0
     counts = launch_counts()
     logits = torch.stack(probe.logits, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else None
     st = reqs[0].pattern_stats
-    print(f"  {json.dumps(ecfg) if ecfg else 'batch path'}: {wall:.3f} s, "
+    print(f"  {json.dumps(ecfg) if ecfg else 'batch path'} "
+          f"[{str(model.dtype)[6:]}, {model.device.type}]: {wall:.3f} s, "
           f"prefill_s {reqs[0].prefill_s:.4f}, decode_tokens_per_s "
           f"{reqs[0].decode_tokens_per_s:.3f}, block density "
           f"{st['block_density']:.4f}, shared/dense/vs "
           f"{st['num_shared']:.1f}/{st['num_dense']:.1f}/"
-          f"{st['num_vs']:.1f}; launches {counts}", flush=True)
+          f"{st['num_vs']:.1f}, peak {peak} GiB; launches {counts}",
+          flush=True)
     if not bool(torch.isfinite(logits).all()) or logits.shape != (
-            len(prompts), DEEPSEEK_NEW, model.cfg.vocab_size):
-        raise AssertionError(f"DeepSeek-V2 {ecfg}: non-finite or misshapen "
+            len(prompts), new, model.cfg.vocab_size):
+        raise AssertionError(f"{model.cfg.name}: non-finite or misshapen "
                              "logits")
-    return reqs, logits, counts
+    return dict(reqs=reqs, logits=logits, counts=counts, wall=wall,
+                peak=peak)
 
 
 def moe_share_of_prefill(model, params, tokens, prompt_lens) -> tuple:
@@ -3968,11 +4003,13 @@ def phase16() -> dict:
 
     print(f"DeepSeek-V2 batch serve: 2 x {SEQ} prompts, {DEEPSEEK_NEW} new "
           "tokens", flush=True)
-    kr, kl, kc = mla_serve(model, params, prompts)
+    serve = lambda **kw: (lambda r: (r["reqs"], r["logits"], r["counts"]))(
+        plain_serve(model, params, prompts, DEEPSEEK_NEW, SEQ, **kw))
+    kr, kl, kc = serve()
     _expect_counts("DeepSeek-V2 batch serve", kc,
                    {"strip": layers, "block_sparse_attn": layers})
     with plain_prefill_kernels():
-        pr, pl, pc = mla_serve(model, params, prompts)
+        pr, pl, pc = serve()
     _expect_counts("DeepSeek-V2 plain serve", pc, {})
     tol = PER_SAMPLE_RTOL * float(pl[:, 0].abs().max())
     for i, (a, c) in enumerate(zip(pr, kr)):
@@ -3988,7 +4025,7 @@ def phase16() -> dict:
         raise AssertionError("DeepSeek-V2 reached the slot scheduler")
     SlotScheduler.run = refuse
     try:
-        sr, sl, sc = mla_serve(model, params, prompts, scheduler=True)
+        sr, sl, sc = serve(scheduler=True)
     finally:
         SlotScheduler.run = run
     _expect_counts("DeepSeek-V2 scheduler=True serve", sc, kc)
@@ -4001,7 +4038,7 @@ def phase16() -> dict:
     del sl
 
     print("DeepSeek-V2 per-sample path (attn_impl=kernel)", flush=True)
-    cr, cl, cc = mla_serve(model, params, prompts, attn_impl="kernel")
+    cr, cl, cc = serve(attn_impl="kernel")
     _expect_counts("DeepSeek-V2 per-sample serve", cc,
                    {"strip": layers * 2,
                     "block_sparse_attn_single": layers * 2})
@@ -4242,39 +4279,6 @@ MAMBA_CHECK_SEQ = 2048      # the float32 recurrence check: S, then S + 1
 MAMBA_STEP_TOL = 2e-3
 
 
-def mamba_serve(model, params, prompts, **ecfg) -> dict:
-    """Phase 18's batch serve (``NEW_TOKENS`` greedy tokens each), launch
-    counts reset just before and read just after."""
-    import torch
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving import EngineConfig, Request, ServingEngine
-    probe = LogitProbe(model)
-    eng = ServingEngine(probe, params, model.default_share_prefill(),
-                        EngineConfig(max_batch=2, seq_buckets=(SEQ,), **ecfg))
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=NEW_TOKENS)
-            for i, p in enumerate(prompts)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    t0 = time.time()
-    eng.serve(reqs)
-    torch.cuda.synchronize()
-    wall = time.time() - t0
-    counts = launch_counts()
-    logits = torch.stack(probe.logits, 1)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {json.dumps(ecfg) if ecfg else 'batch path'} "
-          f"[{str(model.dtype)[6:]}]: {wall:.3f} s, prefill_s "
-          f"{reqs[0].prefill_s:.4f}, decode_tokens_per_s "
-          f"{reqs[0].decode_tokens_per_s:.3f}, peak {peak:.2f} GiB; "
-          f"launches {counts}", flush=True)
-    if not bool(torch.isfinite(logits).all()) or logits.shape != (
-            len(prompts), NEW_TOKENS, model.cfg.vocab_size):
-        raise AssertionError("mamba2: non-finite or misshapen logits")
-    _expect_counts("mamba2 serve", counts, {})
-    return dict(reqs=reqs, logits=logits, counts=counts, peak=peak)
-
-
 def phase18() -> dict:
     """Phase 18: mamba2-370m (the attention-free SSM family) at full width,
     all 48 layers: the engine's batch serve of phase 4's prompt lengths
@@ -4309,14 +4313,17 @@ def phase18() -> dict:
         model.prefill(params, torch.as_tensor(
             np.stack([prompts[0]] * 2), device=model.device),
             model.default_share_prefill())
-    bf = mamba_serve(model, params, prompts)
+    bf = plain_serve(model, params, prompts, NEW_TOKENS, SEQ)
+    _expect_counts("mamba2 serve", bf["counts"], {})
     run = SlotScheduler.run
 
     def refuse(self):
         raise AssertionError("mamba2 reached the slot scheduler")
     SlotScheduler.run = refuse
     try:
-        sched = mamba_serve(model, params, prompts, scheduler=True)
+        sched = plain_serve(model, params, prompts, NEW_TOKENS, SEQ,
+                            scheduler=True)
+        _expect_counts("mamba2 serve", sched["counts"], {})
     finally:
         SlotScheduler.run = run
     same = all(a.output_tokens.tolist() == c.output_tokens.tolist()
@@ -4344,7 +4351,8 @@ def phase18() -> dict:
           MAMBA_STEP_TOL)
     del head, step, whole
     torch.cuda.empty_cache()
-    f32 = mamba_serve(m32, p32, prompts)
+    f32 = plain_serve(m32, p32, prompts, NEW_TOKENS, SEQ)
+    _expect_counts("mamba2 serve", f32["counts"], {})
     # bf16 rounding over 48 layers: a flip is allowed where float32's top-2
     # margin is below twice the bf16 serve's first-step logit error
     first = max_err(bf["logits"][:, 0], f32["logits"][:, 0])
@@ -4365,6 +4373,391 @@ def phase18() -> dict:
     print(f"phase 18: {time.time() - t:.1f} s ({nvidia_smi()}); "
           + json.dumps(result), flush=True)
     return result
+
+
+# ---------------------------------------------------------------- phase 19
+
+HYBRID = "recurrentgemma-9b"
+
+
+def ptxas_lines(stem: str, pattern: str) -> list:
+    """Each kernel instance of ``csrc/<stem>.cu`` whose mangled name and
+    template arguments match ``pattern``: (name<args>, registers, spill
+    bytes), from the ptxas report the build wrote beside the library."""
+    from repro_torch.kernels import _build
+    lines = (_build._build_dir() / f"{stem}.ptxas.txt").read_text(
+        ).splitlines()
+    out = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '\w*?\d+"
+                      r"((?:bsa|strip)_\w+?_kernel)I(\w+?)EEv", line)
+        if not m or not re.search(pattern, m.group(1) + m.group(2)):
+            continue
+        info = " ".join(lines[i + 1:i + 4])
+        regs = re.search(r"Used (\d+) registers", info)
+        spill = re.search(r"(\d+) bytes spill stores", info)
+        args = re.sub(r"Li(\d+)E", r" \1", re.sub(r"^\d+", "",
+                                                     m.group(2))).strip()
+        out.append((f"{m.group(1)}<{args}>", int(regs.group(1)),
+                    int(spill.group(1))))
+    return out
+
+
+def hybrid_attn_qkv(model, params, tokens):
+    """The first attention sublayer's (layer 2's) post-RoPE q (B, H, N, D)
+    and k/v (B, Hkv, N, D), as the hybrid's prefill computes them."""
+    import torch
+    from repro_torch.models import attention, common, hybrid
+    cfg = model.cfg
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    block = params["stack"][0]
+    x = params["embed"][tokens]
+    x, _ = hybrid._sub_forward(block["rec1"], x, cfg)
+    x, _ = hybrid._sub_forward(block["rec2"], x, cfg)
+    h = common.rmsnorm(block["attn"]["ln1"], x, cfg.rms_norm_eps)
+    q, k, v = common.gqa_qkv(block["attn"]["mixer"], h)
+    q, k = attention.rope_qk(q, k, positions, hybrid._attn_cfg(cfg))
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def check_wide_kernels(label: str, model, q16, k16, v16, extra) -> dict:
+    """Phases 19 and 20: B.1, B.2 and B.6 against their plain versions in
+    float32 and bfloat16 on one layer's q/k/v and its SharePrefill masks
+    (``extra`` ANDed in: the hybrid's window), bf16 outputs also row by row
+    within ``ROW_ULPS``; the bodies each ran; then their bf16 times beside
+    their bounds, and ``scaled_dot_product_attention`` under the tables'
+    token mask per fused backend (K/V expanded over the group), at B = 2
+    for B.2 and on sample 0 for B.6.  Returns each kernel's largest error
+    and its numbers."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.kernels.ops import expand_kv
+
+    cfg = model.cfg
+    bs = cfg.share_prefill.block_size
+    dev = q16.device
+    b, h, n, d = q16.shape
+    hkv = k16.shape[1]
+    g, nb = h // hkv, n // bs
+    masks, decision = real_masks(model, q16, k16, v16, extra)
+    causal = torch.ones(nb, nb, dtype=torch.bool, device=dev).tril()
+    print(f"{label}: B={b} H={h} Hkv={hkv} (G = {g}) N={n} D={d} bs={bs}; "
+          f"masks keep {float(masks.sum()) / (b * h * float(causal.sum())):.4f}"
+          " of the causal blocks", flush=True)
+    sidx, scnt = (x.contiguous() for x in K.compact_block_mask(masks))
+    s0idx, s0cnt = (x.contiguous() for x in K.compact_block_mask(masks[0]))
+    names = ("strip", "block_sparse_attn", "block_sparse_attn_single")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    kw = dict(block_size=bs, stats_gate=decision.use_dense)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).replace("torch.", "")
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        print(f"[{dn}]", flush=True)
+        calls = {
+            "strip": lambda: K.strip_scores_cuda(q, k, bs),
+            "block_sparse_attn": lambda: K.block_sparse_attention_cuda(
+                q, k, v, sidx, scnt, **kw),
+            "block_sparse_attn_single":
+                lambda: K.block_sparse_attention_single_cuda(
+                    q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)}
+        for name, fn in calls.items():
+            seen = bodies(fn)
+            print(f"  {name} [{dn}]: the profiler saw " + ", ".join(
+                f"{nm} {ms:.4f} ms" for nm, ms in seen.items()), flush=True)
+            if not seen:
+                raise AssertionError(f"{name}: no device kernel traced")
+        e = max_err(calls["strip"](), K.strip_scores(q, k, bs))
+        check(f"strip [D={d}, G={g}]", e, TOL[("strip", dn)])
+        out["strip"]["max_abs_err"] = max(out["strip"]["max_abs_err"], e)
+        o1, a1 = calls["block_sparse_attn"]()
+        o2, a2 = K.block_sparse_attention_plain(q, k, v, sidx, scnt, **kw)
+        e2 = max_err(o1, o2)
+        check(f"block_sparse_attn [D={d}] out", e2, TOL[("out", dn)])
+        check("  a_tilde", a_tilde_err(a1, a2), TOL[("a_tilde", dn)])
+        if dtype == torch.bfloat16:
+            out["block_sparse_attn"]["row_ulps"] = check_rows("  rows", o1,
+                                                              o2)
+        o1, s1 = calls["block_sparse_attn_single"]()
+        o2, s2 = K.block_sparse_attention_single_plain(
+            q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)
+        e6 = max_err(o1, o2)
+        check(f"block_sparse_attn_single [D={d}] out", e6, TOL[("out", dn)])
+        check("  stats", a_tilde_err(s1, s2), TOL[("a_tilde", dn)])
+        if dtype == torch.bfloat16:
+            out["block_sparse_attn_single"]["row_ulps"] = check_rows(
+                "  rows", o1, o2)
+        for name, e in (("block_sparse_attn", e2),
+                        ("block_sparse_attn_single", e6)):
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"], e)
+        del o1, o2, a1, a2, s1, s2
+        if dtype != torch.bfloat16:
+            continue
+        elt = q.element_size()
+        pairs = bs * (n - bs) + bs * (bs + 1) // 2
+        sb = bound(b * h * bs * d * elt + b * hkv * n * d * elt
+                   + b * h * bs * n * 4, 2.0 * d * b * h * pairs, dtype)
+        vis = K.table_block_mask(sidx, scnt, nb)
+
+        def bsa_bound(vis, idx, cnt):
+            bb_, hh = vis.shape[:2]
+            entries, tiles = bsa_work(vis, g, bs, 0)
+            return bound(2 * bb_ * hh * n * d * elt + 2 * tiles * bs * d * elt
+                         + idx.numel() * 4 + cnt.numel() * 4
+                         + bb_ * hh * nb * nb * 4, 4.0 * d * entries, dtype)
+        kx, vx = expand_kv(k, v, h)
+        libs = {}
+        for key, sl in (("b2", slice(None)), ("b6", slice(0, 1))):
+            tok_mask = (vis[sl].repeat_interleave(bs, 2)
+                        .repeat_interleave(bs, 3)
+                        & torch.ones(n, n, dtype=torch.bool,
+                                     device=dev).tril())
+            libs[key] = sdpa_by_backend(q[sl], kx[sl], vx[sl], tok_mask, 5)
+            del tok_mask
+            torch.cuda.empty_cache()
+        del kx, vx
+        lib = {key: min((ms for ms in r.values() if isinstance(ms, float)),
+                        default=None) for key, r in libs.items()}
+        out["strip"].update(_times(
+            f"strip [D={d}, G={g}]", calls["strip"], sb, 20,
+            lambda: K.strip_scores(q, k, bs)))
+        out["block_sparse_attn"].update(_times(
+            f"block_sparse_attn [D={d}, G={g}]", calls["block_sparse_attn"],
+            bsa_bound(vis, sidx, scnt), 10,
+            lambda: K.block_sparse_attention_plain(q, k, v, sidx, scnt,
+                                                   **kw), lib["b2"]))
+        out["block_sparse_attn_single"].update(_times(
+            f"block_sparse_attn_single [D={d}, sample 0]",
+            calls["block_sparse_attn_single"],
+            bsa_bound(vis[:1], s0idx, s0cnt), 10,
+            lambda: K.block_sparse_attention_single_plain(
+                q[0], k[0], v[0], s0idx, s0cnt, block_size=bs), lib["b6"]))
+        out["sdpa"] = libs
+        print(f"  SDPA under the tables' token mask (B = 2 / sample 0): "
+              + json.dumps(libs), flush=True)
+    return out
+
+
+def agree_streams(label: str, ref: dict, got: dict, tol: float) -> None:
+    for i, (a, c) in enumerate(zip(ref["reqs"], got["reqs"])):
+        verdict = greedy_agree(a.output_tokens, ref["logits"][i].cpu()
+                               .numpy(), c.output_tokens, tol)
+        print(f"  request {a.uid}: {label} {c.output_tokens.tolist()} "
+              f"against {a.output_tokens.tolist()} -> {verdict}",
+              flush=True)
+
+
+def phase19() -> dict:
+    """Phase 19: RecurrentGemma 9B (the RG-LRU hybrid) at full width, all
+    38 layers: B.1 at D = 256, G = 16 and B.2 and B.6 at D = 256 against
+    their plain versions on layer 2's q/k/v under window ∧ share masks;
+    the engine's batch serve of phase 4's prompt lengths with exact
+    launches (B.1 12, B.2 12, no decode kernel), ``scheduler=True`` on the
+    batch path, the per-sample path (B.1 24, B.6 24), and a float32 serve
+    against the bf16 one.  Returns the kernels' numbers."""
+    import torch
+    from repro_torch.models import build_model, hybrid
+    from repro_torch.models.attention import extra_block_mask
+    from repro_torch.serving import SlotScheduler
+    print("== phase 19: RecurrentGemma 9B (RG-LRU hybrid) at full width",
+          flush=True)
+    t = time.time()
+    for name, regs, spill in ptxas_lines(
+            "block_sparse_attn", r"Li256ELi256E") + ptxas_lines(
+            "strip", r"strip_f32"):
+        print(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled",
+              flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    model, params = load_model(HYBRID, None)
+    cfg, dev = model.cfg, model.device
+    n_super, n_trail = hybrid._counts(cfg)
+    r = cfg.rglru
+    print(f"  {n_super} super-blocks (rec, rec, attn) + {n_trail} trailing "
+          f"recurrent layers; lru width {r.lru_width}, conv {r.conv_width}, "
+          f"window {r.local_attn_window}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}", flush=True)
+    rng = np.random.default_rng(SEED + 19)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    toks = np.zeros((2, SEQ), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tokens = torch.as_tensor(toks, device=dev)
+    bs = cfg.share_prefill.block_size
+    with torch.no_grad():
+        q, k, v = hybrid_attn_qkv(model, params, tokens)
+        extra = extra_block_mask(hybrid._attn_cfg(cfg), SEQ // bs, bs,
+                                 device=dev)
+        res = check_wide_kernels("RecurrentGemma layer 2 (window "
+                                 f"{r.local_attn_window})", model, q, k, v,
+                                 extra)
+        del q, k, v
+        torch.cuda.empty_cache()
+        model.prefill(params, tokens, model.default_share_prefill())
+    print(f"RecurrentGemma batch serve: {PROMPT_LENS} prompt tokens, "
+          f"{NEW_TOKENS} new", flush=True)
+    bf = plain_serve(model, params, prompts, NEW_TOKENS, SEQ)
+    _expect_counts("RecurrentGemma batch serve", bf["counts"],
+                   {"strip": n_super, "block_sparse_attn": n_super})
+    run = SlotScheduler.run
+
+    def refuse(self):
+        raise AssertionError("RecurrentGemma reached the slot scheduler")
+    SlotScheduler.run = refuse
+    try:
+        sched = plain_serve(model, params, prompts, NEW_TOKENS, SEQ,
+                            scheduler=True)
+    finally:
+        SlotScheduler.run = run
+    _expect_counts("RecurrentGemma scheduler=True serve", sched["counts"],
+                   bf["counts"])
+    same = all(a.output_tokens.tolist() == c.output_tokens.tolist()
+               for a, c in zip(bf["reqs"], sched["reqs"]))
+    print(f"  scheduler=True: the batch path, tokens identical {same}",
+          flush=True)
+    if not same:
+        raise AssertionError("RecurrentGemma: scheduler=True changed tokens")
+    del sched
+    print("RecurrentGemma per-sample path (attn_impl=kernel)", flush=True)
+    ps = plain_serve(model, params, prompts, NEW_TOKENS, SEQ,
+                     attn_impl="kernel")
+    _expect_counts("RecurrentGemma per-sample serve", ps["counts"],
+                   {"strip": 2 * n_super,
+                    "block_sparse_attn_single": 2 * n_super})
+    tol = PER_SAMPLE_RTOL * float(bf["logits"][:, 0].abs().max())
+    agree_streams("per-sample", bf, ps, tol)
+    print(f"  first-step max |logit per-sample - batched| "
+          f"{max_err(ps['logits'][:, 0], bf['logits'][:, 0]):.3e}",
+          flush=True)
+    del ps
+    torch.cuda.empty_cache()
+    print("RecurrentGemma float32 serve (the same weights, widened)",
+          flush=True)
+    m32 = build_model(cfg, dtype=torch.float32)
+    p32 = _to(params, torch.float32)
+    del params
+    torch.cuda.empty_cache()
+    f32 = plain_serve(m32, p32, prompts, NEW_TOKENS, SEQ)
+    _expect_counts("RecurrentGemma float32 serve", f32["counts"],
+                   bf["counts"])
+    # bf16 rounding over 38 layers: a flip is allowed where float32's top-2
+    # margin is below twice the first-step bf16 logit error, as in phase 18
+    first = max_err(bf["logits"][:, 0], f32["logits"][:, 0])
+    agree_streams("bf16", f32, bf, 2 * first)
+    print(f"  first-step max |logit bf16 - float32| {first:.3e}", flush=True)
+    st = bf["reqs"][0].pattern_stats
+    res["serve"] = {"prefill_s": bf["reqs"][0].prefill_s,
+                    "decode_tokens_per_s": bf["reqs"][0].decode_tokens_per_s,
+                    "peak_gib": bf["peak"],
+                    "block_density": st["block_density"],
+                    "f32_prefill_s": f32["reqs"][0].prefill_s,
+                    "f32_peak_gib": f32["peak"],
+                    "bf16_f32_first_err": first, "launches": bf["counts"]}
+    del m32, p32, bf, f32
+    torch.cuda.empty_cache()
+    print(f"phase 19: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(res), flush=True)
+    return res
+
+
+# ---------------------------------------------------------------- phase 20
+
+WHISPER = "whisper-base"
+WHISPER_PROMPTS = (448, 385)    # Whisper's published text context: 7 blocks
+WHISPER_SEQ = 448
+# max |logit card − CPU| of whisper's float32 first step: both float32 (no
+# TF32), the kernels' float32 bodies against their plain versions, sums in
+# another order over 6 + 6 layers
+WHISPER_F32_TOL = 1e-3
+
+def whisper_layer0_qkv(model, params, tokens):
+    """Decoder layer 0's self-attention q and k/v (B, H, N, 64): token
+    embeddings plus the sinusoid, RoPE the identity."""
+    from repro_torch.models import common, whisper
+    cfg = model.cfg
+    layer = params["dec_stack"][0]
+    x = whisper._add_positions(params["embed"][tokens], cfg)
+    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+    q, k, v = common.gqa_qkv(layer["self_attn"], h)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def phase20() -> dict:
+    """Phase 20: Whisper base (encoder-decoder) at full width: B.1 and B.2
+    at D = 64, G = 1 against their plain versions on decoder layer 0's
+    tables; a batch serve of two prompts in a 448-token bucket under 1500
+    stub frames drawn from the seed, launches exactly B.1 6, B.2 6, no
+    decode kernel; the card's float32 serve against the port's float32
+    serve on the CPU with the same weights and frames.  Returns the
+    kernels' numbers."""
+    import torch
+    from repro_torch.checkpoint import num_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    print("== phase 20: Whisper base (encoder-decoder) at full width",
+          flush=True)
+    t = time.time()
+    cfg = get_config(WHISPER)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device=model.device)
+                        .manual_seed(SEED))
+    dev = model.device
+    print(f"{WHISPER}: {cfg.encdec.num_encoder_layers} + {cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}, {cfg.encdec.encoder_seq_len} frames, "
+          f"vocab {cfg.vocab_size}; {num_params(params) / 1e6:.1f} M params "
+          f"in bf16", flush=True)
+    rng = np.random.default_rng(SEED + 20)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in WHISPER_PROMPTS]
+    frames32 = torch.as_tensor(rng.standard_normal(
+        (2, cfg.encdec.encoder_seq_len, cfg.d_model)).astype(np.float32))
+    toks = np.zeros((2, WHISPER_SEQ), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, :len(p)] = p
+    tokens = torch.as_tensor(toks, device=dev)
+    with torch.no_grad():
+        q, k, v = whisper_layer0_qkv(model, params, tokens)
+        res = check_wide_kernels("Whisper decoder layer 0", model, q, k, v,
+                                 None)
+        del q, k, v
+    frames = frames32.to(dev, torch.bfloat16)
+    with torch.no_grad():               # a warm-up prefill, untimed
+        model.prefill(params, tokens, model.default_share_prefill(),
+                      embeds=frames)
+    print(f"Whisper batch serve: {WHISPER_PROMPTS} prompt tokens in a "
+          f"{WHISPER_SEQ}-token bucket, {NEW_TOKENS} new", flush=True)
+    bf = plain_serve(model, params, prompts, NEW_TOKENS, WHISPER_SEQ,
+                     frames=frames)
+    _expect_counts("Whisper batch serve", bf["counts"],
+                   {"strip": cfg.num_layers,
+                    "block_sparse_attn": cfg.num_layers})
+    p32 = _to(params, torch.float32)
+    m32 = build_model(cfg, dtype=torch.float32)
+    f32 = plain_serve(m32, p32, prompts, NEW_TOKENS, WHISPER_SEQ,
+                      frames=frames32.to(dev))
+    cpu = build_model(cfg, dtype=torch.float32, device="cpu")
+    c32 = plain_serve(cpu, _to(p32, "cpu"), prompts, NEW_TOKENS,
+                      WHISPER_SEQ, frames=frames32)
+    first = max_err(f32["logits"][:, 0].cpu(), c32["logits"][:, 0])
+    check("float32 first-step logits, card against CPU", first,
+          WHISPER_F32_TOL)
+    agree_streams("card float32", c32, f32, WHISPER_F32_TOL)
+    bf_first = max_err(bf["logits"][:, 0], f32["logits"][:, 0])
+    agree_streams("card bf16", f32, bf, 2 * bf_first)
+    print(f"  first-step max |logit bf16 - float32| {bf_first:.3e}",
+          flush=True)
+    st = bf["reqs"][0].pattern_stats
+    res["serve"] = {"prefill_s": bf["reqs"][0].prefill_s,
+                    "decode_tokens_per_s": bf["reqs"][0].decode_tokens_per_s,
+                    "peak_gib": bf["peak"],
+                    "block_density": st["block_density"],
+                    "f32_card_cpu_first_err": first,
+                    "cpu_f32_wall_s": c32["wall"],
+                    "launches": bf["counts"]}
+    del model, params, m32, p32, cpu, bf, f32, c32
+    torch.cuda.empty_cache()
+    print(f"phase 20: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(res), flush=True)
+    return res
 
 
 def build_other(tree: str) -> dict:
@@ -4403,9 +4796,10 @@ def bitwise_instances(tree: str) -> int:
     128} and D in {64, 96, 128}, random causal tables, a random stats gate,
     W capped and not, and B.1 at the same head dims; float32 and bfloat16.
     Every output and Ã must be ``torch.equal``; one line per case, and a
-    non-zero exit on any difference.  The other checkout's C functions are
-    called with their own argument lists (no V width there).  Then B.2 in
-    bf16 at phase 2's shape is timed in both, other, this, this, other."""
+    non-zero exit on any difference.  The other checkout's C functions take
+    the same arguments as this one's (the V width included).  Then
+    B.2 in bf16 at phase 2's shape is timed in both, other, this, this,
+    other."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_sparse_attn as bsa
@@ -4414,8 +4808,8 @@ def bitwise_instances(tree: str) -> int:
 
     libs = build_other(tree)
     bsa_lib = libs["block_sparse_attn"]
-    other_b = c_fn(bsa_lib, "repro_block_sparse_attn", 8, 11)
-    other_s = c_fn(bsa_lib, "repro_block_sparse_attn_single", 7, 8)
+    other_b = c_fn(bsa_lib, "repro_block_sparse_attn", 8, 12)
+    other_s = c_fn(bsa_lib, "repro_block_sparse_attn_single", 7, 9)
     other_p = c_fn(bsa_lib, "repro_block_sparse_attn_paged", 9, 12)
     other_strip = c_fn(libs["strip"], "repro_strip", 4, 9)
     P, stream = _build.ptr, _build.stream_of
@@ -4448,7 +4842,7 @@ def bitwise_instances(tree: str) -> int:
                     at = torch.full_like(mine[1], float("-inf"))
                     _build.check(other_b(
                         P(q), P(k), P(v), P(idx), P(cnt), P(gate), P(out),
-                        P(at), code, b, h, hkv, n, n, d, bs, w, 0, 1,
+                        P(at), code, b, h, hkv, n, n, d, d, bs, w, 0, 1,
                         stream(q)), "other batched")
                     results.append(("BATCHED", mine, (out, at)))
                     i0, c0 = idx[0].contiguous(), cnt[0].contiguous()
@@ -4458,7 +4852,7 @@ def bitwise_instances(tree: str) -> int:
                     st = torch.full_like(mine[1], float("-inf"))
                     _build.check(other_s(
                         P(q[0]), P(k[0]), P(v[0]), P(i0), P(c0), P(out),
-                        P(st), code, h, hkv, n, d, bs, w, 1, stream(q)),
+                        P(st), code, h, hkv, n, d, d, bs, w, 1, stream(q)),
                         "other single")
                     results.append(("SINGLE", mine, (out, st)))
                     pages = (1 + torch.randperm(b * nb + 2, generator=gen,
@@ -4515,7 +4909,8 @@ def bitwise_instances(tree: str) -> int:
     runs = {
         "other": lambda: _build.check(other_b(
             P(q), P(k), P(v), P(idx), P(cnt), P(gate), P(out), P(at), code,
-            b, h, hkv, n, n, d, bs, idx.shape[-1], 0, 1, stream(q)), "other"),
+            b, h, hkv, n, n, d, d, bs, idx.shape[-1], 0, 1, stream(q)),
+            "other"),
         "this": lambda: bsa.block_sparse_attention_cuda(
             q, k, v, idx, cnt, block_size=bs, stats_gate=gate)}
     times = [(who, cuda_ms(runs[who], 20))
@@ -4557,11 +4952,12 @@ def main() -> int:
     only = sys.argv[1:]
     if len(only) == 2 and only[0] == "--bitwise":
         return bitwise_instances(only[1])  # no result line
-    if only in (["--phase", "14"], ["--phase", "15"], ["--phase", "16"],
-                ["--phase", "18"]):
-        # a check of phase 14, 15, 16 or 18 alone; it prints no result line
-        {"14": phase14, "15": phase15, "16": phase16,
-         "18": phase18}[only[1]]()
+    alone = {"14": phase14, "15": phase15, "16": phase16, "18": phase18,
+             "19": phase19, "20": phase20}
+    if len(only) == 2 and only[0] == "--phase" and only[1] in alone:
+        # a check of phase 14, 15, 16, 18, 19 or 20 alone; it prints no
+        # result line
+        alone[only[1]]()
         return 0
 
     cfg = get_config(ARCH)
@@ -4595,7 +4991,7 @@ def main() -> int:
         phase17(model, params, prompts, tokens)     # alone; no result line
         return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 18, "
+        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 20, "
                          "--bitwise TREE, --profiler-probe, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
@@ -4702,12 +5098,11 @@ def main() -> int:
                  "decode_attn", "decode_attn_paged"):
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                        mix[name]["max_abs_err"])
-    for later in (phase15(), phase16()):
-        for name, r in later.items():
+    for later in (phase15, phase16, phase18, phase19, phase20):
+        for name, r in later().items():
             if name in KERNELS:
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                r["max_abs_err"])
-    phase18()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

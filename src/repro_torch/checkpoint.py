@@ -29,6 +29,30 @@ the ``ssm`` family (Mamba-2) has one SSM block and one norm a layer
     stack::ssm::w_out          (L, d_inner, d)
     stack::ln::scale           (L, d)
 
+the ``hybrid`` family (RecurrentGemma) stacks its ``n_super`` super-blocks
+and keeps its trailing recurrent layers apart, each sublayer a mixer, an
+MLP and two norms (:func:`repro_torch.models.rglru.rglru_leaf_shapes`)::
+
+    stack::rec1::mixer::w_x    (n_super, d, W)   — and w_gate; w_a, w_i
+                                                   (W, W); w_out (W, d);
+                                                   conv_w (conv_width, W);
+                                                   conv_b, b_a, b_i, lam (W,)
+    stack::rec1::mlp::w_gate   (n_super, d, F)   — and w_up; w_down (F, d)
+    stack::rec1::ln1::scale    (n_super, d)      — and ln2; rec2 the same
+    stack::attn::mixer::wq     (n_super, d, H, hd) — and wk, wv, wo; mlp,
+                                                   ln1, ln2 as rec1's
+    trail_0::mixer::w_x        (d, W)            — trail_i as rec1, unstacked
+
+and the ``encdec`` family (Whisper) an encoder and a decoder stack::
+
+    enc_stack::attn::wq        (L_enc, d, H, hd) — and wk, wv, wo
+    enc_stack::mlp::w_gate     (L_enc, d, F)     — and w_up, w_down; ln1, ln2
+    enc_norm::scale            (d,)
+    dec_stack::self_attn::wq   (L, d, H, hd)     — and wk, wv, wo; cross_attn
+                                                   the same
+    dec_stack::mlp::w_gate     (L, d, F)         — and w_up, w_down; ln1,
+                                                   ln_x, ln2
+
 A ``vlm`` config (Qwen2-VL's backbone) has the dense family's leaves.  With
 MLA the attention leaves are the latent projections of
 :func:`repro_torch.models.mla.mla_leaf_shapes` (``stack::attn::w_kv_down``
@@ -40,17 +64,19 @@ w_gate`` (d, F) …, ``prefix_0::ln1::scale``; the stack then holds
 The port's parameters are a plain dict with the same leaves and layouts,
 except that the layers become one list ``layers`` of per-layer dicts, the
 prefix layers first (stack layers are views into one stacked tensor per
-leaf).
+leaf); the hybrid and encdec families keep the reference's groups, each
+stack a list of per-layer (per-super-block) dicts.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import common, mla, moe, ssm
+from repro_torch.models import common, mla, moe, rglru, ssm
+from repro_torch.models.hybrid import _counts as hybrid_counts
 from repro_torch.models.transformer import num_prefix_layers
 
 SEP = "::"
@@ -63,10 +89,93 @@ def load_npz(path: str) -> Dict[str, np.ndarray]:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "moe", "ssm"):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense, vlm, moe "
-            "and ssm families so far (ROADMAP.md queue A.10)")
+    if cfg.family not in ("dense", "vlm", "moe", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+
+
+# the families whose tree is the reference's groups (``_groups``) rather
+# than one stack of uniform layers
+GROUPED_FAMILIES = ("hybrid", "encdec")
+
+
+def _sublayer(cfg: ModelConfig, mixers: Dict[str, Dict[str, tuple]],
+              norms=("ln1", "ln2")) -> Dict[str, tuple]:
+    """One hybrid or Whisper sublayer's leaves: each mixer's, the SwiGLU
+    MLP's and the norms'."""
+    d, f = cfg.d_model, cfg.d_ff
+    shapes = {f"{m}{SEP}{k}": v for m, leaves in mixers.items()
+              for k, v in leaves.items()}
+    shapes.update({"mlp::w_gate": (d, f), "mlp::w_up": (d, f),
+                   "mlp::w_down": (f, d)})
+    shapes.update({f"{n}::scale": (d,) for n in norms})
+    return shapes
+
+
+def _groups(cfg: ModelConfig) -> Dict[str, Tuple[Optional[int],
+                                                 Dict[str, tuple]]]:
+    """The hybrid and encdec trees: each group's layer count (None:
+    unstacked) and one layer's leaves."""
+    d, h, hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim
+    gqa = lambda: {"wq": (d, h, hd), "wk": (d, hkv, hd),
+                   "wv": (d, hkv, hd), "wo": (h, hd, d)}
+    if cfg.family == "hybrid":
+        n_super, n_trail = hybrid_counts(cfg)
+        rec = _sublayer(cfg, {"mixer": rglru.rglru_leaf_shapes(cfg)})
+        block = {f"{sub}{SEP}{k}": v for sub in ("rec1", "rec2")
+                 for k, v in rec.items()}
+        block.update({f"attn{SEP}{k}": v for k, v in
+                      _sublayer(cfg, {"mixer": gqa()}).items()})
+        groups = {"stack": (n_super, block)}
+        groups.update({f"trail_{i}": (None, rec) for i in range(n_trail)})
+        return groups
+    return {"enc_stack": (cfg.encdec.num_encoder_layers,
+                          _sublayer(cfg, {"attn": gqa()})),
+            "enc_norm": (None, {"scale": (d,)}),
+            "dec_stack": (cfg.num_layers, _sublayer(
+                cfg, {"self_attn": gqa(), "cross_attn": gqa()},
+                norms=("ln1", "ln_x", "ln2")))}
+
+
+def _grouped(make, cfg: ModelConfig, top: Dict[str, torch.Tensor]) -> Dict:
+    """The hybrid or encdec parameters: ``make(key, shape)`` gives each
+    group's leaf (with the layer axis first for a stack), split into one
+    dict per layer."""
+    params = {"embed": top["embed"],
+              "final_norm": {"scale": top["final_norm::scale"]}}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = top["lm_head"]
+    for group, (n, shapes) in _groups(cfg).items():
+        lead = () if n is None else (n,)
+        full = {name: make(f"{group}{SEP}{name}", lead + shape)
+                for name, shape in shapes.items()}
+        params[group] = (_nest(full) if n is None else
+                         [_nest({k: t[i] for k, t in full.items()})
+                          for i in range(n)])
+    return params
+
+
+def _fill_grouped(cfg: ModelConfig, params: Dict,
+                  generator: torch.Generator, device) -> None:
+    """Draw every leaf of a hybrid or encdec tree in place: each RG-LRU
+    mixer (a dict holding ``lam``) by :func:`rglru.init_rglru_layer`, norm
+    scales ones, matrices by ``dense_init_``."""
+    def walk(node):
+        if "lam" in node:
+            rglru.init_rglru_layer(cfg, generator, device=device, out=node)
+            return
+        for v in node.values():
+            if isinstance(v, dict):
+                walk(v)
+            elif isinstance(v, list):
+                for layer in v:
+                    walk(layer)
+            elif v.dim() == 1:
+                v.fill_(1.0)
+            else:
+                common.dense_init_(v, generator)
+    walk({k: v for k, v in params.items()
+          if k not in ("embed", "final_norm", "lm_head")})
 
 
 def _layer_shapes(cfg: ModelConfig, *, moe_ffn: bool) -> Dict[str, tuple]:
@@ -136,6 +245,12 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
             raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
         return conv(arr)
 
+    top = {"embed": conv(flat["embed"]),
+           "final_norm::scale": conv(flat[f"final_norm{SEP}scale"])}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = conv(flat["lm_head"])
+    if cfg.family in GROUPED_FAMILIES:
+        return _grouped(take, cfg, top)
     n_prefix = num_prefix_layers(cfg)
     n_stack = cfg.num_layers - n_prefix
     stacked = {name: take(f"stack{SEP}{name}", (n_stack,) + shape)
@@ -144,10 +259,6 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
     prefix = [{name: take(f"prefix_{i}{SEP}{name}", shape)
                for name, shape in _layer_shapes(cfg, moe_ffn=False).items()}
               for i in range(n_prefix)]
-    top = {"embed": conv(flat["embed"]),
-           "final_norm::scale": conv(flat[f"final_norm{SEP}scale"])}
-    if not cfg.tie_embeddings:
-        top["lm_head"] = conv(flat["lm_head"])
     return _assemble(prefix, stacked, top, cfg)
 
 
@@ -158,15 +269,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     scaled by 1/√fan_in (:func:`~repro_torch.models.common.dense_init_`;
     an expert stack one expert at a time, as the reference's
     ``stack_init``; an SSM block's leaves as
-    :func:`~repro_torch.models.ssm.init_ssm_layer`), the embedding normal ×
+    :func:`~repro_torch.models.ssm.init_ssm_layer`, an RG-LRU block's as
+    :func:`~repro_torch.models.rglru.init_rglru_layer`), the embedding normal ×
     0.02, norm scales ones.  Same
     distributions, not the same numbers.  Each matrix is drawn in float32
     on ``device`` (``generator`` must live there) and stored in
     ``dtype``."""
     _check_family(cfg)
+    empty = lambda shape: torch.empty(shape, dtype=dtype, device=device)
+    if cfg.family in GROUPED_FAMILIES:
+        params = _grouped(lambda _, shape: empty(shape), cfg,
+                          _draw_top(cfg, generator, device, dtype))
+        _fill_grouped(cfg, params, generator, device)
+        return params
     n_prefix = num_prefix_layers(cfg)
     n_stack = cfg.num_layers - n_prefix
-    empty = lambda shape: torch.empty(shape, dtype=dtype, device=device)
     stacked = {name: empty((n_stack,) + shape)
                for name, shape in _layer_shapes(
                    cfg, moe_ffn=cfg.moe.enabled).items()}
@@ -191,6 +308,14 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     for layer in prefix:
         for t in layer.values():
             fill(t)
+    return _assemble(prefix, stacked,
+                     _draw_top(cfg, generator, device, dtype), cfg)
+
+
+def _draw_top(cfg: ModelConfig, generator: torch.Generator, device,
+              dtype) -> Dict[str, torch.Tensor]:
+    """The embedding (normal × 0.02), the final norm (ones) and the untied
+    head (fan-in truncated normal)."""
     embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
                         dtype=torch.float32, device=device).mul_(0.02)
     top = {"embed": embed.to(dtype),
@@ -200,7 +325,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         top["lm_head"] = common.dense_init_(
             torch.empty((cfg.d_model, cfg.vocab_size), dtype=dtype,
                         device=device), generator)
-    return _assemble(prefix, stacked, top, cfg)
+    return top
 
 
 def num_params(params) -> int:

@@ -4,9 +4,8 @@ A field-for-field copy of the JAX package's ``repro/configs/base.py``: the
 port keeps its own copy so that it imports nothing of the JAX package.  A
 single :class:`ModelConfig` describes every architecture family (dense GQA,
 MoE, MLA, SSM, RG-LRU hybrid, encoder-decoder audio, VLM backbone); the port
-serves the ``dense``, ``moe`` (MLA included) and ``vlm`` families so far,
-and the other families' fields stay so that configs compare equal field by
-field with the reference's.
+serves every family, and configs compare equal field by field with the
+reference's.
 """
 from __future__ import annotations
 

@@ -1,10 +1,9 @@
-"""Architecture registry of the port: the dense-family configs, Mixtral
-(MoE with sliding-window attention), Qwen2-VL (the VLM backbone, M-RoPE),
-DeepSeek-V2 (MLA with a dense prefix layer ahead of the MoE stack) and
-Mamba-2 (the attention-free SSM family).
-
-The other families (hybrid, encoder-decoder) join the registry with the
-slices that port their models (ROADMAP.md queue A.10).
+"""Architecture registry of the port, all twelve of the reference's
+configs: the dense-family configs, Mixtral (MoE with sliding-window
+attention), Qwen2-VL (the VLM backbone, M-RoPE), DeepSeek-V2 (MLA with a
+dense prefix layer ahead of the MoE stack), Mamba-2 (the attention-free SSM
+family), RecurrentGemma (the RG-LRU hybrid with ring-buffer local
+attention) and Whisper (the encoder-decoder).
 """
 from __future__ import annotations
 
@@ -21,6 +20,8 @@ from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 from repro_torch.configs.phi3_mini_3_8b import CONFIG as _phi3
 from repro_torch.configs.qwen2_5_7b import CONFIG as _qwen2_5
 from repro_torch.configs.qwen2_vl_72b import CONFIG as _qwen2_vl
+from repro_torch.configs.recurrentgemma_9b import CONFIG as _recurrentgemma
+from repro_torch.configs.whisper_base import CONFIG as _whisper
 
 REGISTRY: Dict[str, ModelConfig] = {
     "granite-3-2b": _granite,
@@ -33,6 +34,8 @@ REGISTRY: Dict[str, ModelConfig] = {
     "qwen2.5-7b": _qwen2_5,
     "qwen2-vl-72b": _qwen2_vl,
     "deepseek-v2-236b": _deepseek_v2,
+    "recurrentgemma-9b": _recurrentgemma,
+    "whisper-base": _whisper,
 }
 
 

@@ -54,8 +54,10 @@ def _check_model(cfg: ModelConfig, tokens: torch.Tensor) -> None:
                          f"a batch of {tokens.shape[0]}")
     if cfg.family not in ("dense", "vlm", "moe"):
         raise NotImplementedError(
-            f"profiling {cfg.name!r}: the {cfg.family!r} family comes with "
-            "ROADMAP.md queue A.10")
+            f"profiling {cfg.name!r}: the trace reads every layer's "
+            "params['stack'][l]['attn'] through gqa_qkv, which the "
+            f"{cfg.family!r} family's tree does not have, as in the "
+            "reference")
     if cfg.mla.enabled or num_prefix_layers(cfg):
         raise NotImplementedError(
             f"profiling {cfg.name!r}: the trace captures GQA layers only; "

@@ -47,7 +47,9 @@
 //   * QK^T and PV run as mma.sync.m16n8k16 bf16 products with float32
 //     accumulators; no product runs on CUDA cores.  One CTA per (row, h, b)
 //     of 2 * bs threads: warp w owns query rows [16w, 16w + 16), and the Q
-//     tile stays in registers as A fragments for the whole row.  wgmma (a
+//     tile stays in registers as A fragments for the whole row (up to
+//     Dqk = 192; at 256 they are reloaded from shared memory at each
+//     k-step, by_dim).  wgmma (a
 //     64-row warpgroup tile fed from shared-memory descriptors) is the next
 //     step for this body.
 //   * K/V stream through a two-stage shared-memory ring of 64-key bf16
@@ -304,6 +306,10 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DN = DV / 8;          // n-tiles of O
   constexpr int CPR = DQK / 8;        // 16-byte chunks per Q / K row
   constexpr int CPV = DV / 8;         // 16-byte chunks per V row
+  // Q's A fragments stay in registers for the whole row up to Dqk = 192;
+  // at 256 (with O's 128 accumulators) they are reloaded from q_s at
+  // each k-step instead
+  constexpr bool QREG = DQK <= 192;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // BQ x DP
   bf16* k_s = q_s + BQ * DP;                       // 2 stages x KN x DP
@@ -377,10 +383,16 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
   float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-  uint32_t qf[DK][4];
+  uint32_t qf[QREG ? DK : 1][4];
   const float sl2 = scale * 1.4426950408889634f;   // logits in base 2
   const int q0 = (a.q_block_offset + row) * BQ;     // first query position
   const int qr = q0 + warp * 16 + gq;               // rows gq and gq + 8
+  // warp w's A fragment of QK^T's k-step kk, from the Q tile
+  auto load_q = [&](uint32_t (&f)[4], int kk) {
+    repro::ldmatrix_x4(f, q_s + (warp * 16 + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * DP +
+                              kk * 16 + (lane >> 4) * 8);
+  };
   float ssum = 0.f;                                 // this block's Ã terms
   int scnt = 0;
   int pend_w = -1, pend_j = 0;   // block whose per-warp stats await thread 0
@@ -401,13 +413,11 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < ntiles; ++i) {
     repro::cp_async_wait<0>();
     __syncthreads();            // sub-tile i landed; sub-tile i - 1 consumed
-    if (i == 0) {
+    if constexpr (QREG) {
+      if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < DK; ++kk)
-        repro::ldmatrix_x4(qf[kk],
-                           q_s + (warp * 16 + (lane & 7) +
-                                  ((lane >> 3) & 1) * 8) * DP +
-                               kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < DK; ++kk) load_q(qf[kk], kk);
+      }
     }
     if (pend_w >= 0) {
       if (tid == 0) flush();
@@ -430,14 +440,21 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
       for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
+      uint32_t qa[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        load_q(qa, kk);
+      }
 #pragma unroll
       for (int np = 0; np < NN / 2; ++np) {
         uint32_t kb[4];
         repro::ldmatrix_x4(kb, ks + (np * 16 + (lane & 7) + (lane >> 4) * 8)
                                           * DP +
                                    kk * 16 + ((lane >> 3) & 1) * 8);
-        repro::mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        repro::mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        repro::mma_bf16(s[2 * np], qa, kb[0], kb[1]);
+        repro::mma_bf16(s[2 * np + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -580,9 +597,10 @@ int launch(bool tc, const Args& a, void* stream) {
 }
 
 // bfloat16 takes the tensor-core body, float32 the CUDA-core one; bs in
-// {64, 128} and equal Q/K and V widths D in {64, 96, 128}, or (Dqk, Dv) =
-// (192, 128) (DeepSeek-V2's MLA prefill: qk_nope 128 + qk_rope 64 against
-// v 128) for BATCHED and SINGLE; anything else is refused.  D = 96
+// {64, 128} and equal Q/K and V widths D in {64, 96, 128}, or, for BATCHED
+// and SINGLE, D = 256 or (Dqk, Dv) = (192, 128) (DeepSeek-V2's MLA
+// prefill: qk_nope 128 + qk_rope 64 against v 128); anything else is
+// refused.  D = 96
 // (phi3-mini) divides both bodies' tiles: 6 k-steps of QK^T and 12 n-tiles
 // of O on the tensor cores, 12 output columns a thread on CUDA cores; its
 // padded row of 104 bf16 (208 bytes) keeps ldmatrix's 16-byte row
@@ -592,7 +610,14 @@ int launch(bool tc, const Args& a, void* stream) {
 // bf16 (400 bytes: eight rows at 16 r mod 128 bytes, distinct bank quads)
 // and the V ring to 136, 137 KB of shared memory at bs = 128; the float32
 // body holds Q and K at 193 floats a row, 157 KB at bs = 128.  The scale is
-// 1 / sqrt(Dqk) and Ã the block mean of Q K^T, whatever Dv.
+// 1 / sqrt(Dqk) and Ã the block mean of Q K^T, whatever Dv.  D = 256
+// (RecurrentGemma's local attention: 16 query heads over one kv head),
+// BATCHED and SINGLE only: 16 k-steps of QK^T and 32 n-tiles of O, whose
+// 128 float32 accumulators leave no room for Q's 64 fragment registers, so
+// the tensor-core body reads each k-step's fragment from the Q tile
+// (QREG false; the same arithmetic); rows padded to 264 bf16 (528 bytes:
+// eight rows at 16 r mod 128 bytes), 198 KB of shared memory at bs = 128
+// and 165 KB at 64; the float32 body 209 KB at bs = 128.
 template <int BQ, int MODE>
 int by_dim(bool tc, int D, int Dv, const Args& a, void* stream) {
   if (D == Dv) {
@@ -601,6 +626,8 @@ int by_dim(bool tc, int D, int Dv, const Args& a, void* stream) {
     if (D == 64) return launch<BQ, 64, 64, MODE>(tc, a, stream);
   }
   if constexpr (MODE != PAGED) {
+    if (D == 256 && Dv == 256)
+      return launch<BQ, 256, 256, MODE>(tc, a, stream);
     if (D == 192 && Dv == 128)
       return launch<BQ, 192, 128, MODE>(tc, a, stream);
   }

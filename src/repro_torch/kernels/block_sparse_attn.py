@@ -135,15 +135,18 @@ def block_sparse_attention_plain(
     return out, torch.where(visit, means, NEG_INF)
 
 
-# the (Dqk, Dv) pairs of unequal widths the kernel takes (MLA prefill)
-UNEQUAL_WIDTHS = ((192, 128),)
+# the (Dqk, Dv) pairs beyond the equal widths 64, 96 and 128 that the
+# batched and single-sample instances take (not the paged one):
+# RecurrentGemma's D = 256 and DeepSeek-V2's MLA prefill
+WIDE_WIDTHS = ((256, 256), (192, 128))
 
 
 def _check_shapes(what: str, q: torch.Tensor, hkv: int, nkv: int, d_kv: int,
-                  block_size: int, d_v: Optional[int] = None) -> None:
+                  block_size: int, d_v: Optional[int] = None, *,
+                  wide: bool = True) -> None:
     """q ``(B, H, N, D)`` against K of ``Hkv`` heads, ``Nkv`` tokens and
     head dim ``d_kv``, and V of width ``d_v`` (default ``d_kv``): the sizes
-    the kernel takes."""
+    the kernel takes (``WIDE_WIDTHS`` too where ``wide``)."""
     n, d = q.shape[2], q.shape[3]
     d_v = d_kv if d_v is None else d_v
     if d_kv != d or q.shape[1] % hkv:
@@ -153,10 +156,11 @@ def _check_shapes(what: str, q: torch.Tensor, hkv: int, nkv: int, d_kv: int,
     if n % bs or nkv % bs:
         raise ValueError(f"{what} kernel needs block-aligned lengths "
                          f"(N={n}, Nkv={nkv}, bs={bs})")
+    wide_ok = WIDE_WIDTHS if wide else ()
     if bs not in (64, 128) or not (
-            (d == d_v and d in (64, 96, 128)) or (d, d_v) in UNEQUAL_WIDTHS):
+            (d == d_v and d in (64, 96, 128)) or (d, d_v) in wide_ok):
         raise ValueError(f"{what} kernel takes bs in (64, 128) and D in "
-                         f"(64, 96, 128), or (Dqk, Dv) in {UNEQUAL_WIDTHS}; "
+                         f"(64, 96, 128), or (Dqk, Dv) in {wide_ok}; "
                          f"got bs={bs}, D={d}, Dv={d_v}")
 
 
@@ -375,7 +379,7 @@ def block_sparse_attention_paged_cuda(
     p, hkv = pool_k.shape[:2]
     nbkv = page_table.shape[1]
     _check_shapes("paged block-sparse", q, hkv, nbkv * block_size,
-                  pool_k.shape[3], block_size)
+                  pool_k.shape[3], block_size, wide=False)
     nbq = n // block_size
     w = _check_tables(indices, counts, (b, h, nbq))
     _check_tensors("paged block-sparse", q, (pool_k, pool_v),

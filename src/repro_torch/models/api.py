@@ -1,8 +1,10 @@
-"""Model API of the port (``repro/models/api.py``'s counterpart) for the
-``dense``, ``vlm`` and ``moe`` families (the transformer, with the MoE FFN
+"""Model API of the port (``repro/models/api.py``'s counterpart) for every
+family: ``dense``, ``vlm`` and ``moe`` (the transformer, with the MoE FFN
 and sliding-window attention for Mixtral, M-RoPE for Qwen2-VL, and latent
-attention with a dense prefix layer for DeepSeek-V2) and the attention-free
-``ssm`` family (Mamba-2, :mod:`repro_torch.models.ssm_stack`)::
+attention with a dense prefix layer for DeepSeek-V2), the attention-free
+``ssm`` family (Mamba-2, :mod:`repro_torch.models.ssm_stack`), the RG-LRU
+``hybrid`` (RecurrentGemma, :mod:`repro_torch.models.hybrid`) and the
+``encdec`` family (Whisper, :mod:`repro_torch.models.whisper`)::
 
     model = build_model(cfg, dtype=torch.bfloat16)        # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
@@ -13,8 +15,9 @@ attention with a dense prefix layer for DeepSeek-V2) and the attention-free
     # the slot scheduler: per-slot pos (B,), and page_table= for the pool
     # chunked admission runs repro_torch.models.chunked_prefill's quanta
     # where model.prefill_chunk is True
-    # the ssm family takes the plain signatures only: no attn_width,
-    # prompt_lens, plan, page table or query collection (as the reference)
+    # the ssm, hybrid and encdec families take the plain signatures only:
+    # no attn_width, prompt_lens, plan, page table or query collection (as
+    # the reference); whisper's prefill takes the encoder frames as embeds
 
 ``build_model`` runs on CUDA unless the caller passes ``device="cpu"``; with
 no device and no GPU it raises rather than run quietly on the CPU.
@@ -29,7 +32,7 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
-from repro_torch.models import ssm_stack, transformer
+from repro_torch.models import hybrid, ssm_stack, transformer, whisper
 from repro_torch.models.chunked_prefill import chunk_prefill_supported
 
 
@@ -73,9 +76,9 @@ class Model:
         if not self.transformer_family:
             self._plain_only(attn_width=attn_width,
                              prompt_lens=prompt_lens is not None)
-            return ssm_stack.prefill(params, self.cfg, tokens, sp,
-                                     method=method, attn_impl=attn_impl,
-                                     positions=positions, embeds=embeds)
+            return PLAIN_FAMILIES[self.cfg.family].prefill(
+                params, self.cfg, tokens, sp, method=method,
+                attn_impl=attn_impl, positions=positions, embeds=embeds)
         return transformer.prefill(params, self.cfg, tokens, sp,
                                    method=method, attn_impl=attn_impl,
                                    attn_width=attn_width,
@@ -93,9 +96,9 @@ class Model:
                              decode_impl=decode_impl != "auto",
                              page_table=page_table is not None,
                              collect_queries=collect_queries)
-            return ssm_stack.decode_step(params, self.cfg, token, cache, pos,
-                                         positions, window=window,
-                                         embeds=embeds)
+            return PLAIN_FAMILIES[self.cfg.family].decode_step(
+                params, self.cfg, token, cache, pos, positions,
+                window=window, embeds=embeds)
         return transformer.decode_step(params, self.cfg, token, cache, pos,
                                        positions=positions, embeds=embeds,
                                        plan=plan, prompt_lens=prompt_lens,
@@ -109,9 +112,9 @@ class Model:
         """Zeroed contiguous cache in ``dtype`` (default: the model's); the
         slot scheduler passes its prefill cache's dtype."""
         if not self.transformer_family:
-            return ssm_stack.init_cache(self.cfg, batch, cache_len,
-                                        dtype=dtype or self.dtype,
-                                        device=self.device)
+            return PLAIN_FAMILIES[self.cfg.family].init_cache(
+                self.cfg, batch, cache_len, dtype=dtype or self.dtype,
+                device=self.device)
         return transformer.init_cache(self.cfg, batch, cache_len,
                                       dtype=dtype or self.dtype,
                                       device=self.device)
@@ -128,22 +131,21 @@ class Model:
 
 
 TRANSFORMER_FAMILIES = ("dense", "vlm", "moe")
-FAMILIES = TRANSFORMER_FAMILIES + ("ssm", "hybrid", "encdec")
+# the families with the plain prefill/decode signatures, and their modules
+PLAIN_FAMILIES = {"ssm": ssm_stack, "hybrid": hybrid, "encdec": whisper}
+FAMILIES = TRANSFORMER_FAMILIES + tuple(PLAIN_FAMILIES)
 
 
 def build_model(cfg: ModelConfig, dtype=torch.float32,
                 device=None) -> Model:
     """The transformer of a ``dense``, ``vlm`` or ``moe`` config (MLA and
-    prefix layers included), or the SSM stack of an ``ssm`` config; the
-    hybrid and encoder-decoder families raise, naming ROADMAP.md A.10.
-    MLA and the SSM family take no chunked admission (``prefill_chunk``
-    False); MLA takes a scalar decode ``pos`` only."""
+    prefix layers included), the SSM stack of an ``ssm`` config, the
+    RG-LRU hybrid of a ``hybrid`` one or the encoder-decoder of an
+    ``encdec`` one.  MLA and the plain families take no chunked admission
+    (``prefill_chunk`` False); MLA, the hybrid and Whisper take a scalar
+    decode ``pos`` only."""
     if cfg.family not in FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.family not in TRANSFORMER_FAMILIES + ("ssm",):
-        raise NotImplementedError(
-            f"family {cfg.family!r}: the port serves the dense, vlm, moe "
-            "and ssm families so far (ROADMAP.md queue A.10)")
     return Model(cfg, resolve_device(device), dtype,
                  prefill_chunk=(cfg.family in TRANSFORMER_FAMILIES
                                 and chunk_prefill_supported(cfg)))

@@ -4,9 +4,11 @@ and RoPE in float32, SwiGLU, and the GQA projections with the reference's
 ``(d, H, hd)`` / ``(H, hd, d)`` weight layouts.  Plain
 ``torch.matmul``/``einsum`` products, as the reference leaves these to XLA
 outside any Pallas kernel.  :func:`apply_mrope` is Qwen2-VL's multimodal
-RoPE.
+RoPE, :func:`sinusoidal_positions` Whisper's fixed position embeddings.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -78,19 +80,32 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(num: int, dim: int, *, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings ``(num, dim)`` float32:
+    sin then cos of ``pos · 10000^(−i / (dim/2 − 1))``."""
+    pos = torch.arange(num, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-math.log(10000.0) * torch.arange(
+        dim // 2, dtype=torch.float32, device=device) / (dim // 2 - 1))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
     return h @ params["w_down"]
 
 
+def gqa_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) @ w (d, H, hd) → (B, H, S, hd), contiguous."""
+    d, h, hd = w.shape
+    y = x @ w.reshape(d, h * hd)                           # (B, S, H·hd)
+    return y.reshape(*x.shape[:-1], h, hd).transpose(1, 2).contiguous()
+
+
 def gqa_qkv(params, x: torch.Tensor):
     """x (B, S, d) → q (B, H, S, hd), k/v (B, Hkv, S, hd), contiguous."""
-    def proj(w):
-        d, h, hd = w.shape
-        y = x @ w.reshape(d, h * hd)                       # (B, S, H·hd)
-        return y.reshape(*x.shape[:-1], h, hd).transpose(1, 2).contiguous()
-    return proj(params["wq"]), proj(params["wk"]), proj(params["wv"])
+    return tuple(gqa_proj(x, params[n]) for n in ("wq", "wk", "wv"))
 
 
 def gqa_out(params, attn: torch.Tensor) -> torch.Tensor:

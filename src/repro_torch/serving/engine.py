@@ -16,10 +16,11 @@ every decode step streams only the plan's blocks; other methods decode
 densely.  An MLA config (DeepSeek-V2) serves through this path only, with
 no plan, and its absorbed decode attends the right-pad slots too (the
 latent cache carries no validity mask), as in the reference.  The
-attention-free ``ssm`` family (Mamba-2) serves through this path too, with
-the family's plain prefill and decode signatures: no width cap, no prompt
-lengths (each row's first token follows the padded final position, as in
-the reference), no plan.
+attention-free ``ssm`` family (Mamba-2), the RG-LRU ``hybrid``
+(RecurrentGemma) and the ``encdec`` family (Whisper, with stub zero frames)
+serve through this path only, with the families' plain prefill and decode
+signatures: no width cap, no prompt lengths (each row's first token
+follows the padded final position, as in the reference), no plan.
 
 ``scheduler=True`` serves each bucket through a
 :class:`~repro_torch.serving.scheduler.SlotScheduler`: ``max_batch`` slots
@@ -338,12 +339,12 @@ class ServingEngine:
     def _transformer_family(self) -> bool:
         """Whether the model's prefill takes ``attn_width`` and
         ``prompt_lens`` and its decode the prompt lengths (the reference's
-        gate); the ssm family takes neither."""
+        gate); the ssm, hybrid and encdec families take neither."""
         return self.model.cfg.family in TRANSFORMER_FAMILIES
 
     def _supports_scheduler(self) -> bool:
         """Per-slot decode needs the GQA cache (per-row writes and
-        validity); MLA latent caches and the ssm family keep the batch
+        validity); MLA latent caches and the plain families keep the batch
         path (``scheduler``, ``paged``, chunked admission and prefix
         sharing fall to it), as in the reference."""
         return self._transformer_family() and not self.model.cfg.mla.enabled
@@ -353,19 +354,23 @@ class ServingEngine:
     @staticmethod
     def grow_cache(cache, old_len: int, extra: int):
         """Grow the cache by ``extra`` zero slots on the sequence axis (one
-        copy per batch): the stacked ``(L, B, Hkv, S, hd)`` K/V, or MLA's
-        latent dict, whose prefix leaves ``(B, S, ·)`` and stacked leaves
-        ``(L', B, S, ·)`` keep the sequence axis before the feature axis.
-        Every non-trailing axis whose size equals ``old_len`` grows
-        (``cache_ops.grow_leaf``), as in the reference: an SSM state has no
-        sequence axis and passes through, unless one of its state axes
-        happens to equal the bucket."""
-        grow = lambda c: tuple(cache_ops.grow_leaf(x, old_len, extra)
-                               for x in c)
-        if isinstance(cache, dict):
-            return {"prefix": [grow(c) for c in cache["prefix"]],
-                    "stack": grow(cache["stack"])}
-        return grow(cache)
+        copy per batch), walking the whole tree (dicts, lists, tuples) to
+        every tensor leaf as the reference's ``jax.tree.map`` does: the
+        stacked ``(L, B, Hkv, S, hd)`` K/V, MLA's latent dict, Whisper's
+        ``((k, v), (enc_k, enc_v))``, the hybrid's ``((conv, h), (conv, h),
+        (k, v))`` and trailing states.  Every non-trailing axis whose size
+        equals ``old_len`` grows (``cache_ops.grow_leaf``), as in the
+        reference: a recurrent state has no sequence axis and passes
+        through unless one of its axes happens to equal the bucket, and so
+        do a hybrid's rings and Whisper's encoder K/V unless the window or
+        the frame count equals it (then they grow, in both packages)."""
+        def walk(node):
+            if isinstance(node, dict):
+                return {k: walk(v) for k, v in node.items()}
+            if isinstance(node, (list, tuple)):
+                return type(node)(walk(v) for v in node)
+            return cache_ops.grow_leaf(node, old_len, extra)
+        return walk(cache)
 
     @staticmethod
     def cache_insert(cache, new, slot: int):
@@ -407,7 +412,7 @@ class ServingEngine:
         """The prefill width cap W of a bucket: ``prefill_width`` under
         ``width_policy="off"``; otherwise uncapped until the bucket's first
         prefill was observed, then resolved once and frozen (a cap of NB or
-        more resolves to None, uncapped).  None for the ssm family."""
+        more resolves to None, uncapped).  None for the plain families."""
         if not self._transformer_family():
             return None
         if self.ecfg.width_policy not in ("auto", "count"):

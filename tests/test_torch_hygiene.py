@@ -66,25 +66,24 @@ def _port_config(ref):
         for f in dataclasses.fields(ref)})
 
 
-# the families still missing (ROADMAP.md A.10): hybrid and
-# encoder-decoder raise; the VLM backbone (M-RoPE), MLA (deepseek-v2's
-# smoke config, with its dense prefix layer) and the SSM family (mamba2)
-# build, as do the moe family and sliding windows
+# every family builds: the VLM backbone (M-RoPE), MLA (deepseek-v2's smoke
+# config, with its dense prefix layer), the SSM family (mamba2), the RG-LRU
+# hybrid (recurrentgemma) and the encoder-decoder (whisper), as do the moe
+# family and sliding windows; an unknown family is refused
 @pytest.mark.parametrize("arch", ["mamba2-370m", "qwen2-vl-72b",
                                   "deepseek-v2-236b", "recurrentgemma-9b",
                                   "whisper-base"])
-def test_build_model_refuses_unported_configs(arch):
+def test_build_model_builds_every_family(arch):
     cfg = _port_config(jconfigs.get_smoke_config(arch))
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         jconfigs.get_smoke_config(arch))
-    if arch in ("mamba2-370m", "qwen2-vl-72b", "deepseek-v2-236b"):
-        model = build_model(cfg, device="cpu")
-        assert model.cfg == cfg
-        assert model.prefill_chunk == (arch == "qwen2-vl-72b")
-        assert model.transformer_family == (arch != "mamba2-370m")
-    else:
-        with pytest.raises(NotImplementedError, match="A.10"):
-            build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert model.cfg == cfg
+    assert model.prefill_chunk == (arch in ("qwen2-vl-72b",))
+    assert model.transformer_family == (
+        arch in ("qwen2-vl-72b", "deepseek-v2-236b"))
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(cfg, family="rnn"), device="cpu")
     for change in ({"family": "moe"}, {"sliding_window": 4096}):
         build_model(dataclasses.replace(
             configs.get_smoke_config("granite-3-2b"), **change),
@@ -140,20 +139,24 @@ def test_input_shapes_copy_the_reference():
 
 
 def test_registry_holds_the_dense_family():
-    """The dense family, Mixtral (moe, sliding window 4096), Qwen2-VL (vlm,
-    M-RoPE), DeepSeek-V2 (moe with MLA) and Mamba-2 (ssm), pinned field for
-    field against the reference's; an arch still missing is refused."""
-    assert set(configs.REGISTRY) == {
+    """All twelve of the reference's configs: the dense family, Mixtral
+    (moe, sliding window 4096), Qwen2-VL (vlm, M-RoPE), DeepSeek-V2 (moe
+    with MLA), Mamba-2 (ssm), RecurrentGemma (hybrid) and Whisper (encdec),
+    pinned field for field against the reference's; an unknown arch is
+    refused."""
+    assert set(configs.REGISTRY) == set(jconfigs.REGISTRY) == {
         "granite-3-2b", "internlm2-1.8b", "mistral-large-123b",
         "phi3-mini-3.8b", "llama3-8b-262k", "qwen2.5-7b", "mixtral-8x22b",
-        "qwen2-vl-72b", "deepseek-v2-236b", "mamba2-370m"}
+        "qwen2-vl-72b", "deepseek-v2-236b", "mamba2-370m",
+        "recurrentgemma-9b", "whisper-base"}
     assert {n: c.family for n, c in configs.REGISTRY.items()
             if c.family != "dense"} == {"mixtral-8x22b": "moe",
                                         "qwen2-vl-72b": "vlm",
                                         "deepseek-v2-236b": "moe",
-                                        "mamba2-370m": "ssm"}
-    for name in ("mixtral-8x22b", "qwen2-vl-72b", "deepseek-v2-236b",
-                 "mamba2-370m"):
+                                        "mamba2-370m": "ssm",
+                                        "recurrentgemma-9b": "hybrid",
+                                        "whisper-base": "encdec"}
+    for name in configs.REGISTRY:
         assert dataclasses.asdict(configs.get_config(name)) == \
             dataclasses.asdict(jconfigs.get_config(name))
     mix = configs.get_config("mixtral-8x22b")
@@ -185,5 +188,20 @@ def test_registry_holds_the_dense_family():
         "ssm", 48, 1024, 0, 50280, False)
     assert (mb.ssm.state_dim, mb.ssm.head_dim, mb.ssm.expand,
             mb.ssm.chunk_size, mb.ssm.conv_width) == (128, 64, 2, 256, 4)
+    rg = configs.get_config("recurrentgemma-9b")
+    assert (rg.family, rg.num_layers, rg.d_model, rg.num_heads,
+            rg.num_kv_heads, rg.resolved_head_dim, rg.d_ff, rg.vocab_size,
+            rg.rope_theta) == ("hybrid", 38, 4096, 16, 1, 256, 12288,
+                               256000, 1e4)
+    assert (rg.rglru.lru_width, rg.rglru.conv_width,
+            rg.rglru.local_attn_window, rg.share_prefill.block_size) == (
+        4096, 4, 2048, 128)
+    wh = configs.get_config("whisper-base")
+    assert (wh.family, wh.num_layers, wh.d_model, wh.num_heads,
+            wh.num_kv_heads, wh.d_ff, wh.vocab_size, wh.rope_theta) == (
+        "encdec", 6, 512, 8, 8, 2048, 51865, 0.0)
+    assert (wh.encdec.num_encoder_layers, wh.encdec.encoder_seq_len,
+            wh.share_prefill.block_size,
+            wh.share_prefill.min_seq_blocks) == (6, 1500, 64, 4)
     with pytest.raises(KeyError, match="unknown arch"):
-        configs.get_config("recurrentgemma-9b")
+        configs.get_config("gpt-2")

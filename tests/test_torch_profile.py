@@ -138,7 +138,8 @@ def test_share_trace_matches_model_prefill(pair):
         float(stats.block_density), atol=1e-6)
 
 
-@pytest.mark.parametrize("what", ["moe", "prefix", "batch", "method"])
+@pytest.mark.parametrize("what", ["moe", "prefix", "batch", "method",
+                                  "hybrid", "encdec"])
 def test_unported_inputs_raise(pair, what):
     cfg, toks = pair["cfg"], T(pair["toks"]).long()
     sp = pair["tm"].default_share_prefill()
@@ -160,6 +161,18 @@ def test_unported_inputs_raise(pair, what):
                    lambda: profile.run_prefill_traced(pair["tp"], cfg, toks,
                                                       sp)):
             with pytest.raises(NotImplementedError, match="not captured"):
+                fn()
+    elif what in ("hybrid", "encdec"):  # no stack of GQA layers: refused
+        arch = {"hybrid": "recurrentgemma-9b", "encdec": "whisper-base"}
+        other = get_smoke_config(arch[what])
+        params = checkpoint.init_params(
+            other, torch.Generator().manual_seed(0), device="cpu")
+        for fn in (lambda: profile.capture_block_attention_maps(
+                       params, other, toks),
+                   lambda: profile.run_prefill_traced(params, other, toks,
+                                                      sp)):
+            with pytest.raises(NotImplementedError,
+                               match=r"params\['stack'\]\[l\]\['attn'\]"):
                 fn()
     elif what == "batch":
         with pytest.raises(ValueError, match="single sample"):

@@ -449,6 +449,10 @@ def test_tensor_core_body_fits_the_bf16_tolerance(bs, width):
     ("void (anonymous namespace)::bsa_f32_kernel<64, 192, 128, 2>(x)",
      "block_sparse_attn_single"),
     ("void (anonymous namespace)::strip_tc_kernel<192, 2>(x)", "strip"),
+    ("void (anonymous namespace)::bsa_tc_kernel<128, 256, 256, 0>(x)",
+     "block_sparse_attn"),
+    ("void (anonymous namespace)::bsa_f32_kernel<128, 256, 256, 2>(x)",
+     "block_sparse_attn_single"),
     ("void (anonymous namespace)::decode_kernel<__nv_bfloat16, 0, 4, 1>(x)",
      "decode_attn"),
     ("void (anonymous namespace)::decode_kernel<float, 1, 8, 4>(x)",
@@ -485,17 +489,21 @@ def test_profile_refuses_an_unattributed_port_kernel():
 # function.  ``reduced_config`` caps the smoke models at G = 1, so these
 # shapes are built here.
 
-@pytest.mark.parametrize("offset", [None, 2], ids=["one_shot", "chunk"])
-def test_block_sparse_plain_at_head_dim_96_matches_pallas(offset):
+@pytest.mark.parametrize("offset,d", [(None, 96), (2, 96), (None, 256),
+                                      (2, 256)],
+                         ids=["one_shot", "chunk", "one_shot_d256",
+                              "chunk_d256"])
+def test_block_sparse_plain_at_head_dim_96_matches_pallas(offset, d):
     """B.2 (batched), B.5 (paged) and B.6 (single-sample) plain versions
-    at D = 96 against the reference's kernels; the chunk case is a 2-block
-    q chunk at q block 2 of a 4-block prefix."""
+    at D = 96 (phi3-mini) and D = 256 (RecurrentGemma) against the
+    reference's kernels; the chunk case is a 2-block q chunk at q block 2
+    of a 4-block prefix."""
     from repro.kernels.block_sparse_attn import (
         block_sparse_attention_batched as j_batched,
         block_sparse_attention_batched_paged as j_paged,
         block_sparse_attention_kernel as j_single, ragged_schedule)
     rng = np.random.default_rng(21)
-    b, h, hkv, s, d, bs = 2, 4, 2, 256, 96, 64
+    b, h, hkv, s, bs = 2, 4, 2, 256, 64
     n = s if offset is None else 2 * bs
     nbq, nbkv = n // bs, s // bs
     off = nbkv - nbq if offset is None else offset
@@ -641,10 +649,12 @@ def test_token_mask_decode_plain_at_group_12_matches_pallas(sparse):
 
 
 @pytest.mark.parametrize("d,ok", [(64, True), (96, True), (128, True),
-                                  (80, False), (48, False)])
+                                  (80, False), (48, False), (256, "wide")])
 def test_block_sparse_wrappers_take_head_dim_96(fake_launch, d, ok):
     """The three block-sparse wrappers launch at D in {64, 96, 128} with
-    their declared argument counts, and raise at any other D."""
+    their declared argument counts, and raise at any other D; at D = 256
+    the batched and single-sample wrappers launch and the paged one (on no
+    path) raises."""
     b, h, hkv, n, bs = 1, 4, 2, 256, 64
     q, kv = torch.zeros(b, h, n, d), torch.zeros(b, hkv, n, d)
     m = torch.tril(torch.ones(n // bs, n // bs, dtype=torch.bool))
@@ -658,18 +668,18 @@ def test_block_sparse_wrappers_take_head_dim_96(fake_launch, d, ok):
             q[0], kv[0], kv[0], idx[0], cnt[0], block_size=bs),
         lambda: bsa.block_sparse_attention_paged_cuda(
             q, pool, pool, table, idx, cnt, block_size=bs))
-    for call in calls:
-        if ok:
+    names = ["repro_block_sparse_attn", "repro_block_sparse_attn_single",
+             "repro_block_sparse_attn_paged"]
+    launched = (names if ok is True else names[:2] if ok == "wide"
+                else [])
+    for name, call in zip(names, calls):
+        if name in launched:
             call()
         else:
             with pytest.raises(ValueError, match=r"D in \(64, 96, 128\)"):
                 call()
-    want = 1 if ok else 0
-    assert {k: len(v.calls) for k, v in fake_launch.items()} == (
-        dict.fromkeys(["repro_block_sparse_attn",
-                       "repro_block_sparse_attn_single",
-                       "repro_block_sparse_attn_paged"], want) if ok
-        else {})
+    assert {k: len(v.calls) for k, v in fake_launch.items()} == \
+        dict.fromkeys(launched, 1)
 
 
 _check_masked = da._check_masked       # the real gate, before any stub

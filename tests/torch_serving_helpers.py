@@ -127,6 +127,32 @@ def port_engine(pair, **kw):
                          EngineConfig(method="share", **kw))
 
 
+def ref_batch_margins(p, reqs, seq, **prefill_kw):
+    """The reference's batch path of a plain family (no prompt lengths, no
+    plan) replayed on its own tokens: every row's top-2 logit margin by
+    (uid, generated-token index); ``prefill_kw`` go to its prefill."""
+    import jax.numpy as jnp
+    jm = p["jm"]
+    toks = np.zeros((len(reqs), seq), np.int32)
+    for i, r in enumerate(reqs):
+        toks[i, :len(r.prompt)] = r.prompt
+    res = jm.prefill(p["jp"], jnp.asarray(toks), jm.default_share_prefill(),
+                     **prefill_kw)
+    cache = JEngine.grow_cache(res.cache, seq, 64)
+    logits, margins = res.last_logits, {}
+    for t in range(max(len(r.output_tokens) for r in reqs)):
+        rows = np.asarray(logits, np.float32)
+        tok = np.zeros((len(reqs), 1), np.int32)
+        for i, r in enumerate(reqs):
+            top2 = np.sort(rows[i])[-2:]
+            margins[(r.uid, t)] = float(top2[1] - top2[0])
+            if t < len(r.output_tokens):
+                tok[i, 0] = r.output_tokens[t]
+        logits, cache = jm.decode(p["jp"], jnp.asarray(tok), cache,
+                                  jnp.int32(seq + t))
+    return margins
+
+
 def assert_greedy_agree(ref, got, margins):
     """Equal streams and finish reasons, or a first flip where the
     reference's margin is below ``TIE_TOL``; returns whether every stream
@@ -149,5 +175,5 @@ def assert_greedy_agree(ref, got, margins):
 
 __all__ = ["ARCH", "JRequest", "MarginRecorder", "Request", "TIE_TOL",
            "assert_greedy_agree", "make_pair", "one_torch_thread",
-           "page_leak_audit", "port_engine", "prompts", "ref_engine",
-           "requests"]
+           "page_leak_audit", "port_engine", "prompts", "ref_batch_margins",
+           "ref_engine", "requests"]
