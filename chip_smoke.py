@@ -186,11 +186,29 @@ run on error:
      decoder layer 0's tables as phase 19's; a batch serve of 448 and 385
      prompt tokens in a 448-token bucket with launches exactly B.1 6, B.2
      6 and no decode kernel; the card's float32 serve against the port's
-     float32 serve on the CPU, same weights and frames.
+     float32 serve on the CPU, same weights and frames;
+ 21. training (``repro_torch.training``): (a) every registry config at
+     its smoke size, one float32 ``make_train_step`` step on the card
+     against the same step on the CPU from the same weights and batch
+     (loss, grad norm, every gradient and updated leaf), and llama3 at 2
+     microbatches against 1; (b) llama3-8b-262k at full width, 8 of its
+     32 layers (≈ 2.80 B float32 parameters), ``remat_policy="full"``, 6
+     steps of ``train`` at sequence 4096, batch 2 in 2 microbatches: the
+     loss finite and falling, forward+backward and optimizer ms, tokens/s,
+     peak memory and the float32 FLOP/s share per step; ``save_step`` and
+     ``restore_step`` bitwise; the restored weights in bf16 serving phase
+     4's requests with launches exactly B.1 8, B.2 8, B.3 120; (c) the
+     reference's bench model (internlm2-1.8b cut to 3 layers) trained for
+     600 steps on the four synthetic tasks in turn and saved under
+     ``build/`` in the reference's format; a 2048-token retrieval prefill
+     under SharePrefill with the initial and the trained weights (block
+     density and shared/dense/VS heads per layer; launches exactly B.1 3,
+     B.2 3); (d) the trained weights' prefill on the plain B.1/B.2: masks,
+     tables and decisions equal, greedy tokens near-tie aware.
 
 Every phase that times a kernel also reads its device time from
 ``torch.profiler``; a port kernel that ran with no device time traced
-fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 20) builds
+fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 21) builds
 the kernels and runs that phase alone, printing no result line.
 ``python3 chip_smoke.py --bitwise TREE`` holds the equal-width
 block-sparse and strip instances bitwise to another checkout's
@@ -200,7 +218,7 @@ profiler keeps tracing the card after sessions of many launches.
 Then it prints one JSON line with every kernel's numbers, the card's name
 and power limit, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
-Weights are random, from a fixed seed.
+Weights are random, from a fixed seed (phase 21 trains its own).
 """
 from __future__ import annotations
 
@@ -4760,6 +4778,425 @@ def phase20() -> dict:
     return res
 
 
+# phase 21: training
+TRAIN_SMOKE_SEQ = 128       # 21a: each smoke config's one step, 2 rows
+TRAIN_LAYERS = 8            # 21b: of llama3-8b-262k's 32 (≈ 2.80 B params)
+TRAIN_SEQ = 4096            # the registry's train_4k length
+TRAIN_BATCH = 2             # in TRAIN_MICRO microbatches of one row
+TRAIN_MICRO = 2
+TRAIN_STEPS = 6
+# 21a: card against CPU in float32 (TF32 off).  Loss and grad norm
+# relative; each gradient leaf within GRAD_RTOL of its max |g| plus
+# GRAD_ATOL (summation order on two devices; the floor holds a leaf whose
+# gradient is itself small, as Mamba-2's a_log at ≈ 2.5e-4, the CPU
+# tests' rule); each updated leaf within UPDATE_TOL, except where
+# AdamW's first step divides a gradient near zero by itself
+# (g / (|g| + eps)): elements whose |g| is below SMALL_GRAD of the leaf's
+# max may move up to one full step (2 · lr · lr_scale) apart, counted
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+GRAD_ATOL = 1e-7
+UPDATE_TOL = 1e-5
+SMALL_GRAD = 1e-4
+# 21c: the reference's bench model (benchmarks/common.py), trained here
+BENCH_ARCH = "internlm2-1.8b"
+BENCH_STEPS = 600
+BENCH_SEQ = 256
+BENCH_BATCH = 8
+BENCH_PREFILL = 2048
+BENCH_NEW = 8
+BENCH_DIR = os.path.join(ROOT, "build", "phase21_bench")
+TRAIN_CKPT_DIR = os.path.join(ROOT, "build", "phase21_ckpt")
+
+
+def bench_config():
+    """The reference's ``benchmarks/common.py::bench_config``, copied:
+    internlm2-1.8b's smoke config at 3 layers and 4 heads over 2, with
+    SharePrefill at block 64, δ 0.75, τ 0.4, γ 0.55."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import SharePrefillConfig
+    return dataclasses.replace(
+        get_smoke_config(BENCH_ARCH), num_layers=3, num_heads=4,
+        num_kv_heads=2,
+        share_prefill=SharePrefillConfig(block_size=64, min_seq_blocks=2,
+                                         delta=0.75, tau=0.4, gamma=0.55))
+
+
+@contextlib.contextmanager
+def watch_updates(keep_grads: bool = False):
+    """Within it, every train step's AdamW update is recorded: the host
+    times just before and after it, the device synchronised at both, and
+    with ``keep_grads`` the gradients it was given."""
+    import torch
+    from repro_torch import tree as tu
+    from repro_torch.training import train_loop
+    real = train_loop.adamw_update
+    seen = []
+
+    def watched(cfg, params, grads, state, lr_scale=1.0, **kw):
+        if tu.leaves(grads)[0].is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(cfg, params, grads, state, lr_scale, **kw)
+        if out[2].is_cuda:
+            torch.cuda.synchronize()
+        seen.append({"grads": grads if keep_grads else None, "t0": t0,
+                     "t1": time.perf_counter()})
+        return out
+    train_loop.adamw_update = watched
+    try:
+        yield seen
+    finally:
+        train_loop.adamw_update = real
+
+
+def one_train_step(model, tree, batch, extra, mb: int) -> dict:
+    """One ``make_train_step`` step (functional) from ``tree``: the new
+    tree, the metrics as floats and the gradients the update got."""
+    from repro_torch.optim import init_adamw
+    from repro_torch.training import TrainConfig, make_train_step
+    tcfg = TrainConfig(num_steps=10, warmup_steps=2, microbatches=mb)
+    step = make_train_step(model, tcfg, extra)
+    with watch_updates(keep_grads=True) as seen:
+        new, state, metrics = step(tree, init_adamw(tree), batch)
+    return dict(tree=new, metrics={k: float(v) for k, v in metrics.items()},
+                grads=seen[0]["grads"], step=int(state.step))
+
+
+def compare_steps(label: str, ref: dict, got: dict, lr: float) -> dict:
+    """``got``'s loss, grad norm, gradients and updated leaves against
+    ``ref``'s (21a's tolerances); returns the worst errors."""
+    import torch
+    from repro_torch import tree as tu
+    worst = {"loss": 0.0, "grad_norm": 0.0, "grad": 0.0, "update": 0.0,
+             "sensitive": 0}
+    for k in ("total_loss", "grad_norm"):
+        a, b = ref["metrics"][k], got["metrics"][k]
+        err = abs(a - b) / max(abs(a), 1e-30)
+        worst["loss" if k == "total_loss" else "grad_norm"] = err
+        check(f"{label} {k} (relative)", err, LOSS_RTOL)
+    step_max = 2 * lr * ref["metrics"]["lr_scale"] * 1.01
+    cpu = lambda tree: {k: t.float().cpu()
+                        for k, t in tu.flatten_with_path(tree)}
+    grads, new_ref = cpu(ref["grads"]), cpu(ref["tree"])
+    for key, g in tu.flatten_with_path(got["grads"]):
+        gr = grads[key]
+        scale = float(gr.abs().max())
+        err = max_err(g.float().cpu(), gr)
+        worst["grad"] = max(worst["grad"], err / max(scale, 1e-30))
+        if err > GRAD_RTOL * scale + GRAD_ATOL:
+            raise AssertionError(f"{label} gradient {key}: error {err:.3e} "
+                                 f"at max |g| {scale:.3e}")
+    for key, p in tu.flatten_with_path(got["tree"]):
+        diff = (p.float().cpu() - new_ref[key]).abs()
+        small = grads[key].abs() < SMALL_GRAD * max(
+            float(grads[key].abs().max()), 1e-30)
+        worst["update"] = max(worst["update"],
+                              float(diff[~small].max()) if (~small).any()
+                              else 0.0)
+        worst["sensitive"] += int((diff[small] > UPDATE_TOL).sum())
+        if bool((diff[~small] > UPDATE_TOL).any()) or bool(
+                (diff[small] > step_max).any()):
+            raise AssertionError(f"{label} updated leaf {key}: max |Δ| "
+                                 f"{float(diff.max()):.3e}")
+    return worst
+
+
+def phase21a() -> dict:
+    """21a: every registry config at its smoke size: one float32 train step
+    on the card against the same step on the CPU, from the same numpy
+    weights and batch; one config also at 2 microbatches against 1."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch import tree as tu
+    from repro_torch.configs import REGISTRY, get_smoke_config
+    from repro_torch.data import DataConfig, batches
+    from repro_torch.launch.train import extra_kwargs_fn
+    from repro_torch.models import build_model
+    from repro_torch.training import TrainConfig
+    lr = TrainConfig().optimizer.learning_rate
+    out = {}
+    for arch in sorted(REGISTRY):
+        cfg = get_smoke_config(arch)
+        cpu = build_model(cfg, device="cpu")
+        card = build_model(cfg)
+        tree = checkpoint.params_to_tree(
+            cpu.init(torch.Generator().manual_seed(SEED)), cfg)
+        batch = next(batches(DataConfig(cfg.vocab_size, TRAIN_SMOKE_SEQ, 2,
+                                        task="lm", seed=SEED)))
+        on = lambda dev: (tu.tree_map(lambda t: t.to(dev), tree),
+                          {k: torch.as_tensor(v, device=dev)
+                           for k, v in batch.items()})
+        ref, got = (one_train_step(m, *on(m.device), extra_kwargs_fn(cfg), 1)
+                    for m in (cpu, card))
+        out[arch] = compare_steps(f"21a {arch}", ref, got, lr)
+        print(f"  {arch} ({cfg.family}): loss "
+              f"{got['metrics']['total_loss']:.6f} (CPU "
+              f"{ref['metrics']['total_loss']:.6f}), errors "
+              + json.dumps(out[arch]), flush=True)
+        if arch == ARCH:
+            two = one_train_step(card, *on(card.device), None, 2)
+            out["microbatches"] = compare_steps(
+                f"21a {arch} microbatches 2 against 1", got, two, lr)
+            print(f"  {arch} at 2 microbatches against 1: errors "
+                  + json.dumps(out["microbatches"]), flush=True)
+    return out
+
+
+def phase21b() -> dict:
+    """21b: llama3-8b-262k at its published widths, 8 of 32 layers, float32
+    weights, ``remat_policy="full"``: ``TRAIN_STEPS`` steps of ``train`` at
+    sequence 4096, batch 2 in 2 microbatches, the launcher's AdamW; then
+    ``save_step``/``restore_step`` bitwise, and the restored weights in
+    bf16 served through phase 4's requests with exact launches."""
+    import shutil
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, train
+    full = get_config(ARCH)
+    cfg = dataclasses.replace(full, num_layers=TRAIN_LAYERS,
+                              remat_policy="full")
+    model = build_model(cfg)
+    tcfg = TrainConfig(num_steps=TRAIN_STEPS, microbatches=TRAIN_MICRO,
+                       warmup_steps=max(TRAIN_STEPS // 10, 1), log_every=1,
+                       optimizer=AdamWConfig())
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    marks = []
+
+    def data():
+        it = batches(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                                task="lm", seed=SEED))
+        while True:
+            batch = next(it)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            marks.append(time.perf_counter())
+            yield batch
+
+    rows, n_params = [], []
+
+    def init():
+        port = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+        tree = checkpoint.params_to_tree(port, cfg)
+        n_params.append(sum(t.numel() for t in tu.leaves(tree)))
+        return tree
+
+    def log(step, m):
+        upd = seen[step]
+        fb = upd["t0"] - marks[step]
+        opt = upd["t1"] - upd["t0"]
+        flops = 8 * n_params[0] * tokens_per_step   # 6PT + recomputed 2PT
+        row = {"step": step, "loss": m["total_loss"],
+               "grad_norm": m["grad_norm"], "fwd_bwd_ms": 1e3 * fb,
+               "optimizer_ms": 1e3 * opt,
+               "tokens_per_s": tokens_per_step / (fb + opt),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "f32_flops_share": flops / (fb + opt) / PEAK_FLOPS["float32"]}
+        rows.append(row)
+        print("  " + json.dumps(row), flush=True)
+
+    print(f"21b: {ARCH} at full width, {TRAIN_LAYERS} of {full.num_layers} "
+          f"layers (depth cut), float32, remat full, sequence {TRAIN_SEQ}, "
+          f"batch {TRAIN_BATCH} in {TRAIN_MICRO} microbatches, "
+          f"{TRAIN_STEPS} steps", flush=True)
+    t = time.time()
+    with watch_updates() as seen:
+        params, opt_state, _ = train(model, tcfg, data(), params=init(),
+                                     log_fn=log)
+    print(f"  {n_params[0] / 1e9:.3f} B params; train {time.time() - t:.1f} "
+          f"s", flush=True)
+    del seen[:], opt_state
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in rows]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"21b: losses {losses} not finite or not falling")
+    os.makedirs(TRAIN_CKPT_DIR, exist_ok=True)
+    free = shutil.disk_usage(TRAIN_CKPT_DIR).free
+    print(f"  disk free {free / 2**30:.1f} GiB", flush=True)
+    t = time.time()
+    checkpoint.save_step(TRAIN_CKPT_DIR, TRAIN_STEPS, params)
+    save_s = time.time() - t
+    t = time.time()
+    if checkpoint.latest_step(TRAIN_CKPT_DIR) != TRAIN_STEPS:
+        raise AssertionError("21b: latest_step does not find the checkpoint")
+    back = checkpoint.restore_step(TRAIN_CKPT_DIR, TRAIN_STEPS, params)
+    restore_s = time.time() - t
+    same = all(torch.equal(a, b) for a, b in
+               zip(tu.leaves(params), tu.leaves(back)))
+    shutil.rmtree(TRAIN_CKPT_DIR)
+    print(f"  save_step {save_s:.1f} s, restore_step {restore_s:.1f} s, "
+          f"bitwise {same}", flush=True)
+    if not same:
+        raise AssertionError("21b: restored weights differ")
+    del params
+    serve_model = build_model(cfg, dtype=torch.bfloat16)
+    served = checkpoint.params_from_tree(
+        tu.tree_map(lambda t: t.to(torch.bfloat16), back), cfg)
+    del back
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    run = serve_full(serve_model, served, prompts, {})
+    want = {"strip": TRAIN_LAYERS, "block_sparse_attn": TRAIN_LAYERS,
+            "decode_attn": TRAIN_LAYERS * (NEW_TOKENS - 1)}
+    _expect_counts("21b serve of the trained weights", run["counts"], want)
+    del served, serve_model, run
+    torch.cuda.empty_cache()
+    return {"steps": rows, "save_s": save_s, "restore_s": restore_s,
+            "params": n_params[0]}
+
+
+def bench_prefill(model, params, tokens, label: str) -> dict:
+    """One share prefill of ``tokens`` (launches counted), and each layer's
+    shared/dense/VS heads, masks and decision (:func:`layer_decisions`)."""
+    import torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    sp = model.default_share_prefill()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with torch.no_grad():
+        res = model.prefill(params, tokens, sp, method="share")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    with torch.no_grad():
+        heads, kept = layer_decisions(model, params, tokens, sp,
+                                      keep=range(model.cfg.num_layers))
+    density = float(res.stats.block_density)
+    print(f"  {label}: block density {density:.4f}, shared/dense/VS heads "
+          f"per layer {heads}, launches {counts}", flush=True)
+    return dict(counts=counts, heads=heads, kept=kept, density=density,
+                logits=res.last_logits)
+
+
+def phase21c() -> dict:
+    """21c and 21d: the reference's bench model trained on the card (600
+    steps, the four tasks in turn), saved in the reference's format; one
+    2048-token retrieval prefill under SharePrefill with the initial and
+    the trained weights (launches exactly B.1 3, B.2 3); then the trained
+    weights' prefill and a short serve on the plain B.1/B.2: masks,
+    tables and decisions equal, greedy tokens near-tie aware."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch import tree as tu
+    from repro_torch.data import TASKS, DataConfig, batches, sample
+    from repro_torch.kernels.indices import build_block_tables
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import TrainConfig, train
+    cfg = bench_config()
+    model = build_model(cfg)
+    layers = cfg.num_layers
+    init = checkpoint.params_to_tree(
+        model.init(torch.Generator(device="cuda").manual_seed(SEED)), cfg)
+    tcfg = TrainConfig(num_steps=BENCH_STEPS, warmup_steps=20, log_every=50,
+                       remat=False, optimizer=AdamWConfig(learning_rate=1e-3))
+
+    def mixed():            # benchmarks/common.py: the tasks in turn
+        its = [batches(DataConfig(cfg.vocab_size, BENCH_SEQ, BENCH_BATCH,
+                                  task=t)) for t in TASKS]
+        i = 0
+        while True:
+            yield next(its[i % len(its)])
+            i += 1
+
+    def log(step, m):
+        print(f"  step {step:4d} loss {m['total_loss']:.4f} accuracy "
+              f"{m['accuracy']:.3f} grad_norm {m['grad_norm']:.3f} wall "
+              f"{m['wall_s']:.1f} s", flush=True)
+
+    print(f"21c: the bench model ({BENCH_ARCH} smoke, {layers} layers, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, d_model "
+          f"{cfg.d_model}), {BENCH_STEPS} steps at sequence {BENCH_SEQ}, "
+          f"batch {BENCH_BATCH}, lr 1e-3, warmup 20; PYTHONHASHSEED "
+          f"{os.environ.get('PYTHONHASHSEED', 'unset')}", flush=True)
+    t = time.time()
+    trained, _, history = train(model, tcfg, mixed(), params=init,
+                                log_fn=log)
+    train_s = time.time() - t
+    losses = history["total_loss"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"21c: losses {losses} not finite or falling")
+    path = os.path.join(BENCH_DIR, "params.npz")
+    checkpoint.save(path, trained, step=BENCH_STEPS,
+                    extra_meta={"loss": losses[-1]})
+    back = checkpoint.restore_like(path, trained)
+    if not all(torch.equal(a, b) for a, b in
+               zip(tu.leaves(trained), tu.leaves(back))):
+        raise AssertionError("21c: the saved bench weights do not read back")
+    print(f"  trained in {train_s:.1f} s ({1e3 * train_s / BENCH_STEPS:.1f} "
+          f"ms a step); saved {path}", flush=True)
+    toks = sample(DataConfig(cfg.vocab_size, BENCH_PREFILL, 1,
+                             task="retrieval", seed=SEED), 0)["tokens"]
+    tokens = torch.as_tensor(toks[None].astype(np.int64), device=model.device)
+    want = {"strip": layers, "block_sparse_attn": layers}
+    runs = {}
+    for label, tree in (("initial", init), ("trained", trained)):
+        runs[label] = bench_prefill(
+            model, checkpoint.params_from_tree(tree, cfg), tokens,
+            f"{label} weights")
+        _expect_counts(f"21c prefill, {label} weights",
+                       runs[label]["counts"], want)
+    # 21d: the trained weights on the plain B.1/B.2
+    params = checkpoint.params_from_tree(trained, cfg)
+    with plain_prefill_kernels():
+        plain = bench_prefill(model, params, tokens,
+                              "trained weights, plain B.1/B.2")
+    _expect_counts("21d plain prefill", plain["counts"], {})
+    got = runs["trained"]
+    for li in range(layers):
+        masks, dec = got["kept"][li][3:]
+        pm, pdec = plain["kept"][li][3], plain["kept"][li][4]
+        same = (torch.equal(masks, pm)
+                and all(torch.equal(getattr(dec, f), getattr(pdec, f))
+                        for f in ("use_shared", "use_dense", "use_vs"))
+                and all(torch.equal(a, b) for a, b in
+                        zip(build_block_tables(masks), build_block_tables(pm))))
+        if not same:
+            raise AssertionError(f"21d layer {li}: masks, tables or "
+                                 "decisions differ from the plain path's")
+        for f in ("a_hat_blocks", "d_sparse", "d_sim"):
+            check(f"21d layer {li} {f}", max_err(getattr(dec, f),
+                                                 getattr(pdec, f)),
+                  TOL[("strip", "float32")])
+    first = max_err(got["logits"], plain["logits"])
+    check("21d last logits, kernels against plain", first, TOL[("out",
+                                                              "float32")])
+    prompts = [toks]
+    kern = plain_serve(model, params, prompts, BENCH_NEW, BENCH_PREFILL)
+    with plain_prefill_kernels():
+        ref = plain_serve(model, params, prompts, BENCH_NEW, BENCH_PREFILL)
+    agree_streams("21d kernels against plain B.1/B.2", ref, kern, TIE_TOL)
+    print("  21d: masks, tables and decisions of all layers equal",
+          flush=True)
+    return {"losses": losses, "train_s": train_s,
+            "density": {k: r["density"] for k, r in runs.items()},
+            "heads": {k: r["heads"] for k, r in runs.items()},
+            "last_logits_err": first}
+
+
+def phase21() -> dict:
+    """Phase 21: training on the card (21a–21d)."""
+    import torch
+    print("== phase 21: training (A.11's rest)", flush=True)
+    print(f"PYTHONHASHSEED {os.environ.get('PYTHONHASHSEED', 'unset')}",
+          flush=True)
+    t = time.time()
+    res = {"21a": phase21a()}
+    print(f"phase 21a: {time.time() - t:.1f} s", flush=True)
+    res["21b"] = phase21b()
+    print(f"phase 21b: {time.time() - t:.1f} s", flush=True)
+    res["21c"] = phase21c()
+    torch.cuda.empty_cache()
+    print(f"phase 21: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(res), flush=True)
+    return res
+
+
 def build_other(tree: str) -> dict:
     """Another checkout's ``block_sparse_attn.cu`` and ``strip.cu``, built
     with this checkout's nvcc flags into ``build/bitwise/``."""
@@ -4953,9 +5390,9 @@ def main() -> int:
     if len(only) == 2 and only[0] == "--bitwise":
         return bitwise_instances(only[1])  # no result line
     alone = {"14": phase14, "15": phase15, "16": phase16, "18": phase18,
-             "19": phase19, "20": phase20}
+             "19": phase19, "20": phase20, "21": phase21}
     if len(only) == 2 and only[0] == "--phase" and only[1] in alone:
-        # a check of phase 14, 15, 16, 18, 19 or 20 alone; it prints no
+        # a check of phase 14, 15, 16, 18, 19, 20 or 21 alone; it prints no
         # result line
         alone[only[1]]()
         return 0
@@ -4991,7 +5428,7 @@ def main() -> int:
         phase17(model, params, prompts, tokens)     # alone; no result line
         return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 20, "
+        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 21, "
                          "--bitwise TREE, --profiler-probe, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
@@ -5103,6 +5540,7 @@ def main() -> int:
             if name in KERNELS:
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                r["max_abs_err"])
+    phase21()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

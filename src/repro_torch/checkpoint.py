@@ -1,5 +1,5 @@
-"""Weights for the port: the bridge from the reference's parameters, and a
-seeded initialiser.
+"""Weights for the port: the bridge from the reference's parameters and
+back, a seeded initialiser, and the checkpointer's write side.
 
 The reference's parameter tree for the dense decoder, flattened with ``::``
 (its checkpoint key format), is::
@@ -65,21 +65,28 @@ The port's parameters are a plain dict with the same leaves and layouts,
 except that the layers become one list ``layers`` of per-layer dicts, the
 prefix layers first (stack layers are views into one stacked tensor per
 leaf); the hybrid and encdec families keep the reference's groups, each
-stack a list of per-layer (per-super-block) dicts.
+stack a list of per-layer (per-super-block) dicts.  Training keeps its
+state (parameters, gradients, AdamW's moments) in the reference's tree
+instead (:func:`params_to_tree`; :func:`params_from_tree` makes the
+layers' views again), so its flat keys are the reference's as they are.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import json
+import os
+import re
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import common, mla, moe, rglru, ssm
 from repro_torch.models.hybrid import _counts as hybrid_counts
 from repro_torch.models.transformer import num_prefix_layers
 
-SEP = "::"
+SEP = tu.SEP
 
 
 def load_npz(path: str) -> Dict[str, np.ndarray]:
@@ -149,8 +156,8 @@ def _grouped(make, cfg: ModelConfig, top: Dict[str, torch.Tensor]) -> Dict:
         lead = () if n is None else (n,)
         full = {name: make(f"{group}{SEP}{name}", lead + shape)
                 for name, shape in shapes.items()}
-        params[group] = (_nest(full) if n is None else
-                         [_nest({k: t[i] for k, t in full.items()})
+        params[group] = (tu.unflatten(full) if n is None else
+                         [tu.unflatten({k: t[i] for k, t in full.items()})
                           for i in range(n)])
     return params
 
@@ -204,25 +211,13 @@ def _layer_shapes(cfg: ModelConfig, *, moe_ffn: bool) -> Dict[str, tuple]:
     return shapes
 
 
-def _nest(flat: Dict[str, torch.Tensor]) -> Dict:
-    """``{"a::b": t}`` → ``{"a": {"b": t}}``."""
-    out: Dict = {}
-    for name, t in flat.items():
-        *path, leaf = name.split(SEP)
-        node = out
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = t
-    return out
-
-
 def _assemble(prefix, stacked: Dict[str, torch.Tensor],
               top: Dict[str, torch.Tensor], cfg: ModelConfig) -> Dict:
     """``prefix``: each prefix layer's flat leaves; ``stacked``: the stack's
     ``(L', …)`` leaves."""
     n_stack = cfg.num_layers - len(prefix)
-    layers = [_nest(p) for p in prefix] + [
-        _nest({name: full[i] for name, full in stacked.items()})
+    layers = [tu.unflatten(p) for p in prefix] + [
+        tu.unflatten({name: full[i] for name, full in stacked.items()})
         for i in range(n_stack)]
     params = {"embed": top["embed"],
               "final_norm": {"scale": top["final_norm::scale"]},
@@ -232,17 +227,16 @@ def _assemble(prefix, stacked: Dict[str, torch.Tensor],
     return params
 
 
-def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
-                      device, dtype=torch.float32) -> Dict:
-    """The reference's flat parameter dict → the port's parameters."""
+def _from_flat(flat: Dict, cfg: ModelConfig, conv) -> Dict:
+    """The reference's flat parameter keys → the port's parameters, each
+    leaf through ``conv`` (its shape checked)."""
     _check_family(cfg)
-    conv = lambda a: torch.tensor(np.asarray(a)).to(device=device,
-                                                    dtype=dtype)
 
     def take(key, shape):
         arr = flat[key]
-        if arr.shape != shape:
-            raise ValueError(f"{key}: shape {arr.shape}, expected {shape}")
+        if tuple(arr.shape) != shape:
+            raise ValueError(f"{key}: shape {tuple(arr.shape)}, expected "
+                             f"{shape}")
         return conv(arr)
 
     top = {"embed": conv(flat["embed"]),
@@ -260,6 +254,62 @@ def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
                for name, shape in _layer_shapes(cfg, moe_ffn=False).items()}
               for i in range(n_prefix)]
     return _assemble(prefix, stacked, top, cfg)
+
+
+def params_from_numpy(flat: Dict[str, np.ndarray], cfg: ModelConfig, *,
+                      device, dtype=torch.float32) -> Dict:
+    """The reference's flat parameter dict → the port's parameters."""
+    return _from_flat(flat, cfg, lambda a: torch.tensor(np.asarray(a)).to(
+        device=device, dtype=dtype))
+
+
+def params_from_tree(tree: Dict, cfg: ModelConfig) -> Dict:
+    """The reference's parameter tree (nested dicts of stacked tensors, the
+    training state's layout) → the port's parameters, with every layer's
+    leaves views into the stacked tensors: differentiable, so the gradient
+    of a stacked leaf gathers each layer's (``Model.train_logits`` builds
+    them on every call)."""
+    return _from_flat(dict(tu.flatten_with_path(tree)), cfg, lambda t: t)
+
+
+def _leaf(node: Dict, name: str) -> torch.Tensor:
+    for part in name.split(SEP):
+        node = node[part]
+    return node
+
+
+def params_to_tree(params: Dict, cfg: ModelConfig) -> Dict:
+    """The inverse of :func:`params_from_tree`: the port's parameters →
+    the reference's tree, each stack's layers restacked into ``(L', …)``
+    leaves (a copy), the prefix layers as ``prefix_i``, the hybrid's and
+    Whisper's groups under the reference's keys."""
+    _check_family(cfg)
+    flat = {"embed": params["embed"],
+            f"final_norm{SEP}scale": params["final_norm"]["scale"]}
+    if not cfg.tie_embeddings:
+        flat["lm_head"] = params["lm_head"]
+    if cfg.family in GROUPED_FAMILIES:
+        for group, (n, shapes) in _groups(cfg).items():
+            for name in shapes:
+                flat[f"{group}{SEP}{name}"] = (
+                    _leaf(params[group], name) if n is None else torch.stack(
+                        [_leaf(layer, name) for layer in params[group]]))
+        return tu.unflatten(flat)
+    n_prefix = num_prefix_layers(cfg)
+    for i in range(n_prefix):
+        for name in _layer_shapes(cfg, moe_ffn=False):
+            flat[f"prefix_{i}{SEP}{name}"] = _leaf(params["layers"][i], name)
+    for name in _layer_shapes(cfg, moe_ffn=cfg.moe.enabled):
+        flat[f"stack{SEP}{name}"] = torch.stack(
+            [_leaf(layer, name) for layer in params["layers"][n_prefix:]])
+    return tu.unflatten(flat)
+
+
+def params_to_numpy(params: Dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`params_from_numpy`: the port's parameters →
+    the reference's flat ``::`` keys and arrays."""
+    return {k: _numpy(v) for k, v in
+            tu.flatten_with_path(params_to_tree(params, cfg))}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
@@ -334,3 +384,73 @@ def num_params(params) -> int:
         return params.numel()
     vals = params.values() if isinstance(params, dict) else params
     return sum(num_params(v) for v in vals)
+
+
+# --------------------------------------------------------------------------
+# The checkpointer (port of ``repro/checkpoint/checkpointer.py``): flat-key
+# npz snapshots of any tree (parameters, optimizer state, or both)
+# --------------------------------------------------------------------------
+
+def _numpy(leaf) -> np.ndarray:
+    """A leaf as a numpy array; bfloat16 (which numpy lacks) as float32,
+    which :func:`restore_like` casts back exactly."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().cpu()
+        if leaf.dtype == torch.bfloat16:
+            leaf = leaf.float()
+        return leaf.numpy()
+    return np.asarray(leaf)
+
+
+def save(path: str, tree: Any, *, step: Optional[int] = None,
+         extra_meta: Optional[Dict] = None) -> str:
+    """Write ``tree``'s leaves to ``path`` (``.npz``) under the reference's
+    flat keys (:mod:`repro_torch.tree`: ``0::embed``, ``1::.mu::…``), and
+    a ``.meta.json`` beside it with the step, the sorted keys and under
+    ``treedef`` the port's own description of the containers
+    (:func:`repro_torch.tree.structure`; the reference writes JAX's
+    treedef there).  Neither package's :func:`restore_like` reads
+    ``treedef``: the template gives the structure."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    flat = {k: _numpy(v) for k, v in tu.flatten_with_path(tree)}
+    np.savez(path if path.endswith(".npz") else path + ".npz", **flat)
+    meta = {"step": step, "keys": sorted(flat),
+            "treedef": tu.structure(tree)}
+    if extra_meta:
+        meta.update(extra_meta)
+    with open(re.sub(r"\.npz$", "", path) + ".meta.json", "w") as f:
+        json.dump(meta, f, indent=1, default=str)
+    return path
+
+
+def restore_like(path: str, template: Any) -> Any:
+    """Restore into the structure of ``template``: each leaf a tensor of
+    the template leaf's dtype and device (shapes checked)."""
+    with np.load(path if path.endswith(".npz") else path + ".npz") as f:
+        def one(key, leaf):
+            arr = f[key]
+            if tuple(arr.shape) != tuple(leaf.shape):
+                raise ValueError(f"shape mismatch for {key}: ckpt "
+                                 f"{arr.shape} vs template {tuple(leaf.shape)}")
+            return torch.as_tensor(arr).to(device=leaf.device,
+                                           dtype=leaf.dtype)
+        return tu.tree_map_with_path(one, template)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(m.group(1)) for m in
+             (re.match(r"step_(\d+)\.npz$", n) for n in os.listdir(ckpt_dir))
+             if m]
+    return max(steps) if steps else None
+
+
+def save_step(ckpt_dir: str, step: int, tree: Any, **kw) -> str:
+    return save(os.path.join(ckpt_dir, f"step_{step:08d}.npz"), tree,
+                step=step, **kw)
+
+
+def restore_step(ckpt_dir: str, step: int, template: Any) -> Any:
+    return restore_like(os.path.join(ckpt_dir, f"step_{step:08d}.npz"),
+                        template)

@@ -8,6 +8,7 @@ attention with a dense prefix layer for DeepSeek-V2), the attention-free
 
     model = build_model(cfg, dtype=torch.bfloat16)        # on cuda
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    logits, aux = model.train_logits(tree, tokens)        # training
     result = model.prefill(params, tokens, sp, method="share")
     logits, cache = model.decode(params, token, cache, pos, plan=plan)
     # a VLM: prefill(params, None, sp, positions=(3, B, S), embeds=...)
@@ -68,6 +69,18 @@ class Model:
         bad = sorted(k for k, v in given.items() if v)
         if bad and not self.transformer_family:
             raise TypeError(f"family {self.cfg.family!r} takes no {bad}")
+
+    def train_logits(self, tree, tokens, positions=None, embeds=None):
+        """The training forward: ``(logits (B, S, V), aux losses)`` from the
+        reference's parameter tree (nested dicts of stacked leaves, as
+        training keeps them), whose per-layer views are made inside the
+        differentiable forward on every call.  A VLM takes ``embeds`` and
+        3-D ``positions``; Whisper its frames as ``embeds``."""
+        params = checkpoint.params_from_tree(tree, self.cfg)
+        family = (transformer if self.transformer_family
+                  else PLAIN_FAMILIES[self.cfg.family])
+        return family.forward_train(params, self.cfg, tokens, positions,
+                                    embeds)
 
     def prefill(self, params, tokens, sp: SharePrefill, *,
                 method: str = "share", attn_impl: str = "auto",

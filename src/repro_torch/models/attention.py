@@ -30,6 +30,10 @@ block column) ANDed into every method's masks (so the oldest block in the
 window keeps tokens a little past ``window``); on the dense path at token
 granularity; and in decode as a token band of the validity mask
 (:func:`repro_torch.models.transformer.window_valid_mask`).
+
+:func:`attention_train` is the differentiable training attention: dense,
+or banded by the window at token granularity, through the plain chunked
+attention (the reference's train path is pure JAX, no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -112,6 +116,21 @@ def rope_qk(q, k, positions, cfg: ModelConfig):
     pos = positions[:, None, :]
     return (common.apply_rope(q, pos, cfg.rope_theta),
             common.apply_rope(k, pos, cfg.rope_theta))
+
+
+def attention_train(params, x: torch.Tensor, cfg: ModelConfig,
+                    positions: torch.Tensor,
+                    block_size: int = 128) -> torch.Tensor:
+    """The training attention of one layer: x (B, S, d) → (B, S, d).  GQA
+    projections, (M-)RoPE, K/V expanded over the group, causal chunked
+    attention in blocks of ``min(block_size, S)`` queries under the
+    config's ``sliding_window`` (no sink), as the reference's."""
+    q, k, v = common.gqa_qkv(params, x)
+    q, k = rope_qk(q, k, positions, cfg)
+    kx, vx = expand_kv(k, v, q.shape[1])
+    out = chunked_attention(q, kx, vx, block_size=min(block_size, x.shape[1]),
+                            causal=True, window=cfg.sliding_window, sink=0)
+    return common.gqa_out(params, out)
 
 
 def prefill_block_size(sp: SharePrefill, n: int) -> int:

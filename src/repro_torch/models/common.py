@@ -4,7 +4,8 @@ and RoPE in float32, SwiGLU, and the GQA projections with the reference's
 ``(d, H, hd)`` / ``(H, hd, d)`` weight layouts.  Plain
 ``torch.matmul``/``einsum`` products, as the reference leaves these to XLA
 outside any Pallas kernel.  :func:`apply_mrope` is Qwen2-VL's multimodal
-RoPE, :func:`sinusoidal_positions` Whisper's fixed position embeddings.
+RoPE, :func:`sinusoidal_positions` Whisper's fixed position embeddings,
+:func:`maybe_remat` the train paths' activation checkpointing.
 """
 from __future__ import annotations
 
@@ -113,3 +114,34 @@ def gqa_out(params, attn: torch.Tensor) -> torch.Tensor:
     b, h, s, hd = attn.shape
     flat = attn.transpose(1, 2).reshape(b, s, h * hd)
     return flat @ params["wo"].reshape(h * hd, -1)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """The ``dots`` policy: keep the products for the backward."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    return (CheckpointPolicy.MUST_SAVE
+            if op in (aten.mm.default, aten.bmm.default, aten.addmm.default)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def maybe_remat(fn, policy: str):
+    """Wrap a layer body in activation checkpointing per the config's
+    ``remat_policy`` (the reference's ``jax.checkpoint`` policies):
+    ``full`` saves nothing inside the body and recomputes it in the
+    backward (``nothing_saveable``); ``dots`` saves
+    the matmul outputs (``mm``, ``bmm``, ``addmm``) and recomputes the
+    rest (the reference's ``dots_with_no_batch_dims_saveable`` keeps the
+    weight products; here every 2-D and batched product); any other
+    policy (``none``) returns ``fn``.  All give the same values and
+    gradients."""
+    if policy not in ("full", "dots"):
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    extra = ({} if policy == "full" else {"context_fn": lambda:
+              create_selective_checkpoint_contexts(_save_matmuls)})
+
+    def wrapped(*args, **kwargs):
+        return checkpoint(fn, *args, use_reentrant=False, **extra, **kwargs)
+    return wrapped

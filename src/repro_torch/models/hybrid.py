@@ -37,7 +37,7 @@ from repro_torch.models.attention import AttnStats
 from repro_torch.models.rglru import (recurrent_block_decode,
                                       recurrent_block_forward)
 from repro_torch.models.transformer import (PrefillResult, embed_tokens,
-                                            logits_from_hidden)
+                                            logits_from_hidden, zero_aux)
 
 SUPER = 3       # layers per super-block: rec, rec, attn
 
@@ -63,6 +63,36 @@ def _sub_forward(layer, x, cfg: ModelConfig):
     h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
     y, state = recurrent_block_forward(layer["mixer"], h, cfg)
     return _mlp_block(layer, x + y, cfg), state
+
+
+def _attn_train_sub(layer, x, cfg: ModelConfig, positions):
+    """A local-attention sublayer over the whole sequence (training)."""
+    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+    y = attn_mod.attention_train(layer["mixer"], h, _attn_cfg(cfg), positions)
+    return _mlp_block(layer, x + y, cfg)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, positions=None,
+                  embeds=None):
+    """tokens (B, S) → (logits (B, S, V), zero aux losses): each
+    super-block's rec, rec and local-attention sublayers under the
+    config's ``remat_policy``, then the trailing recurrent layers."""
+    x = embeds if embeds is not None else embed_tokens(params, cfg, tokens)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+
+    def body(block, x):
+        x, _ = _sub_forward(block["rec1"], x, cfg)
+        x, _ = _sub_forward(block["rec2"], x, cfg)
+        return _attn_train_sub(block["attn"], x, cfg, positions)
+
+    body = common.maybe_remat(body, cfg.remat_policy)
+    for block in params["stack"]:
+        x = body(block, x)
+    for i in range(_counts(cfg)[1]):
+        x, _ = _sub_forward(params[f"trail_{i}"], x, cfg)
+    return logits_from_hidden(params, cfg, x), zero_aux(x.device)
 
 
 def _ring(k: torch.Tensor, wcap: int) -> torch.Tensor:

@@ -111,6 +111,18 @@ def mla_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v, c_kv, k_rope[:, 0]
 
 
+def mla_train(params, x: torch.Tensor, cfg: ModelConfig,
+              positions: torch.Tensor, block_size: int = 128
+              ) -> torch.Tensor:
+    """The training attention of one MLA layer: x (B, S, d) → (B, S, d),
+    causal chunked attention over the decompressed q/k (``Dqk = nope +
+    rope``) and v (``Dv``), as the reference's."""
+    q, k, v, _, _ = mla_qkv(params, x, cfg, positions)
+    out = chunked_attention(q, k, v, block_size=min(block_size, x.shape[1]),
+                            causal=True)
+    return common.gqa_out(params, out)
+
+
 def mla_prefill(params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, *, method: str, sp: SharePrefill,
                 sp_state, cluster_ids: Optional[torch.Tensor],

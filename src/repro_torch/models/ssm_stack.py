@@ -21,7 +21,24 @@ from repro_torch.models import common
 from repro_torch.models.attention import AttnStats
 from repro_torch.models.ssm import _dims, ssm_decode, ssm_forward
 from repro_torch.models.transformer import (PrefillResult, embed_tokens,
-                                            logits_from_hidden)
+                                            logits_from_hidden, zero_aux)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, positions=None,
+                  embeds=None):
+    """tokens (B, S) → (logits (B, S, V), zero aux losses): each layer's
+    ``ssm_forward`` on its normed input, under the config's
+    ``remat_policy``."""
+    x = embeds if embeds is not None else embed_tokens(params, cfg, tokens)
+
+    def body(layer, x):
+        h = common.rmsnorm(layer["ln"], x, cfg.rms_norm_eps)
+        return x + ssm_forward(layer["ssm"], h, cfg)[0]
+
+    body = common.maybe_remat(body, cfg.remat_policy)
+    for layer in params["layers"]:
+        x = body(layer, x)
+    return logits_from_hidden(params, cfg, x), zero_aux(x.device)
 
 
 def prefill(params, cfg: ModelConfig, tokens, sp: SharePrefill, *,

@@ -64,16 +64,71 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
 def _ffn_apply(layer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One layer's FFN on its ln2-normed input: the MoE FFN where the layer
     holds a router (every layer of a ``moe`` config but its prefix layers;
-    the aux losses are for training and dropped here), else the SwiGLU
+    its aux losses are for training, :func:`_ffn_train`), else the SwiGLU
     MLP."""
     if "router" in layer["ffn"]:
         return moe.moe_apply(layer["ffn"], h, cfg)[0]
     return common.mlp(layer["ffn"], h)
 
 
+def _ffn_train(layer, h: torch.Tensor, cfg: ModelConfig):
+    """:func:`_ffn_apply` with the MoE FFN's aux losses ``(load balance,
+    router z)``, zeros for the SwiGLU MLP."""
+    if "router" in layer["ffn"]:
+        y, aux = moe.moe_apply(layer["ffn"], h, cfg)
+        return y, (aux.load_balance_loss, aux.router_z_loss)
+    zero = torch.zeros((), device=h.device)
+    return common.mlp(layer["ffn"], h), (zero, zero)
+
+
 def _ffn_block(layer, x, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(layer["ln2"], x, cfg.rms_norm_eps)
     return x + _ffn_apply(layer, h, cfg)
+
+
+def zero_aux(device) -> dict:
+    """The aux losses of a stack without a MoE FFN: zeros."""
+    z = torch.zeros((), device=device)
+    return {"load_balance_loss": z, "router_z_loss": z}
+
+
+def layer_train(layer, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor):
+    """One layer of the training forward: ``(x, (load balance, router z))``
+    with the attention over the whole sequence
+    (:func:`~repro_torch.models.attention.attention_train`, or
+    :func:`~repro_torch.models.mla.mla_train`)."""
+    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+    attn_fn = mla.mla_train if cfg.mla.enabled else attn.attention_train
+    x = x + attn_fn(layer["attn"], h, cfg, positions)
+    h = common.rmsnorm(layer["ln2"], x, cfg.rms_norm_eps)
+    f, aux = _ffn_train(layer, h, cfg)
+    return x + f, aux
+
+
+def forward_train(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
+                  positions: Optional[torch.Tensor] = None,
+                  embeds: Optional[torch.Tensor] = None):
+    """tokens (B, S) → (logits (B, S, V), aux losses); a VLM passes
+    ``embeds`` and 3-D positions.  The stack's layers (not the prefix
+    layers) run under the config's ``remat_policy``, and the aux losses
+    are their means over the stack, as the reference's scan gives them."""
+    x = embeds if embeds is not None else embed_tokens(params, cfg, tokens)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    n_prefix = num_prefix_layers(cfg)
+    body = common.maybe_remat(layer_train, cfg.remat_policy)
+    lb = zl = torch.zeros((), device=x.device)
+    for li, layer in enumerate(params["layers"]):
+        if li < n_prefix:
+            x, _ = layer_train(layer, x, cfg, positions)
+            continue
+        x, (l1, l2) = body(layer, x, cfg, positions)
+        lb, zl = lb + l1, zl + l2
+    n_stack = max(cfg.num_layers - n_prefix, 1)
+    return logits_from_hidden(params, cfg, x), {
+        "load_balance_loss": lb / n_stack, "router_z_loss": zl / n_stack}
 
 
 def layer_prefill(layer, x: torch.Tensor, cfg: ModelConfig,

@@ -37,7 +37,7 @@ from repro_torch.models import common
 from repro_torch.models.attention import AttnStats
 from repro_torch.models.transformer import (PrefillResult, embed_tokens,
                                             logits_from_hidden,
-                                            window_valid_mask)
+                                            window_valid_mask, zero_aux)
 
 
 def _mlp_block(layer, x, cfg: ModelConfig) -> torch.Tensor:
@@ -86,6 +86,35 @@ def _cross_block(layer, x, enc_kv, cfg: ModelConfig) -> torch.Tensor:
     h = common.rmsnorm(layer["ln_x"], x, cfg.rms_norm_eps)
     x = x + _cross_attend(layer, h, enc_kv, cfg)
     return _mlp_block(layer, x, cfg)
+
+
+def forward_train(params, cfg: ModelConfig, tokens, positions=None,
+                  embeds=None):
+    """Teacher-forced decoder over ``tokens (B, S)`` → (logits (B, S, V),
+    zero aux losses): the encoder on ``embeds`` (the frames; zeros of
+    ``(B, encoder_seq_len, d)`` when none are given), then each decoder
+    layer's self-attention (:func:`~repro_torch.models.attention.
+    attention_train`), cross-attention and MLP under the config's
+    ``remat_policy``."""
+    b, s = tokens.shape
+    if embeds is None:
+        embeds = params["embed"].new_zeros(
+            (b, cfg.encdec.encoder_seq_len, cfg.d_model))
+    enc = encode(params, cfg, embeds)
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    x = _add_positions(embed_tokens(params, cfg, tokens), cfg)
+
+    def body(layer, x):
+        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+        x = x + attn_mod.attention_train(layer["self_attn"], h, cfg,
+                                         positions)
+        return _cross_block(layer, x, _enc_kv(layer, enc), cfg)
+
+    body = common.maybe_remat(body, cfg.remat_policy)
+    for layer in params["dec_stack"]:
+        x = body(layer, x)
+    return logits_from_hidden(params, cfg, x), zero_aux(x.device)
 
 
 def prefill(params, cfg: ModelConfig, tokens, sp: SharePrefill, *,

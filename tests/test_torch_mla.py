@@ -48,7 +48,7 @@ from repro.kernels.block_sparse_attn import (
 from repro.kernels.strip import strip_scores_pallas
 from repro.models import mla as jmla
 from repro.serving import ServingEngine as JEngine
-from repro_torch import checkpoint
+from repro_torch import checkpoint, tree
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import block_sparse_attn as bsa
@@ -400,7 +400,7 @@ def test_full_widths_reach_the_kernel_wrappers(fake_launch, monkeypatch):
                                                                        128)
     params = {name: torch.empty(shape, device="meta")
               for name, shape in mla.mla_leaf_shapes(cfg).items()}
-    params = checkpoint._nest(params)
+    params = tree.unflatten(params)
     n, b, bs = 256, 1, 128
     x = torch.empty((b, n, cfg.d_model), device="meta")
     pos = torch.arange(n)[None]
