@@ -204,11 +204,32 @@ run on error:
      under SharePrefill with the initial and the trained weights (block
      density and shared/dense/VS heads per layer; launches exactly B.1 3,
      B.2 3); (d) the trained weights' prefill on the plain B.1/B.2: masks,
-     tables and decisions equal, greedy tokens near-tie aware.
+     tables and decisions equal, greedy tokens near-tie aware;
+ 22. the heads-sharded serve (A.12): two ranks share the card over gloo
+     (``run_ranks``, ``make_serving_mesh(2)``), each with llama3-8b-262k
+     at full width, 8 of its 32 layers, in bf16 from seed 0 (the weights'
+     checksum all-reduced equal); (a) phase 4's requests served under
+     ``ShardingRules`` against the same serve on one rank without them:
+     launches exactly B.1 8, B.2 8, B.3 120 per rank, each B.2 on 16 of
+     the 32 heads and each B.3 on 4 of the 8 kv heads, every logit row and
+     token bitwise, the plan each rank builds equal to the single-device
+     plan and on both ranks, the masks and decisions equal on both ranks
+     (digests, all-reduced);
+     (b) phase 6's requests through the paged scheduler (148 pages) the
+     same way, B.4 per kv-head shard, no page leaked; (c) B.2 (output and
+     Ã), B.3 and B.4 through their sharded functions bitwise their
+     single-device launches on layer 0's inputs, and each rank's shard
+     launch (B.3/B.4 reading the rank's kv heads of the whole cache or
+     pool in place) timed beside the whole launch while the other rank
+     waits, with the head-slice copy that the in-place read avoids;
+     the all-gathers' calls, bytes and seconds per serve; (d) the serving
+     launcher with and without ``--model-parallel 2`` (smoke config)
+     printing the same request lines but for their times.  The two ranks share one card: the times
+     are not those of tensor parallelism over several cards.
 
 Every phase that times a kernel also reads its device time from
 ``torch.profiler``; a port kernel that ran with no device time traced
-fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 21) builds
+fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 22) builds
 the kernels and runs that phase alone, printing no result line.
 ``python3 chip_smoke.py --bitwise TREE`` holds the equal-width
 block-sparse and strip instances bitwise to another checkout's
@@ -5197,6 +5218,442 @@ def phase21() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 22
+
+MESH_RANKS = 2              # two ranks on one card, over gloo
+MESH_LAYERS = 8             # of llama3-8b-262k's 32, as phase 21b
+MESH_TIMEOUT_S = 300        # the ranks' collectives and their join
+MESH_DECODE_STEP = 8        # the kernel check's decode position past SEQ
+MESH_OUT = os.path.join(ROOT, "build", "phase22")
+
+
+def _all_agree(value: float) -> bool:
+    """Whether every rank holds the same ``value``: its max and min over
+    the world, all-reduced (CPU tensors over gloo), are equal."""
+    import torch
+    import torch.distributed as dist
+    hi = torch.tensor([value], dtype=torch.float64)
+    lo = hi.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+    return bool(hi == lo)
+
+
+def tensors_digest(tensors) -> float:
+    """The first 52 bits of a SHA-256 of ``tensors``' bytes, exact in a
+    float64 (for :func:`_all_agree`)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return float(int(h.hexdigest()[:13], 16))
+
+
+class MaskDigest:
+    """A running SHA-256 of every layer's SharePrefill masks and decision
+    that ``build_share_masks`` returns while installed."""
+
+    def __init__(self):
+        import hashlib
+        self.h = hashlib.sha256()
+        self.calls = 0
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.core import share_attention as sa
+        orig = sa.build_share_masks
+
+        def digest(*args, **kwargs):
+            masks, decision = orig(*args, **kwargs)
+            for t in (masks, *decision):
+                self.h.update(t.detach().contiguous().cpu().numpy().tobytes())
+            self.calls += 1
+            return masks, decision
+
+        sa.build_share_masks = digest
+        try:
+            yield self
+        finally:
+            sa.build_share_masks = orig
+
+    def value(self) -> float:
+        """The digest's first 52 bits, exact in a float64."""
+        return float(int(self.h.hexdigest()[:13], 16))
+
+
+@contextlib.contextmanager
+def captured_plans(out: list):
+    """Every plan the engine and scheduler build through
+    ``build_decode_plan`` while the body runs."""
+    from repro_torch.serving import decode_plan as dplan
+    orig = dplan.build_decode_plan
+
+    def capture(*args, **kwargs):
+        plan = orig(*args, **kwargs)
+        out.append(plan)
+        return plan
+
+    dplan.build_decode_plan = capture
+    try:
+        yield out
+    finally:
+        dplan.build_decode_plan = orig
+
+
+def _same(a, b) -> bool:
+    """Tensors pairwise bitwise equal (dtype and shape included)."""
+    import torch
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def mesh_serve(label: str, serve, rules):
+    """One serve (``serve()`` returns its result dict) under ``rules`` (or
+    none), with its plans captured, its masks and decisions digested, and
+    the shard calls and all-gathers counted from zero."""
+    import torch
+    from repro_torch.distributed import sharding as dsh
+    plans, digest = [], MaskDigest()
+    dsh.reset_shard_calls()
+    dsh.reset_gather_stats()
+    with captured_plans(plans), digest.installed(), dsh.use_rules(rules):
+        run = serve()
+    torch.cuda.synchronize()
+    run.update(plans=plans, digest=digest, shard_calls=dict(dsh.SHARD_CALLS),
+               gather=dict(dsh.GATHER_STATS))
+    print(f"  {label}: shard calls "
+          + json.dumps({"/".join(map(str, k)): v
+                        for k, v in run["shard_calls"].items()})
+          + f"; all-gathers {run['gather']['calls']} calls, "
+          f"{run['gather']['bytes']} bytes, {run['gather']['seconds']:.4f} "
+          f"s", flush=True)
+    return run
+
+
+def _check_streams(what: str, plain: dict, sharded: dict, logits) -> None:
+    """Greedy tokens and every logit row (``logits(run)``) of the sharded
+    serve bitwise the single-device serve's."""
+    toks = [r.output_tokens.tolist() for r in plain["reqs"]]
+    got = [r.output_tokens.tolist() for r in sharded["reqs"]]
+    same_logits = _same(logits(plain), logits(sharded))
+    print(f"  {what}: tokens equal {toks == got}, {len(logits(plain))} "
+          f"logit rows bitwise {same_logits}", flush=True)
+    if toks != got or not same_logits:
+        raise AssertionError(f"{what}: the sharded serve is not bitwise the "
+                             f"single-device serve ({toks} vs {got})")
+
+
+def mesh_kernels(model, params, tokens, plan, mesh, rank: int) -> dict:
+    """Phase 22c: B.2 (output and Ã), B.3 and B.4 through their sharded
+    functions against the single-device launch on the same inputs (layer
+    0's q/k/v and masks, the batch serve's layer-0 plan), bitwise; then
+    each rank in turn times its own head shard's launch beside the whole
+    model's (CUDA events and the profiler's device time)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import sharding as dsh
+    from repro_torch.kernels import (block_sparse_attention_cuda,
+                                     compact_block_mask)
+    from repro_torch.kernels.decode_attn import (
+        flash_decode_plan, flash_decode_plan_paged, flash_decode_sparse_cuda,
+        flash_decode_sparse_paged_cuda)
+    from repro_torch.kernels.ops import batched_block_sparse_attention
+
+    bs = model.cfg.share_prefill.block_size
+    q, k, v = layer0_qkv(model, params, tokens)
+    masks, dec = real_masks(model, q, k, v)
+    gate = dec.use_dense
+    out, a_tilde = batched_block_sparse_attention(q, k, v, masks,
+                                                  block_size=bs,
+                                                  stats_gate=gate)
+    s_out, s_a = dsh.sharded_batched_block_sparse_attention(
+        q, k, v, masks, mesh=mesh, block_size=bs, stats_gate=gate)
+    p0 = plan.layer(0)
+    b, hkv, nb, _ = p0.keep_heads.shape
+    s = nb * bs
+    dev = q.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    ck = torch.zeros((b, hkv, s, k.shape[-1]), dtype=k.dtype, device=dev)
+    cv = torch.zeros_like(ck)
+    ck[:, :, :SEQ], cv[:, :, :SEQ] = k, v
+    tail = slice(SEQ, SEQ + MESH_DECODE_STEP)
+    ck[:, :, tail] = torch.randn(ck[:, :, tail].shape, generator=gen,
+                                 device=dev).to(ck.dtype)
+    cv[:, :, tail] = torch.randn(cv[:, :, tail].shape, generator=gen,
+                                 device=dev).to(cv.dtype)
+    pos = torch.arange(s, device=dev)[None]
+    plens = torch.tensor(PROMPT_LENS, device=dev)[:, None]
+    valid = ((pos < plens) | ((pos >= SEQ) & (pos < SEQ + MESH_DECODE_STEP))
+             ).contiguous()
+    dq = torch.randn((b, q.shape[1], q.shape[-1]), generator=gen,
+                     device=dev).to(q.dtype)
+    dec_full = flash_decode_plan(dq, ck, cv, p0, valid, impl="kernel")
+    dec_shard = dsh.sharded_flash_decode(dq, ck, cv, p0, valid, mesh=mesh,
+                                         impl="kernel")
+    perm = torch.randperm(b * nb, generator=gen, device=dev) + 1
+    table = perm.reshape(b, nb).to(torch.int32).contiguous()
+    pool_k = torch.zeros((b * nb + 1, hkv, bs, k.shape[-1]), dtype=k.dtype,
+                         device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    pool_k[table.long()] = ck.reshape(b, hkv, nb, bs, -1).transpose(1, 2)
+    pool_v[table.long()] = cv.reshape(b, hkv, nb, bs, -1).transpose(1, 2)
+    pg_full = flash_decode_plan_paged(dq, pool_k, pool_v, table, p0, valid,
+                                      impl="kernel")
+    pg_shard = dsh.sharded_flash_decode_paged(dq, pool_k, pool_v, table, p0,
+                                              valid, mesh=mesh,
+                                              impl="kernel")
+    torch.cuda.synchronize()
+    same = {"block_sparse_attn": bool(torch.equal(out, s_out)
+                                      and torch.equal(a_tilde, s_a)),
+            "decode_attn": bool(torch.equal(dec_full, dec_shard)),
+            "decode_attn_paged": bool(torch.equal(pg_full, pg_shard)
+                                      and torch.equal(pg_full, dec_full))}
+    print(f"  22c rank {rank}: sharded against the single-device launch, "
+          f"bitwise: {json.dumps(same)}", flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"phase 22c: {same}")
+
+    # the shard's operands as the sharded functions hand them over: q, the
+    # gate, the tables and the prefill K/V copied out once (the times are
+    # the launches'); the decode cache and pool are head-slice views, read
+    # in place
+    hs, ks = dsh.shard_range(mesh, "model", q.shape[1], hkv)
+    idx, cnt = (t.contiguous() for t in compact_block_mask(masks))
+    idx_l, cnt_l = (t.contiguous() for t in compact_block_mask(masks[:, hs]))
+    q_l, g_l, dq_l = (t[:, hs].contiguous() for t in (q, gate, dq))
+    k_l, v_l, *p_l = (t[:, ks].contiguous() for t in (k, v, *p0))
+    ck_l, cv_l, pk_l, pv_l = (t[:, ks] for t in (ck, cv, pool_k, pool_v))
+    calls = {
+        "block_sparse_attn": (
+            lambda: block_sparse_attention_cuda(
+                q, k, v, idx, cnt, block_size=bs, stats_gate=gate),
+            lambda: block_sparse_attention_cuda(
+                q_l, k_l, v_l, idx_l, cnt_l, block_size=bs, stats_gate=g_l),
+            5),
+        "decode_attn": (
+            lambda: flash_decode_sparse_cuda(dq, ck, cv, *p0, valid),
+            lambda: flash_decode_sparse_cuda(dq_l, ck_l, cv_l, *p_l, valid,
+                                             num_kv_heads=hkv), 20),
+        "decode_attn_paged": (
+            lambda: flash_decode_sparse_paged_cuda(
+                dq, pool_k, pool_v, table, *p0, valid),
+            lambda: flash_decode_sparse_paged_cuda(
+                dq_l, pk_l, pv_l, table, *p_l, valid, num_kv_heads=hkv),
+            20)}
+    # what a copy of the shard's kv heads would add to each launch (the
+    # sharded decode read contiguous copies before it read in place)
+    copies = {"decode_attn": lambda: (ck_l.contiguous(), cv_l.contiguous()),
+              "decode_attn_paged": lambda: (pk_l.contiguous(),
+                                            pv_l.contiguous())}
+    times = {}
+    for turn in range(MESH_RANKS):        # one rank times while the other
+        dist.barrier()                    # waits: the card is shared
+        if turn != rank:
+            continue
+        for name, (full, local, reps) in calls.items():
+            times[name] = {
+                "full_ms": cuda_ms(full, reps),
+                "full_device_ms": device_ms(full, reps),
+                "shard_ms": cuda_ms(local, reps),
+                "shard_device_ms": device_ms(local, reps)}
+            if name in copies:
+                times[name]["copy_ms"] = cuda_ms(copies[name], reps)
+        print(f"  22c rank {rank} (two ranks on one card, the other idle): "
+              f"{json.dumps(times)}", file=sys.__stdout__, flush=True)
+    dist.barrier()
+    return {"bitwise": same, "times": times}
+
+
+def phase22_rank(rank: int, device, out_dir: str) -> None:
+    """One rank of phase 22 (``run_ranks``); rank 0 prints, rank 1 writes
+    only its errors.  Writes ``rank{r}.json``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as dsh
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import build_model
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    # a young process: its profiler sessions keep CUPTI up (C.4 concerns
+    # aged processes), and one that tore CUPTI down hangs at its exit
+    os.environ.pop("TEARDOWN_CUPTI", None)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = mesh_lib.make_serving_mesh(MESH_RANKS)
+    rules = dsh.ShardingRules(mesh)
+    print(f"22: mesh {mesh.shape} on {device}, backend "
+          f"{dist.get_backend()}: all_gather takes the CUDA "
+          f"tensors directly (no collective staged by the port)", flush=True)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=MESH_LAYERS)
+    model = build_model(cfg, dtype=torch.bfloat16)
+    params = model.init(torch.Generator(device=model.device).manual_seed(SEED))
+    checksum = float(sum(float(p.double().sum()) for p in tu.leaves(params)))
+    if not _all_agree(checksum):
+        raise AssertionError("phase 22: the ranks' weights differ")
+    print(f"22: {cfg.name} at full width, {MESH_LAYERS} of 32 layers, bf16, "
+          f"weights checksum {checksum!r} equal on both ranks", flush=True)
+    res = {"rank": rank, "device": str(device)}
+    t = time.time()
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in PROMPT_LENS]
+    print("22a: phase 4's requests, single device then sharded", flush=True)
+    plain = mesh_serve("single device",
+                       lambda: serve_full(model, params, prompts, {}), None)
+    sharded = mesh_serve("sharded", lambda: serve_full(model, params, prompts,
+                                                       {}), rules)
+    _check_streams("22a", plain, sharded, lambda run: run["logits"])
+    want = {"strip": MESH_LAYERS, "block_sparse_attn": MESH_LAYERS,
+            "decode_attn": MESH_LAYERS * (NEW_TOKENS - 1)}
+    _expect_counts("22a sharded serve", sharded["counts"], want)
+    hkv, h = cfg.num_kv_heads, cfg.num_heads
+    n = MESH_RANKS
+    want_calls = {("prefill", h // n, h): MESH_LAYERS,
+                  ("decode", hkv // n, hkv): MESH_LAYERS * (NEW_TOKENS - 1)}
+    if sharded["shard_calls"] != want_calls or plain["shard_calls"]:
+        raise AssertionError(f"22a shard calls {sharded['shard_calls']}, "
+                             f"expected {want_calls}")
+    if not (len(plain["plans"]) == len(sharded["plans"]) == 1
+            and _same(plain["plans"][0], sharded["plans"][0])
+            and _all_agree(tensors_digest(sharded["plans"][0]))):
+        raise AssertionError("22a: the sharded serve's plan is not the "
+                             "single-device plan on both ranks")
+    agree = (_all_agree(sharded["digest"].value())
+             and sharded["digest"].value() == plain["digest"].value())
+    print(f"  22a: plan equal to the single-device plan on both ranks; masks "
+          f"and decisions of {sharded['digest'].calls} layer calls equal "
+          f"across ranks and to the single-device serve: {agree}",
+          flush=True)
+    if not agree:
+        raise AssertionError("22a: masks or decisions differ")
+    res["22a"] = {"launches": sharded["counts"],
+                  "shard_calls": {"/".join(map(str, k)): v for k, v in
+                                  sharded["shard_calls"].items()},
+                  "all_gather": sharded["gather"]}
+    tokens = torch.as_tensor(np.stack([np.pad(p, (0, SEQ - len(p)))
+                                       for p in prompts]), device=model.device)
+    plan = sharded["plans"][0]
+    del plain, sharded
+    torch.cuda.empty_cache()
+    print(f"22a: {time.time() - t:.1f} s", flush=True)
+
+    print("22b: phase 6's requests, paged scheduler, 148 pages", flush=True)
+    rng = np.random.default_rng(SEED + 2)
+    paged_prompts = [rng.integers(0, cfg.vocab_size, ln)
+                     for ln, _ in PAGED_REQUESTS]
+    news = [m for _, m in PAGED_REQUESTS]
+    runs = [mesh_serve(label, lambda: scheduler_serve(
+        model, params, paged_prompts, news, paged=True,
+        num_pages=NUM_PAGES), r) for label, r in (("single device", None),
+                                                 ("sharded", rules))]
+    for run, what in zip(runs, ("single-device", "sharded")):
+        check_paged_run(run, f"22b {what} paged serve")
+    _check_streams("22b", *runs, lambda run: run["probe"].logits)
+    first = runs[0]["probe"].first
+    if not all(torch.equal(first[key], runs[1]["probe"].first[key])
+               for key in first):
+        raise AssertionError("22b: first-step logits differ")
+    calls = runs[1]["shard_calls"]
+    steps = runs[1]["eng"].slot_steps // runs[1]["eng"].ecfg.max_batch
+    if calls.get(("decode_paged", hkv // n, hkv), 0) < MESH_LAYERS * steps \
+            or any(k[0] == "decode" for k in calls) \
+            or runs[1]["counts"]["decode_attn_paged"] \
+            != calls[("decode_paged", hkv // n, hkv)]:
+        raise AssertionError(f"22b shard calls {calls}, launches "
+                             f"{runs[1]['counts']}")
+    res["22b"] = {"launches": runs[1]["counts"], "decode_steps": steps,
+                  "shard_calls": {"/".join(map(str, k)): v for k, v in
+                                  calls.items()},
+                  "all_gather": runs[1]["gather"],
+                  "pool": runs[1]["eng"].page_pool_stats}
+    del runs
+    torch.cuda.empty_cache()
+    print(f"22b: {time.time() - t:.1f} s", flush=True)
+
+    print("22c: the sharded kernels against their single-device launches",
+          flush=True)
+    res["22c"] = mesh_kernels(model, params, tokens, plan, mesh, rank)
+    print(f"22c: {time.time() - t:.1f} s", flush=True)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def launcher_runs() -> dict:
+    """Phase 22d: ``python -m repro_torch.launch.serve --arch
+    llama3-8b-262k --smoke --decode-sparse`` with and without
+    ``--model-parallel 2``, at once, under one ``PYTHONHASHSEED``; the
+    request lines must be equal but for their times (tokens, finish
+    reasons, plan shares, pattern stats).  The smoke config's random
+    weights mostly repeat one token: 22a and 22b hold the logits."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               PYTHONHASHSEED="0")
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
+           "--smoke", "--decode-sparse"]
+    t = time.time()
+    procs = [subprocess.Popen(cmd + extra, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env,
+                              cwd=ROOT)
+             for extra in ([], ["--model-parallel", str(MESH_RANKS)])]
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=MESH_TIMEOUT_S)
+        finally:
+            p.kill()
+        if p.returncode:
+            raise AssertionError(f"22d: the launcher failed:\n{err[-3000:]}")
+        outs.append([_untimed(line) for line in out.splitlines()
+                     if line.startswith("req ")])
+        print("  " + "\n  ".join(out.strip().splitlines()[-6:]), flush=True)
+    print(f"  22d: {len(outs[0])} request lines equal but for their times "
+          f"without and with --model-parallel {MESH_RANKS}: "
+          f"{bool(outs[0]) and outs[0] == outs[1]} ({time.time() - t:.1f} "
+          f"s)", flush=True)
+    if not outs[0] or outs[0] != outs[1]:
+        raise AssertionError(f"22d: the launcher's sharded requests differ:"
+                             f"\n{outs[0]}\n{outs[1]}")
+    return {"tokens": [re.search(r"out=(\[[^\]]*\])", line).group(1)
+                       for line in outs[0]]}
+
+
+def _untimed(line: str) -> str:
+    """A launcher request line without its times and rates."""
+    line = re.sub(r"\b(queue|ttft|prefill|decode)=[0-9.]+s", r"\1=", line)
+    return re.sub(r"\([0-9.]+ tok/s, ", "(", line)
+
+
+def phase22() -> dict:
+    """Phase 22: the heads-sharded serve (A.12) on two ranks sharing the
+    card over gloo, then the serving launcher with ``--model-parallel``."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    print("== phase 22: heads-sharded serve, two ranks on one card "
+          "(gloo)", flush=True)
+    t = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MESH_OUT, ignore_errors=True)
+    os.makedirs(MESH_OUT)
+    with tempfile.TemporaryDirectory() as tmp:
+        run_ranks(phase22_rank, MESH_RANKS, (MESH_OUT,),
+                  init_file=os.path.join(tmp, "store"), device="cuda",
+                  timeout_s=MESH_TIMEOUT_S)
+    res = {}
+    for r in range(MESH_RANKS):
+        with open(os.path.join(MESH_OUT, f"rank{r}.json")) as f:
+            res[f"rank{r}"] = json.load(f)
+    print(f"phase 22a-c: {time.time() - t:.1f} s", flush=True)
+    res["22d"] = launcher_runs()
+    print(f"phase 22: {time.time() - t:.1f} s ({nvidia_smi()}); "
+          + json.dumps(res), flush=True)
+    return res
+
+
 def build_other(tree: str) -> dict:
     """Another checkout's ``block_sparse_attn.cu`` and ``strip.cu``, built
     with this checkout's nvcc flags into ``build/bitwise/``."""
@@ -5390,10 +5847,10 @@ def main() -> int:
     if len(only) == 2 and only[0] == "--bitwise":
         return bitwise_instances(only[1])  # no result line
     alone = {"14": phase14, "15": phase15, "16": phase16, "18": phase18,
-             "19": phase19, "20": phase20, "21": phase21}
+             "19": phase19, "20": phase20, "21": phase21, "22": phase22}
     if len(only) == 2 and only[0] == "--phase" and only[1] in alone:
-        # a check of phase 14, 15, 16, 18, 19, 20 or 21 alone; it prints no
-        # result line
+        # a check of phase 14, 15, 16, 18, 19, 20, 21 or 22 alone; it
+        # prints no result line
         alone[only[1]]()
         return 0
 
@@ -5428,7 +5885,7 @@ def main() -> int:
         phase17(model, params, prompts, tokens)     # alone; no result line
         return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 21, "
+        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 22, "
                          "--bitwise TREE, --profiler-probe, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
@@ -5541,6 +5998,7 @@ def main() -> int:
                 res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                r["max_abs_err"])
     phase21()
+    phase22()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

@@ -66,3 +66,11 @@ def update(state: PivotalState,
         masks=torch.where(touched[..., None, None], upd_masks, state.masks),
         reps=torch.where(touched[..., None], upd_reps, state.reps),
         valid=state.valid | touched)
+
+
+def merge_across_devices(state: PivotalState) -> PivotalState:
+    """The identity, as in the reference: every rank of a heads-sharded
+    serve computes the whole dictionary itself (the strips and decisions
+    run replicated, and the gathered Ã is the same on every rank), so there
+    is nothing to merge."""
+    return state

@@ -59,6 +59,12 @@
 // one run on the gathered pages.  A page id outside [0, P) is never read:
 // its block is skipped.
 //
+// Head slices (PLAN and PAGED): the K/V addresses step over Hc heads per
+// batch row (per page), Hc >= Hkv, so a launch reads kv heads
+// [h0, h0 + Hkv) of a cache or pool of Hc heads in place, its pointers at
+// head h0 (a head shard of a heads-sharded serve).  Only the K/V address
+// sees Hc; the plan, the split and the output are the launch's own.
+//
 // Token-mask instances (MASK_DENSE, MASK_TABLE): the reference's single-
 // sample kernels take a per-(query head, token) mask (H, S) instead of keep
 // bits x slot validity; key t of block j is visible to head g of kv head hk
@@ -140,7 +146,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
               const uint8_t* __restrict__ valid,
               const uint8_t* __restrict__ mask, float* __restrict__ part_m,
               float* __restrict__ part_l, float* __restrict__ part_acc,
-              int H, int Hkv, int S, int D, int NB, int W, int P,
+              int H, int Hkv, int Hc, int S, int D, int NB, int W, int P,
               float scale) {
   constexpr bool BY_PLAN = MODE == PLAN || MODE == PAGED;
   constexpr int VEC = Vec<T>::N;
@@ -157,6 +163,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
   const int bs = S / NB;
   const int tpb = bs / KT;                    // tiles per block
   const size_t bk = (size_t)b * Hkv + hk;
+  const size_t ckv = (size_t)b * Hc + hk;      // the K/V row's head
   const size_t head0 = (size_t)b * H + (size_t)hk * G;   // first query head
   const uint8_t* vrow = BY_PLAN ? valid + (size_t)b * S : nullptr;
   // the token mask's rows of this kv head's G query heads
@@ -177,9 +184,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ ck,
     if constexpr (MODE == PAGED) {
       const int page = page_table[(size_t)b * NB + j];
       if (page < 0 || page >= P) return false;
-      off = (((size_t)page * Hkv + hk) * (size_t)bs + t0) * D;
+      off = (((size_t)page * Hc + hk) * (size_t)bs + t0) * D;
     } else {
-      off = (bk * (size_t)S + (size_t)j * bs + t0) * D;
+      off = (ckv * (size_t)S + (size_t)j * bs + t0) * D;
     }
     return true;
   };
@@ -379,8 +386,8 @@ template <typename T, int MODE, int GP, int CH>
 int launch(const void* q, const void* ck, const void* cv,
            const int* page_table, const int* indices, const int* counts,
            const uint8_t* keep, const uint8_t* valid, const uint8_t* mask,
-           float* part, void* out, int B, int H, int Hkv, int S, int D,
-           int NB, int W, int P, int splits, void* stream) {
+           float* part, void* out, int B, int H, int Hkv, int Hc, int S,
+           int D, int NB, int W, int P, int splits, void* stream) {
   const int G = H / Hkv;
   const size_t tiles = (size_t)STAGES * 2 * KT * D * sizeof(T);
   const size_t red = (size_t)key_groups(D) * G * D * sizeof(float);
@@ -399,8 +406,8 @@ int launch(const void* q, const void* ck, const void* cv,
   cudaStream_t st = (cudaStream_t)stream;
   decode_kernel<T, MODE, GP, CH><<<dim3(splits, Hkv, B), NT, smem, st>>>(
       (const T*)q, (const T*)ck, (const T*)cv, page_table, indices, counts,
-      keep, valid, mask, part_m, part_l, part_acc, H, Hkv, S, D, NB, W, P,
-      1.0f / sqrtf((float)D));
+      keep, valid, mask, part_m, part_l, part_acc, H, Hkv, Hc, S, D, NB, W,
+      P, 1.0f / sqrtf((float)D));
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   decode_combine_kernel<T, MODE><<<B * H, NT, 0, st>>>(
@@ -413,12 +420,12 @@ template <typename T, int MODE, int CH>
 int by_group(int G, const void* q, const void* ck, const void* cv,
              const int* page_table, const int* indices, const int* counts,
              const uint8_t* keep, const uint8_t* valid, const uint8_t* mask,
-             float* part, void* out, int B, int H, int Hkv, int S, int D,
-             int NB, int W, int P, int splits, void* stream) {
+             float* part, void* out, int B, int H, int Hkv, int Hc, int S,
+             int D, int NB, int W, int P, int splits, void* stream) {
 #define REPRO_LAUNCH(GP)                                                    \
   return launch<T, MODE, GP, CH>(q, ck, cv, page_table, indices, counts,    \
-                                 keep, valid, mask, part, out, B, H, Hkv, S, \
-                                 D, NB, W, P, splits, stream)
+                                 keep, valid, mask, part, out, B, H, Hkv,   \
+                                 Hc, S, D, NB, W, P, splits, stream)
   if (G == 1) REPRO_LAUNCH(1);
   if (G == 2) REPRO_LAUNCH(2);
   if (G <= 4) REPRO_LAUNCH(4);
@@ -431,18 +438,18 @@ template <int MODE>
 int dispatch(const void* q, const void* ck, const void* cv,
              const int* page_table, const int* indices, const int* counts,
              const uint8_t* keep, const uint8_t* valid, const uint8_t* mask,
-             float* part, void* out, int dtype, int B, int H, int Hkv, int S,
-             int D, int NB, int W, int P, int splits, void* stream) {
+             float* part, void* out, int dtype, int B, int H, int Hkv, int Hc,
+             int S, int D, int NB, int W, int P, int splits, void* stream) {
   if (H % Hkv || H / Hkv > GMAX || D > DMAX || D % 8 || S % NB ||
-      (S / NB) % KT || splits < 1)
+      (S / NB) % KT || splits < 1 || Hc < Hkv)
     return (int)cudaErrorInvalidValue;
   const int G = H / Hkv;
   // 16-byte vectors of a key row per logit lane
   const int ch = (D * (dtype == REPRO_BF16 ? 2 : 4) / 16 + LPK - 1) / LPK;
 #define REPRO_GROUP(T, CH)                                                  \
   return by_group<T, MODE, CH>(G, q, ck, cv, page_table, indices, counts,   \
-                               keep, valid, mask, part, out, B, H, Hkv, S,  \
-                               D, NB, W, P, splits, stream)
+                               keep, valid, mask, part, out, B, H, Hkv, Hc, \
+                               S, D, NB, W, P, splits, stream)
   if (dtype == REPRO_BF16) {
     if (ch == 1) REPRO_GROUP(__nv_bfloat16, 1);
     REPRO_GROUP(__nv_bfloat16, 2);
@@ -456,21 +463,23 @@ int dispatch(const void* q, const void* ck, const void* cv,
 }  // namespace
 
 // part: float32 scratch of B * H * splits * (D + 2) elements (the partials'
-// m, l and acc); the wrapper allocates it.
+// m, l and acc); the wrapper allocates it.  ck / cv point at kv head h0 of a
+// (B, Hc, S, D) cache, Hc >= Hkv (Hc = Hkv: the whole cache).
 extern "C" int repro_decode_attn(const void* q, const void* ck,
                                  const void* cv, const int* indices,
                                  const int* counts, const uint8_t* keep,
                                  const uint8_t* valid, float* part, void* out,
-                                 int dtype, int B, int H, int Hkv, int S,
-                                 int D, int NB, int W, int splits,
+                                 int dtype, int B, int H, int Hkv, int Hc,
+                                 int S, int D, int NB, int W, int splits,
                                  void* stream) {
   return dispatch<PLAN>(q, ck, cv, nullptr, indices, counts, keep, valid,
-                        nullptr, part, out, dtype, B, H, Hkv, S, D, NB, W, 0,
-                        splits, stream);
+                        nullptr, part, out, dtype, B, H, Hkv, Hc, S, D, NB, W,
+                        0, splits, stream);
 }
 
-// pool_k / pool_v: one layer's (P, Hkv, ps, D) pool; page_table (B, NB);
-// the plan and valid (B, NB * ps) in logical block coordinates.
+// pool_k / pool_v: one layer's (P, Hc, ps, D) pool from kv head h0 on
+// (Hc = Hkv: the whole pool); page_table (B, NB); the plan and valid
+// (B, NB * ps) in logical block coordinates.
 extern "C" int repro_decode_attn_paged(const void* q, const void* pool_k,
                                        const void* pool_v,
                                        const int* page_table,
@@ -478,11 +487,12 @@ extern "C" int repro_decode_attn_paged(const void* q, const void* pool_k,
                                        const uint8_t* keep,
                                        const uint8_t* valid, float* part,
                                        void* out, int dtype, int B, int H,
-                                       int Hkv, int ps, int D, int NB, int W,
-                                       int P, int splits, void* stream) {
+                                       int Hkv, int Hc, int ps, int D, int NB,
+                                       int W, int P, int splits,
+                                       void* stream) {
   return dispatch<PAGED>(q, pool_k, pool_v, page_table, indices, counts,
                          keep, valid, nullptr, part, out, dtype, B, H, Hkv,
-                         NB * ps, D, NB, W, P, splits, stream);
+                         Hc, NB * ps, D, NB, W, P, splits, stream);
 }
 
 // q (B, H, D); cache_k / cache_v (B, Hkv, S, D); mask (B, H, S) uint8 with
@@ -498,9 +508,9 @@ extern "C" int repro_decode_attn_mask(const void* q, const void* ck,
                                       void* stream) {
   if (table)
     return dispatch<MASK_TABLE>(q, ck, cv, nullptr, indices, counts, nullptr,
-                                nullptr, mask, part, out, dtype, B, H, Hkv, S,
-                                D, NB, NB, 0, splits, stream);
+                                nullptr, mask, part, out, dtype, B, H, Hkv,
+                                Hkv, S, D, NB, NB, 0, splits, stream);
   return dispatch<MASK_DENSE>(q, ck, cv, nullptr, nullptr, nullptr, nullptr,
-                              nullptr, mask, part, out, dtype, B, H, Hkv, S,
-                              D, NB, NB, 0, splits, stream);
+                              nullptr, mask, part, out, dtype, B, H, Hkv, Hkv,
+                              S, D, NB, NB, 0, splits, stream);
 }

@@ -131,7 +131,8 @@ def sparse_attention_fn(*, block_size: int, causal: bool = True,
 
 def batched_sparse_attention_fn(*, block_size: int,
                                 width: Optional[int] = None,
-                                q_block_offset: Optional[int] = None):
+                                q_block_offset: Optional[int] = None,
+                                mesh=None, shard_axis: str = "model"):
     """Bind the batched causal sparse execution path as a batched
     AttentionFn: ``(q (B,H,N,D), k (B,Hkv,Nkv,D), v (B,Hkv,Nkv,Dv), masks
     (B,H,NBq,NBkv), stats_gate=None) -> (out (B,H,N,Dv), Ã
@@ -144,13 +145,28 @@ def batched_sparse_attention_fn(*, block_size: int,
     ``q_block_offset`` binds a rectangular chunk launch (chunked prefill):
     q holds only the chunk's rows, k/v the full prefix, ``NBq < NBkv``,
     and the causal bounds anchor at the chunk's first block.  Without it,
-    q ends where k/v end (``NBkv − NBq``; the one-shot launch)."""
+    q ends where k/v end (``NBkv − NBq``; the one-shot launch).
+
+    ``mesh`` runs a one-shot launch per head shard over ``shard_axis``
+    (:func:`repro_torch.distributed.sharding.
+    sharded_batched_block_sparse_attention`, each rank's tables built from
+    its own masks) where the head counts shard over it, the single-device
+    launch otherwise.  Chunk launches never take the mesh (chunked
+    admission is single-device)."""
 
     def fn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            masks: torch.Tensor, stats_gate: Optional[torch.Tensor] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
         _check_grid(masks.shape[-2], masks.shape[-1], q.shape[2], k.shape[2],
                     block_size)
+        if mesh is not None and q_block_offset is None:
+            from repro_torch.distributed import sharding
+            if sharding.head_shard_count(mesh, shard_axis, q.shape[1],
+                                         k.shape[1]) > 1:
+                return sharding.sharded_batched_block_sparse_attention(
+                    q, k, v, masks, mesh=mesh, axis=shard_axis,
+                    block_size=block_size, width=width,
+                    stats_gate=stats_gate)
         return batched_block_sparse_attention(
             q, k, v, masks, block_size=block_size, width=width,
             stats_gate=stats_gate, q_block_offset=q_block_offset)

@@ -40,7 +40,7 @@ coordinates; only the K/V address goes through ``page_table[b, j]``.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -68,7 +68,10 @@ def decode_splits(b: int, hkv: int, nb: int, sm_count: int) -> int:
     contiguous one does and stays bitwise equal to it on the gathered
     pages.  The wrappers pass the plan's block count NB, not its table
     width: a refresh that narrows the table (``set_plan_width``) then
-    leaves every row's split, and so its rounding, as it was."""
+    leaves every row's split, and so its rounding, as it was.  ``hkv`` is
+    the whole model's kv-head count, also where a launch holds one head
+    shard of it (:func:`_decode_scratch`): the shard's rows then split, and
+    round, as the single-device launch's."""
     want = -(-SPLIT_CTAS_PER_SM * sm_count // max(b * hkv, 1))
     return max(1, min(nb, want))
 
@@ -85,10 +88,14 @@ def sm_count(device) -> int:
                      else index)
 
 
-def _decode_scratch(q, b: int, h: int, hkv: int, nb: int):
+def _decode_scratch(q, b: int, h: int, hkv: int, nb: int,
+                    num_kv_heads: Optional[int] = None):
     """The split count and the float32 scratch for the splits' partials
-    (m and l of ``(B, H, splits)``, acc of ``(B, H, splits, D)``)."""
-    splits = decode_splits(b, hkv, nb, sm_count(q.device))
+    (m and l of ``(B, H, splits)``, acc of ``(B, H, splits, D)``).  The
+    split follows ``num_kv_heads``, the model's kv-head count (default: the
+    launch's ``hkv``): a launch over one head shard then splits each row
+    as the whole model's launch does, and is bitwise its head slice."""
+    splits = decode_splits(b, num_kv_heads or hkv, nb, sm_count(q.device))
     part = torch.empty(b * h * splits * (q.shape[-1] + 2),
                        dtype=torch.float32, device=q.device)
     return splits, part
@@ -133,14 +140,17 @@ def resolve_decode_impl(impl: str, device: torch.device) -> str:
 
 
 def decode_plan_einsum(q, cache_k, cache_v, keep_heads, valid):
-    """Full-cache grouped einsum under the plan's keep bits; (B, H, Dv)."""
+    """Full-cache grouped einsum under the plan's keep bits; (B, H, Dv).
+    K/V may be a head slice of a larger cache (a head shard's view): the
+    einsums take them contiguous, so they round as on a whole cache."""
     b, h, d = q.shape
     _, hkv, s, dv = cache_v.shape
     g = h // hkv
     nb = keep_heads.shape[2]
     scale = 1.0 / (d ** 0.5)
     qg = q.reshape(b, hkv, g, d).float()
-    logits = torch.einsum("bkgd,bksd->bkgs", qg, cache_k.float()) * scale
+    kf, vf = (t.float().contiguous() for t in (cache_k, cache_v))
+    logits = torch.einsum("bkgd,bksd->bkgs", qg, kf) * scale
     km = keep_heads.transpose(-1, -2).repeat_interleave(s // nb, dim=-1)
     ok = km & valid[:, None, None, :]               # (B, Hkv, G, S)
     logits = logits.masked_fill(~ok, NEG_INF)
@@ -149,7 +159,7 @@ def decode_plan_einsum(q, cache_k, cache_v, keep_heads, valid):
     p = torch.where(ok, torch.exp(logits - m), 0.0)
     denom = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     pv = (p / denom).to(cache_v.dtype).float()
-    out = torch.einsum("bkgs,bksd->bkgd", pv, cache_v.float())
+    out = torch.einsum("bkgs,bksd->bkgd", pv, vf)
     return out.to(q.dtype).reshape(b, h, dv)
 
 
@@ -211,9 +221,9 @@ def decode_plan_einsum_sliced(q, cache_k, cache_v, plan: DecodePlan, valid):
 
 
 def _check_launch(what: str, q, tensors) -> None:
-    """Device, dtype and contiguity rules every decode launch shares
-    (``tensors`` = the float operands after ``q``, then indices, counts,
-    keep bits, validity and any further int32 tables)."""
+    """Device, dtype and contiguity rules every plan decode launch shares
+    (``tensors`` = K and V, then indices, counts, keep bits, validity and
+    any further int32 tables; K/V's layout is :func:`_kv_head_stride`'s)."""
     if not all(t.is_cuda and t.device == q.device for t in (q, *tensors)):
         raise ValueError(f"{what} takes CUDA tensors on one device")
     kv, (indices, counts, keep, valid, *tables) = tensors[:2], tensors[2:]
@@ -223,8 +233,26 @@ def _check_launch(what: str, q, tensors) -> None:
             or keep.dtype != torch.bool or valid.dtype != torch.bool:
         raise ValueError(f"{what} takes int32 tables and bool keep / valid "
                          "masks")
-    if not all(t.is_contiguous() for t in (q, *tensors)):
+    if not all(t.is_contiguous() for t in (q, *tensors[2:])):
         raise ValueError(f"{what} takes contiguous tensors")
+
+
+def _kv_head_stride(what: str, ck, cv) -> int:
+    """Hc, the heads that K/V's leading dimension steps over: their own
+    Hkv when contiguous, more when they are a head slice ``x[:, h0:h0 +
+    Hkv]`` of a contiguous ``(…, Hc, rows, D)`` cache or pool, which the
+    kernel then reads in place (one head shard of a heads-sharded
+    serve)."""
+    hkv = ck.shape[1]
+    if ck.is_contiguous() and cv.is_contiguous():
+        return hkv
+    inner = ck.shape[2] * ck.shape[3]
+    if ck.stride() != cv.stride() \
+            or ck.stride()[1:] != (inner, ck.shape[3], 1) \
+            or ck.stride(0) % inner or ck.stride(0) // inner < hkv:
+        raise ValueError(f"{what} takes contiguous K/V or a head slice of "
+                         "them")
+    return ck.stride(0) // inner
 
 
 def _check_plan(what, b, hkv, g, s, indices, counts, keep_heads, valid):
@@ -239,9 +267,13 @@ def _check_plan(what, b, hkv, g, s, indices, counts, keep_heads, valid):
 
 
 def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
-                             keep_heads, valid) -> torch.Tensor:
+                             keep_heads, valid,
+                             num_kv_heads: Optional[int] = None
+                             ) -> torch.Tensor:
     """The kernel (``csrc/decode_attn.cu``) on CUDA tensors; raises on what
-    it does not take.  Returns (B, H, D)."""
+    it does not take.  ``num_kv_heads`` is the model's kv-head count when
+    the cache holds one head shard of it (the split rule's, see
+    :func:`_decode_scratch`).  Returns (B, H, D)."""
     b, h, d = q.shape
     if cache_k.shape != cache_v.shape or cache_k.dim() != 4 \
             or cache_k.shape[0] != b or cache_k.shape[3] != d \
@@ -258,15 +290,16 @@ def flash_decode_sparse_cuda(q, cache_k, cache_v, indices, counts,
                          f"multiple of 8 (S={s}, NB={nb}, G={g}, D={d})")
     _check_launch("sparse decode kernel", q,
                   (cache_k, cache_v, indices, counts, keep_heads, valid))
+    hc = _kv_head_stride("sparse decode kernel", cache_k, cache_v)
     _check_aligned("sparse decode kernel", (cache_k, cache_v))
     out = torch.empty_like(q)
-    splits, part = _decode_scratch(q, b, h, hkv, nb)
-    fn = _build.function("decode_attn", "repro_decode_attn", 9, 9)
+    splits, part = _decode_scratch(q, b, h, hkv, nb, num_kv_heads)
+    fn = _build.function("decode_attn", "repro_decode_attn", 9, 10)
     code = fn(_build.ptr(q), _build.ptr(cache_k), _build.ptr(cache_v),
               _build.ptr(indices), _build.ptr(counts),
               _build.ptr(keep_heads), _build.ptr(valid), _build.ptr(part),
-              _build.ptr(out), _build.dtype_code(q), b, h, hkv, s, d, nb, w,
-              splits, _build.stream_of(q))
+              _build.ptr(out), _build.dtype_code(q), b, h, hkv, hc, s, d, nb,
+              w, splits, _build.stream_of(q))
     _build.check(code, "sparse decode kernel")
     flash_decode_sparse_cuda.launches += 1
     return out
@@ -276,27 +309,33 @@ flash_decode_sparse_cuda.launches = 0
 
 
 def flash_decode_sparse_batched(q, cache_k, cache_v, indices, counts,
-                                keep_heads, valid) -> torch.Tensor:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+                                keep_heads, valid,
+                                num_kv_heads: Optional[int] = None
+                                ) -> torch.Tensor:
+    """The kernel for CUDA tensors, its plain version for CPU tensors (which
+    does not split, and so takes no ``num_kv_heads``)."""
     if q.is_cuda:
         return flash_decode_sparse_cuda(q, cache_k, cache_v, indices,
-                                        counts, keep_heads, valid)
+                                        counts, keep_heads, valid,
+                                        num_kv_heads)
     return decode_plan_einsum_sliced(
         q, cache_k, cache_v, DecodePlan(indices, counts, keep_heads), valid)
 
 
 def flash_decode_plan(q, cache_k, cache_v, plan: DecodePlan, valid, *,
-                      impl: str = "auto") -> torch.Tensor:
+                      impl: str = "auto",
+                      num_kv_heads: Optional[int] = None) -> torch.Tensor:
     """Sparse decode over one layer's plan slice; (B, H, Dv).
 
-    ``kernel`` runs :func:`flash_decode_sparse_batched`; ``einsum`` runs the
+    ``kernel`` runs :func:`flash_decode_sparse_batched` (``num_kv_heads``:
+    the model's kv-head count under a head shard); ``einsum`` runs the
     plain path the reference's einsum fallback runs (full-cache for a
     full-width plan, the sliced gather for ``W < NB``)."""
     impl = resolve_decode_impl(impl, q.device)
     if impl == "kernel":
         return flash_decode_sparse_batched(
             q, cache_k, cache_v, plan.indices, plan.counts, plan.keep_heads,
-            valid)
+            valid, num_kv_heads)
     if plan.indices.shape[-1] < plan.keep_heads.shape[-2]:
         return decode_plan_einsum_sliced(q, cache_k, cache_v, plan, valid)
     return decode_plan_einsum(q, cache_k, cache_v, plan.keep_heads, valid)
@@ -347,10 +386,13 @@ def decode_plan_einsum_sliced_paged(q, pool_k, pool_v, page_table,
 
 
 def flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table, indices,
-                                   counts, keep_heads, valid) -> torch.Tensor:
+                                   counts, keep_heads, valid,
+                                   num_kv_heads: Optional[int] = None
+                                   ) -> torch.Tensor:
     """The paged instance of the kernel (``csrc/decode_attn.cu``) on CUDA
     tensors; raises on what it does not take.  Page ids outside ``[0, P)``
-    are never read (their blocks are skipped).  Returns (B, H, D)."""
+    are never read (their blocks are skipped).  ``num_kv_heads`` as in
+    :func:`flash_decode_sparse_cuda`.  Returns (B, H, D)."""
     b, h, d = q.shape
     if pool_k.shape != pool_v.shape or pool_k.dim() != 4 \
             or pool_k.shape[3] != d or h % pool_k.shape[1] \
@@ -373,15 +415,16 @@ def flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table, indices,
     _check_launch("paged sparse decode kernel", q,
                   (pool_k, pool_v, indices, counts, keep_heads, valid,
                    page_table))
+    hc = _kv_head_stride("paged sparse decode kernel", pool_k, pool_v)
     _check_aligned("paged sparse decode kernel", (pool_k, pool_v))
     out = torch.empty_like(q)
-    splits, part = _decode_scratch(q, b, h, hkv, nb)
-    fn = _build.function("decode_attn", "repro_decode_attn_paged", 10, 10)
+    splits, part = _decode_scratch(q, b, h, hkv, nb, num_kv_heads)
+    fn = _build.function("decode_attn", "repro_decode_attn_paged", 10, 11)
     code = fn(_build.ptr(q), _build.ptr(pool_k), _build.ptr(pool_v),
               _build.ptr(page_table), _build.ptr(indices),
               _build.ptr(counts), _build.ptr(keep_heads), _build.ptr(valid),
               _build.ptr(part), _build.ptr(out), _build.dtype_code(q), b, h,
-              hkv, ps, d, nb, w, p, splits, _build.stream_of(q))
+              hkv, hc, ps, d, nb, w, p, splits, _build.stream_of(q))
     _build.check(code, "paged sparse decode kernel")
     flash_decode_sparse_paged_cuda.launches += 1
     return out
@@ -391,21 +434,24 @@ flash_decode_sparse_paged_cuda.launches = 0
 
 
 def flash_decode_sparse_batched_paged(q, pool_k, pool_v, page_table,
-                                      indices, counts, keep_heads,
-                                      valid) -> torch.Tensor:
+                                      indices, counts, keep_heads, valid,
+                                      num_kv_heads: Optional[int] = None
+                                      ) -> torch.Tensor:
     """The paged kernel for CUDA tensors, its plain version for CPU
     tensors."""
     if q.is_cuda:
         return flash_decode_sparse_paged_cuda(q, pool_k, pool_v, page_table,
                                               indices, counts, keep_heads,
-                                              valid)
+                                              valid, num_kv_heads)
     return decode_plan_einsum_sliced_paged(
         q, pool_k, pool_v, page_table,
         DecodePlan(indices, counts, keep_heads), valid)
 
 
 def flash_decode_plan_paged(q, pool_k, pool_v, page_table, plan: DecodePlan,
-                            valid, *, impl: str = "auto") -> torch.Tensor:
+                            valid, *, impl: str = "auto",
+                            num_kv_heads: Optional[int] = None
+                            ) -> torch.Tensor:
     """Sparse decode over one layer's pool slice; (B, H, Dv).  Same
     dispatch as :func:`flash_decode_plan`: ``kernel`` runs
     :func:`flash_decode_sparse_batched_paged`; ``einsum`` gathers the
@@ -414,7 +460,7 @@ def flash_decode_plan_paged(q, pool_k, pool_v, page_table, plan: DecodePlan,
     if impl == "kernel":
         return flash_decode_sparse_batched_paged(
             q, pool_k, pool_v, page_table, plan.indices, plan.counts,
-            plan.keep_heads, valid)
+            plan.keep_heads, valid, num_kv_heads)
     if plan.indices.shape[-1] < plan.keep_heads.shape[-2]:
         return decode_plan_einsum_sliced_paged(q, pool_k, pool_v,
                                                page_table, plan, valid)

@@ -48,6 +48,10 @@ from repro_torch.core.baselines import baseline_block_masks
 from repro_torch.core.patterns import (block_mask_density, causal_block_mask,
                                        segment_block_mask,
                                        sliding_window_block_mask)
+from repro_torch.distributed.sharding import (active_model_mesh,
+                                              shardable_model_mesh,
+                                              sharded_flash_decode,
+                                              sharded_flash_decode_paged)
 from repro_torch.kernels import (
     batched_sparse_attention_fn,
     cap_block_mask,
@@ -65,15 +69,19 @@ PREFILL_ATTN_IMPLS = ("auto", "sparse", "chunked", "ref", "kernel")
 
 def resolve_attention_fn(attn_impl: str, block_size: int,
                          width: Optional[int] = None) -> sa.AttentionFn:
-    """``auto`` and ``sparse`` → the batched sparse attention function;
-    ``kernel``, ``ref`` and ``chunked`` → a per-sample one, with the W cap
-    applied as the boolean :func:`cap_block_mask` (numerically the
-    truncation the sparse path's tables apply)."""
+    """``auto`` and ``sparse`` → the batched sparse attention function,
+    per head shard under an active model mesh (the mesh-active routing
+    rule, :func:`repro_torch.distributed.sharding.active_model_mesh`,
+    shared with sparse decode); ``kernel``, ``ref`` and ``chunked`` → a
+    per-sample one, with the W cap applied as the boolean
+    :func:`cap_block_mask` (numerically the truncation the sparse path's
+    tables apply)."""
     if attn_impl not in PREFILL_ATTN_IMPLS:
         raise ValueError(f"unknown attn_impl {attn_impl!r}; expected one of "
                          f"{PREFILL_ATTN_IMPLS}")
     if attn_impl in ("auto", "sparse"):
-        return batched_sparse_attention_fn(block_size=block_size, width=width)
+        return batched_sparse_attention_fn(block_size=block_size, width=width,
+                                           mesh=active_model_mesh())
     base = (chunked_attention_fn(block_size=block_size)
             if attn_impl == "chunked"
             else make_attention_fn(block_size=block_size, impl=attn_impl))
@@ -241,7 +249,8 @@ def attention_prefill_rows(
     ``q_block_offset = chunk_start`` with the staged head permutation (a
     baseline has none) and stats gate; its per-row arithmetic depends on
     the row's tables alone, so chunks assemble bitwise into the whole
-    launch.  Returns ``(out (B, H, cn, Dv), Ã (B, H, cnb, NB) | None)``."""
+    launch.  The whole launch (no chunk) is :func:`resolve_attention_fn`'s,
+    per head shard under an active model mesh.  Returns ``(out (B, H, cn, Dv), Ã (B, H, cnb, NB) | None)``."""
     q, k, v = stage.q, stage.k, stage.v
     bs = prefill_block_size(sp, q.shape[2])
     off = chunk_start * bs
@@ -259,8 +268,11 @@ def attention_prefill_rows(
     m_c = stage.masks[:, :, chunk_start:stop]
     baseline = stage.decision is None
     if impl == "sparse":
-        fn = batched_sparse_attention_fn(block_size=bs, width=attn_width,
-                                         q_block_offset=chunk_start)
+        if chunk_start == 0 and chunk_blocks is None:    # one-shot
+            fn = resolve_attention_fn(impl, bs, width=attn_width)
+        else:
+            fn = batched_sparse_attention_fn(block_size=bs, width=attn_width,
+                                             q_block_offset=chunk_start)
         if baseline:
             out, _ = fn(q_c.contiguous(), k, v, m_c, stats_gate=stage.gate)
             return out, None
@@ -440,8 +452,17 @@ def _attend_decode(params, q, k, v, cache_k, cache_v, pos, *, valid_mask,
     else:
         mask = valid_mask
     if plan is not None:
-        out = flash_decode_plan(q[:, :, 0].contiguous(), cache_k, cache_v,
-                                plan, mask.contiguous(), impl=decode_impl)
+        # the mesh-active routing rule, as the prefill's: per head shard
+        # where a model mesh is active and the head counts shard over it
+        mesh = shardable_model_mesh(q.shape[1], cache_k.shape[1])
+        if mesh is not None:
+            out = sharded_flash_decode(
+                q[:, :, 0].contiguous(), cache_k, cache_v, plan,
+                mask.contiguous(), mesh=mesh, impl=decode_impl)
+        else:
+            out = flash_decode_plan(q[:, :, 0].contiguous(), cache_k,
+                                    cache_v, plan, mask.contiguous(),
+                                    impl=decode_impl)
         return common.gqa_out(params, out[:, :, None, :])
     return _dense_decode(params, q, cache_k, cache_v, mask)
 
@@ -486,9 +507,15 @@ def _attention_decode_paged(params, q, k, v, pool_k, pool_v, pos,
     else:
         mask = valid_mask
     if plan is not None:
-        out = flash_decode_plan_paged(
-            q[:, :, 0].contiguous(), pool_k, pool_v, page_table, plan,
-            mask.contiguous(), impl=decode_impl)
+        mesh = shardable_model_mesh(q.shape[1], pool_k.shape[1])
+        if mesh is not None:
+            out = sharded_flash_decode_paged(
+                q[:, :, 0].contiguous(), pool_k, pool_v, page_table, plan,
+                mask.contiguous(), mesh=mesh, impl=decode_impl)
+        else:
+            out = flash_decode_plan_paged(
+                q[:, :, 0].contiguous(), pool_k, pool_v, page_table, plan,
+                mask.contiguous(), impl=decode_impl)
         return common.gqa_out(params, out[:, :, None, :])
     return _dense_decode(params, q, gather_pages(pool_k, page_table),
                          gather_pages(pool_v, page_table), mask)

@@ -12,9 +12,14 @@ as :func:`empty_decode_plan` (inert slots stream nothing and output zeros),
 and each admission splices its own single-row plan in with
 :func:`update_plan_slot` — padded first to the shared table width with
 :func:`pad_plan_row` when buckets mix under paging.  An admission without a
-pattern dictionary gets the all-keep :func:`dense_decode_plan` row.  The
-mesh variants (``_sharded``/``_auto``) are the single-device call here
-(ROADMAP.md A.12).
+pattern dictionary gets the all-keep :func:`dense_decode_plan` row.
+
+A heads-sharded serve uses these same functions.  The reference builds
+one plan per kv-head range and stitches them; here every rank holds the
+whole pattern dictionary (its strips and decisions run replicated), so
+each builds the global plan itself, equal to the single-device plan, and
+:func:`repro_torch.distributed.sharding.sharded_flash_decode` slices its
+kv-head range out of it.
 
 Decode-pattern refresh replaces a slot's row in flight:
 :func:`build_refresh_plan_row` re-estimates it from the slot's paged K/V

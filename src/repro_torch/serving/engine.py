@@ -70,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.api import SharePrefill
+from repro_torch.distributed.sharding import active_model_mesh
 from repro_torch.models.api import TRANSFORMER_FAMILIES, Model
 from repro_torch.models.attention import (ROW_ATTN_IMPLS,
                                          prefill_block_size,
@@ -439,15 +440,18 @@ class ServingEngine:
         admission.  Chunked admission needs a model it can serve
         (``Model.prefill_chunk``), a chunk-capable attention (the batched
         sparse path or the dense ``chunked`` one: the per-sample
-        ``kernel``/``ref`` paths have no rectangular launch) and a
-        block-aligned bucket; the chunk is rounded up to whole blocks and
-        capped at the bucket."""
+        ``kernel``/``ref`` paths have no rectangular launch), a
+        block-aligned bucket and a single-device serve (chunk launches take
+        no mesh); the chunk is rounded up to whole blocks and capped at the
+        bucket."""
         c = self.ecfg.prefill_chunk
         if c <= 0 or not self._supports_scheduler():
             return 0
         if not self.model.prefill_chunk:
             return 0
         if resolved_attn_impl(self.ecfg.attn_impl) not in ROW_ATTN_IMPLS:
+            return 0
+        if active_model_mesh() is not None:
             return 0
         bs = prefill_block_size(self.sp, seq)
         if seq % bs:
