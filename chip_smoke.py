@@ -225,11 +225,26 @@ run on error:
      the all-gathers' calls, bytes and seconds per serve; (d) the serving
      launcher with and without ``--model-parallel 2`` (smoke config)
      printing the same request lines but for their times.  The two ranks share one card: the times
-     are not those of tensor parallelism over several cards.
+     are not those of tensor parallelism over several cards;
+ 23. the launch layer (A.13) at llama3-8b-262k's published widths, bf16
+     from seed-0 random weights, on a gloo world of one rank (the card):
+     (a) ``build_step(..., "prefill_32k", mesh)`` at full depth, batch
+     cut from 32 to 1 (32768 tokens), its ``fn`` on real tensors with
+     launches exactly B.1 32 and B.2 32 and its last logits and cache
+     bitwise ``model.prefill`` called outside the bundle (the ``shard()``
+     sites move nothing); prefill_s and the peak; (b) one step of the
+     ``decode_32k`` bundle (batch cut from 128 to 8) and of the
+     ``long_500k`` one (24 of 32 layers, window 8192), each against the
+     dry-run's accounting of the same cut bundle on a fake world of one
+     rank: argument bytes and FLOPs (``FlopCounterMode``) exactly, the
+     predicted peak within 15 % of the rise of ``max_memory_allocated``,
+     the step time beside the roofline's ``memory_s``; (c) the four
+     examples (``python -m repro_torch.examples.<name>``) as subprocesses,
+     each exiting 0, ``serve_longcontext``'s request lines printed.
 
 Every phase that times a kernel also reads its device time from
 ``torch.profiler``; a port kernel that ran with no device time traced
-fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 22) builds
+fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 23) builds
 the kernels and runs that phase alone, printing no result line.
 ``python3 chip_smoke.py --bitwise TREE`` holds the equal-width
 block-sparse and strip instances bitwise to another checkout's
@@ -5815,6 +5830,251 @@ def bitwise_instances(tree: str) -> int:
 
 
 
+STEPS_PREFILL_BATCH = 1     # 23a: prefill_32k's 32 rows cut to 1
+STEPS_DECODE_BATCH = 8      # 23b: decode_32k's 128 rows cut to 8
+STEPS_LONG_LAYERS = 24      # 23b: long_500k at 24 of 32 layers
+STEPS_PEAK_TOL = 0.15       # the dry-run's peak against the card's rise
+STEPS_REPS = 3              # timed decode steps
+EXAMPLES = ("quickstart", "serve_longcontext", "train_small",
+            "pattern_visualization")
+EXAMPLES_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def cut_steps(batch: int, layers=None):
+    """``repro_torch.launch.steps`` building its bundles at ``batch`` rows
+    (and ``layers`` layers) in place of the registry's shape (and depth)."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    old = steps.get_config, steps.get_shape
+    steps.get_config = lambda n: (
+        dataclasses.replace(configs.get_config(n), num_layers=layers)
+        if layers else configs.get_config(n))
+    steps.get_shape = lambda n: dataclasses.replace(configs.get_shape(n),
+                                                    global_batch=batch)
+    try:
+        yield
+    finally:
+        steps.get_config, steps.get_shape = old
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A gloo world of one rank (this process, the card) and its ``(1, 1)``
+    mesh."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            yield make_test_mesh((1, 1))
+        finally:
+            dist.destroy_process_group()
+
+
+def card_args(bundle, vocab: int):
+    """The bundle's arguments on the card, from the seed: bf16 weights
+    N(0, 0.02) (norm scales ones), tokens in the vocabulary, caches
+    N(0, 0.5)."""
+    import torch
+    from repro_torch.launch import steps
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def make(key, shape, dtype):
+        t = torch.empty(shape, dtype=dtype, device="cuda")
+        if not dtype.is_floating_point:
+            return t.random_(0, vocab, generator=gen)
+        if key.endswith("scale"):
+            return t.fill_(1.0)
+        return t.normal_(0.0, 0.02 if key.startswith("0::") else 0.5,
+                         generator=gen)
+    return steps.plain_args(bundle, make)
+
+
+def phase23a() -> dict:
+    """23a: the prefill bundle at full depth, batch cut to 1 (32768 tokens),
+    on real tensors: launches exactly B.1 and B.2 once a layer, last logits
+    and cache bitwise ``model.prefill`` called outside the bundle."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_shape
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps
+    from repro_torch.models import build_model
+    with one_rank_world() as mesh, cut_steps(STEPS_PREFILL_BATCH):
+        bundle = steps.build_step(ARCH, "prefill_32k", mesh)
+        cfg = bundle.cfg
+        n = get_shape("prefill_32k").seq_len
+        print(f"23a: {bundle.name}, {cfg.num_layers} layers, reduced: batch "
+              f"32 -> {STEPS_PREFILL_BATCH} ({STEPS_PREFILL_BATCH * n} "
+              f"tokens); bf16, seed-{SEED} random weights", flush=True)
+        args = card_args(bundle, cfg.vocab_size)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for i in range(2):
+            reset_launch_counts()
+            t = time.perf_counter()
+            out = bundle.fn(*args)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t)
+            counts = launch_counts()
+            _expect_counts(f"23a prefill bundle, run {i + 1}", counts, {
+                "strip": cfg.num_layers,
+                "block_sparse_attn": cfg.num_layers})
+            if i == 0:
+                del out
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        direct = build_model(cfg, dtype=torch.bfloat16).prefill(
+            checkpoint.params_from_tree(args[0], cfg), args[1],
+            steps._sp_for(cfg), method="share")
+        torch.cuda.synchronize()
+    same_logits = torch.equal(out.last_logits, direct.last_logits)
+    same_cache = all(torch.equal(a, b) for a, b in
+                     zip(tu.leaves(out.cache), tu.leaves(direct.cache)))
+    finite = bool(torch.isfinite(out.last_logits.float()).all())
+    print(f"  23a: launches {counts} (each run); prefill_s run 1 "
+          f"{runs[0]:.4f}, run 2 {runs[1]:.4f}; peak {peak:.2f} GiB; last "
+          f"logits {tuple(out.last_logits.shape)} finite {finite}, bitwise "
+          f"model.prefill {same_logits}, cache bitwise {same_cache}",
+          flush=True)
+    if not (same_logits and same_cache and finite):
+        raise AssertionError("23a: the bundle's prefill is not bitwise "
+                             "model.prefill, or not finite")
+    del out, direct, args
+    torch.cuda.empty_cache()
+    return {"prefill_s": runs, "peak_gib": peak, "launches": counts}
+
+
+def phase23b(shape_name: str, batch: int, layers) -> dict:
+    """23b: one decode step of ``shape_name``'s bundle at the cut shape on
+    the card, against the dry-run's accounting of the same bundle on a fake
+    world of one rank: argument bytes and FLOPs exactly, the predicted peak
+    (argument + temp + output) within ``STEPS_PEAK_TOL`` of the rise of
+    ``max_memory_allocated``; the step time beside the roofline's
+    ``memory_s``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import (HBM_BW, LINK_BW, PEAK_FLOPS_BF16,
+                                         fake_world, make_test_mesh)
+    from repro_torch.launch.step_analysis import roofline_terms, tree_bytes
+    full = get_shape(shape_name)
+    with cut_steps(batch, layers):
+        t = time.time()
+        with fake_world(1):
+            rec = dryrun.analyse_step(steps.build_step(
+                ARCH, shape_name, make_test_mesh((1, 1))))
+        dry_s = time.time() - t
+        with one_rank_world() as mesh:
+            bundle = steps.build_step(ARCH, shape_name, mesh)
+            cfg = bundle.cfg
+            print(f"23b: {bundle.name}, reduced: batch {full.global_batch} "
+                  f"-> {batch}, layers {get_config(ARCH).num_layers} -> "
+                  f"{cfg.num_layers}; cache {full.seq_len}; dry-run "
+                  f"accounting {dry_s:.1f} s on the CPU", flush=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            args = card_args(bundle, cfg.vocab_size)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with FlopCounterMode(display=False) as fc:
+                logits, _ = bundle.fn(*args)
+            torch.cuda.synchronize()
+            rise = torch.cuda.max_memory_allocated() - base
+            times = []
+            for _ in range(STEPS_REPS):
+                t = time.perf_counter()
+                logits, _ = bundle.fn(*args)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t)
+    mem = rec["memory"]
+    arg_bytes = tree_bytes(args)
+    predicted = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                 + mem["output_size_in_bytes"])
+    terms = roofline_terms(
+        flops=rec["cost"]["flops"], bytes_accessed=rec["cost"]["bytes accessed"],
+        coll=rec["collectives"], chips=1, peak_flops=PEAK_FLOPS_BF16,
+        hbm_bw=HBM_BW, link_bw=LINK_BW)
+    step_s = sorted(times)[len(times) // 2]
+    finite = bool(torch.isfinite(logits.float()).all())
+    out = {"shape": shape_name, "batch": batch, "layers": cfg.num_layers,
+           "arg_bytes_card": arg_bytes, "memory": mem,
+           "flops_card": fc.get_total_flops(), "flops_dry": rec["cost"]["flops"],
+           "peak_predicted_bytes": predicted, "peak_rise_bytes": rise,
+           "peak_ratio": predicted / rise, "step_s": times,
+           "memory_s": terms["memory_s"], "compute_s": terms["compute_s"],
+           "memory_s_over_step_s": terms["memory_s"] / step_s,
+           "logits_finite": finite}
+    print("  23b: " + json.dumps(out), flush=True)
+    if arg_bytes != mem["argument_size_in_bytes"]:
+        raise AssertionError(f"23b {shape_name}: argument bytes {arg_bytes} "
+                             f"on the card, {mem['argument_size_in_bytes']} "
+                             f"in the dry-run")
+    if out["flops_card"] != out["flops_dry"]:
+        raise AssertionError(f"23b {shape_name}: FLOPs {out['flops_card']} "
+                             f"on the card, {out['flops_dry']} in the dry-run")
+    if abs(predicted / rise - 1) > STEPS_PEAK_TOL:
+        raise AssertionError(f"23b {shape_name}: predicted peak {predicted} "
+                             f"against a rise of {rise}")
+    if not finite:
+        raise AssertionError(f"23b {shape_name}: non-finite logits")
+    del args, logits
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase23c() -> dict:
+    """23c: the four examples as subprocesses on the card, at once."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t = time.time()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for name in EXAMPLES}
+    outs, failed = {}, []
+    for name, p in procs.items():
+        try:
+            out, err = p.communicate(timeout=EXAMPLES_TIMEOUT_S)
+        finally:
+            p.kill()
+        outs[name] = out
+        if p.returncode:
+            failed.append(name)
+            print(f"  23c: {name} exited {p.returncode}:\n{err[-3000:]}",
+                  flush=True)
+    for name, out in outs.items():
+        lines = out.strip().splitlines()
+        keep = lines if name == "serve_longcontext" else lines[-3:]
+        print(f"  23c {name}:\n    " + "\n    ".join(keep), flush=True)
+    print(f"  23c: {len(EXAMPLES) - len(failed)} of {len(EXAMPLES)} examples "
+          f"exited 0 ({time.time() - t:.1f} s)", flush=True)
+    if failed:
+        raise AssertionError(f"23c: examples failed: {failed}")
+    return {"seconds": time.time() - t}
+
+
+def phase23() -> dict:
+    """Phase 23: the launch layer's step bundles on the card (A.13)."""
+    import torch
+    print("== phase 23: step bundles on the card, the dry-run's accounting "
+          "held against it, the examples", flush=True)
+    t = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res = {"23a": phase23a()}
+    res["23b_decode_32k"] = phase23b("decode_32k", STEPS_DECODE_BATCH, None)
+    res["23b_long_500k"] = phase23b("long_500k", 1, STEPS_LONG_LAYERS)
+    res["23c"] = phase23c()
+    print(f"phase 23: {time.time() - t:.1f} s ({nvidia_smi()})", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5847,9 +6107,10 @@ def main() -> int:
     if len(only) == 2 and only[0] == "--bitwise":
         return bitwise_instances(only[1])  # no result line
     alone = {"14": phase14, "15": phase15, "16": phase16, "18": phase18,
-             "19": phase19, "20": phase20, "21": phase21, "22": phase22}
+             "19": phase19, "20": phase20, "21": phase21, "22": phase22,
+             "23": phase23}
     if len(only) == 2 and only[0] == "--phase" and only[1] in alone:
-        # a check of phase 14, 15, 16, 18, 19, 20, 21 or 22 alone; it
+        # a check of phase 14, 15, 16, 18, 19, 20, 21, 22 or 23 alone; it
         # prints no result line
         alone[only[1]]()
         return 0
@@ -5885,7 +6146,7 @@ def main() -> int:
         phase17(model, params, prompts, tokens)     # alone; no result line
         return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 22, "
+        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 23, "
                          "--bitwise TREE, --profiler-probe, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
@@ -5999,6 +6260,7 @@ def main() -> int:
                                                r["max_abs_err"])
     phase21()
     phase22()
+    phase23()
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

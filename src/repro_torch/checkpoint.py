@@ -82,6 +82,7 @@ import torch
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import unstack
 from repro_torch.models import common, mla, moe, rglru, ssm
 from repro_torch.models.hybrid import _counts as hybrid_counts
 from repro_torch.models.transformer import num_prefix_layers
@@ -216,8 +217,9 @@ def _assemble(prefix, stacked: Dict[str, torch.Tensor],
     """``prefix``: each prefix layer's flat leaves; ``stacked``: the stack's
     ``(L', …)`` leaves."""
     n_stack = cfg.num_layers - len(prefix)
+    split = {name: unstack(full) for name, full in stacked.items()}
     layers = [tu.unflatten(p) for p in prefix] + [
-        tu.unflatten({name: full[i] for name, full in stacked.items()})
+        tu.unflatten({name: split[name][i] for name in stacked})
         for i in range(n_stack)]
     params = {"embed": top["embed"],
               "final_norm": {"scale": top["final_norm::scale"]},

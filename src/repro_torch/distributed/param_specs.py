@@ -113,14 +113,15 @@ def param_pspecs(params_tree: Any, mesh, *, fsdp: bool = True) -> Any:
 def placements(spec: P, mesh) -> tuple:
     """``torch.distributed.tensor`` placements of ``spec`` on ``mesh``: one
     per mesh axis, ``Shard(d)`` where the spec puts that axis on tensor
-    dimension ``d``, else ``Replicate()``."""
+    dimension ``d``, else ``Replicate()`` (also on an axis of one rank,
+    whose one shard is the whole tensor)."""
     from torch.distributed.tensor import Replicate, Shard
     where = {}
     for dim, part in enumerate(spec):
         for axis in (part,) if isinstance(part, str) else (part or ()):
             where[axis] = dim
-    return tuple(Shard(where[a]) if a in where else Replicate()
-                 for a in mesh.axis_names)
+    return tuple(Shard(where[a]) if a in where and mesh.shape[a] > 1
+                 else Replicate() for a in mesh.axis_names)
 
 
 def param_shardings(params_tree: Any, mesh, *, fsdp: bool = True) -> Any:

@@ -338,10 +338,78 @@ def sharded_flash_decode_paged(
     return gather_cat(out, mesh, axis, 1)
 
 
+def shard_spec(rules: ShardingRules, shape: Tuple[int, ...],
+               logical: Tuple[Optional[str], ...]) -> PartitionSpec:
+    """The reference's ``shard`` spec of a tensor of ``shape`` under
+    ``rules``: ``logical`` may be shorter than the shape (missing trailing
+    axes are replicated); a mesh axis appears at most once (the first
+    dimension that asks for it wins); a dimension its axes do not divide is
+    replicated (e.g. 8 kv heads on a 16-way model axis)."""
+    logical = tuple(logical) + (None,) * (len(shape) - len(logical))
+    parts = []
+    used: set = set()
+    for dim, name in zip(shape, logical):
+        axes = None if name is None else rules.rules.get(name)
+        if axes:
+            axes = tuple(a for a in axes if a not in used)
+        if not axes:
+            parts.append(None)
+            continue
+        size = 1
+        for a in axes:
+            size *= rules.mesh.shape[a]
+        if dim % size != 0:
+            parts.append(None)
+        else:
+            used.update(axes)
+            parts.append(axes[0] if len(axes) == 1 else axes)
+    return P(*parts)
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``placements``, and the gradient to the same ones,
+    as JAX transposes a sharding constraint into the same constraint on
+    the cotangent (``DTensor.redistribute``'s own backward would return it
+    to the input's placements)."""
+
+    @staticmethod
+    def forward(ctx, x, place):
+        ctx.place = place
+        return x.redistribute(x.device_mesh, place)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.redistribute(grad.device_mesh, ctx.place), None
+
+
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """The identity.  The reference's ``shard`` is a placement hint for its
-    compiler (a sharding constraint) that never changes a value; the port's
-    serve keeps every tensor replicated on every rank, so there is nothing
-    to place."""
-    del logical
-    return x
+    """The reference's activation constraint: inside a rules context, a
+    ``DTensor`` is redistributed to the placements of :func:`shard_spec`
+    (its gradient too); anything else (a plain tensor, or no context)
+    comes back as the same object.  The port's serve keeps plain tensors,
+    so only the step bundles (:mod:`repro_torch.launch.steps`) on
+    ``DTensor`` arguments are placed by it."""
+    rules = current_rules()
+    if rules is None or type(x) is torch.Tensor:
+        return x
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return x
+    from repro_torch.distributed.param_specs import placements
+    want = placements(shard_spec(rules, tuple(x.shape), logical), rules.mesh)
+    if tuple(x.placements) == want and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, want)
+
+
+def unstack(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``x.unbind(0)``: a stacked leaf's layers.  A ``DTensor`` sharded on
+    its stack axis (the reference's specs shard a dense FFN's layer stack
+    as an expert stack) is gathered on that axis first, once for all its
+    layers, its other placements kept."""
+    if type(x) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        if isinstance(x, DTensor) and Shard(0) in x.placements:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p == Shard(0) else p for p in x.placements])
+    return x.unbind(0)

@@ -121,6 +121,13 @@ def check(code: int, what: str) -> None:
 
 
 def ptr(t) -> ctypes.c_void_p:
+    """``t``'s device address for a launch.  Raises on a tensor subclass
+    (a ``DTensor``, a fake tensor): its data is not one plain buffer that
+    a kernel could read."""
+    import torch
+    if type(t) not in (torch.Tensor, torch.nn.Parameter):
+        raise TypeError(f"a kernel takes plain tensors, got "
+                        f"{type(t).__name__}")
     return ctypes.c_void_p(t.data_ptr())
 
 

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import gather_pages
 
@@ -37,6 +38,9 @@ def strip_scores(q: torch.Tensor, k: torch.Tensor,
     hkv, n = k.shape[1], k.shape[2]
     g = h // hkv
     q_hat = q[:, :, q.shape[2] - block_size:, :].float()
+    # the GQA grouping, heads replicated first (the step bundles' DTensors
+    # cannot split a heads axis sharded finer than the kv heads)
+    q_hat = shard(q_hat, "batch")
     q_hat = q_hat.reshape(b, hkv, g, block_size, d)
     logits = torch.einsum("bkgqd,bknd->bkgqn", q_hat, k.float())
     logits = logits / math.sqrt(d)

@@ -11,10 +11,15 @@ distributed.sharding.Mesh`, and
 :func:`run_ranks` starts a world of ranks in fresh processes (``spawn``:
 CUDA cannot be initialised again in a forked child).
 
+:func:`fake_world` starts a world of ``"fake"`` ranks in this one process
+(no collective moves data), on which the dry-run lays out the production
+meshes.  The hardware constants below are the card's, for the roofline.
+
 Importing this module touches no device and starts no process.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import multiprocessing
@@ -27,6 +32,12 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.distributed.sharding import Mesh
+
+# NVIDIA H100 SXM5 80GB hardware constants for the roofline model (per card;
+# data-sheet peaks at the 700 W power limit).
+PEAK_FLOPS_BF16 = 989e12        # dense bf16 on the tensor cores, FLOP/s
+HBM_BW = 3.35e12                # HBM3, bytes/s
+LINK_BW = 450e9                 # NVLink 4, one direction, bytes/s
 
 
 def rank_backend(rank: int, world_size: int, device: str, cards: int,
@@ -76,7 +87,28 @@ def init_process_group(rank: int, world_size: int, *, init_method: str,
     return dev
 
 
+@contextlib.contextmanager
+def fake_world(world_size: int):
+    """A default process group of ``world_size`` ``"fake"`` ranks over a
+    ``FakeStore``, this process being rank 0: meshes lay out over it and
+    collectives return at once, moving no data.  Raises if a default group
+    exists; destroys the group on exit."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists already")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def _device_type() -> str:
+    """The meshes' device type: the card's where CUDA is in use, the CPU's
+    on a fake world (its ranks hold no data)."""
+    if dist.is_initialized() and dist.get_backend() == "fake":
+        return "cpu"
     return "cuda" if torch.cuda.is_available() and \
         torch.cuda.is_initialized() else "cpu"
 

@@ -48,7 +48,7 @@ from repro_torch.core.baselines import baseline_block_masks
 from repro_torch.core.patterns import (block_mask_density, causal_block_mask,
                                        segment_block_mask,
                                        sliding_window_block_mask)
-from repro_torch.distributed.sharding import (active_model_mesh,
+from repro_torch.distributed.sharding import (active_model_mesh, shard,
                                               shardable_model_mesh,
                                               sharded_flash_decode,
                                               sharded_flash_decode_paged)
@@ -138,6 +138,7 @@ def attention_train(params, x: torch.Tensor, cfg: ModelConfig,
     kx, vx = expand_kv(k, v, q.shape[1])
     out = chunked_attention(q, kx, vx, block_size=min(block_size, x.shape[1]),
                             causal=True, window=cfg.sliding_window, sink=0)
+    out = shard(out, "batch", "heads")
     return common.gqa_out(params, out)
 
 
@@ -278,19 +279,15 @@ def attention_prefill_rows(
             return out, None
         return sa.head_permuted_attention(fn, q_c, k, v, m_c, stage.gate,
                                           stage.perm)
-    # "chunked": dense attention under the masks, sample by sample, every
-    # head's Ã (no gate)
+    # "chunked": dense attention under the masks over the whole batch (the
+    # reference vmaps it over the samples), every head's Ã (no gate)
     if attn_width is not None:
         m_c = cap_block_mask(m_c, attn_width)
-    outs, ats = [], []
-    for i in range(q.shape[0]):
-        ks, vs = expand_kv(k[i], v[i], q.shape[1])
-        o, at = chunked_attention(
-            q_c[i][None], ks[None], vs[None], block_size=bs, causal=True,
-            block_mask=m_c[i][None], collect_stats=True, q_offset=off)
-        outs.append(o[0])
-        ats.append(at[0])
-    return torch.stack(outs), None if baseline else torch.stack(ats)
+    kx, vx = expand_kv(k, v, q.shape[1])
+    out, a_tilde = chunked_attention(
+        q_c, kx, vx, block_size=bs, causal=True, block_mask=m_c,
+        collect_stats=True, q_offset=off)
+    return out, None if baseline else a_tilde
 
 
 def _attn_stats(ls: sa.LayerStats) -> AttnStats:
@@ -360,6 +357,7 @@ def attention_prefill(
         out, new_state, ls = sa.batched_share_prefill_attention_layer(
             q, k, v, sp_state, cluster_ids, sp.cfg, attention_fn,
             extra_block_mask(cfg, n // bs, bs, device=x.device))
+        out = shard(out, "batch", "heads")
         return common.gqa_out(params, out), (k, v), new_state, \
             _attn_stats(ls)
     stage = attention_prefill_begin(
@@ -379,6 +377,7 @@ def attention_prefill(
     sp_state, stats = attention_prefill_end(stage, a_tilde, sp=sp,
                                             sp_state=sp_state,
                                             cluster_ids=cluster_ids)
+    out = shard(out, "batch", "heads")
     return common.gqa_out(params, out), (stage.k, stage.v), sp_state, stats
 
 
@@ -445,6 +444,10 @@ def _attend_decode(params, q, k, v, cache_k, cache_v, pos, *, valid_mask,
     else:
         cache_k[:, :, pos] = k[:, :, 0]
         cache_v[:, :, pos] = v[:, :, 0]
+    # head_dim stays model-sharded where the kv heads cannot shard ("heads"
+    # is dropped by the dedupe where "kv_heads" took the model axis)
+    cache_k = shard(cache_k, "batch", "kv_heads", "seq", "heads")
+    cache_v = shard(cache_v, "batch", "kv_heads", "seq", "heads")
     s = cache_k.shape[2]
     if valid_mask is None:
         mask = (torch.arange(s, device=q.device)[None, :]
@@ -472,6 +475,9 @@ def _dense_decode(params, q, cache_k, cache_v, mask) -> torch.Tensor:
     b, h, _, hd = q.shape
     hkv = cache_k.shape[1]
     g = h // hkv
+    # the GQA grouping splits the heads by kv head: heads replicated first
+    # (a DTensor cannot split a heads axis sharded finer than the kv heads)
+    q = shard(q, "batch")
     qg = q[:, :, 0].reshape(b, hkv, g, hd).float()
     logits = torch.einsum("bkgd,bksd->bkgs", qg, cache_k.float())
     logits = logits * (1.0 / hd ** 0.5)
@@ -502,6 +508,9 @@ def _attention_decode_paged(params, q, k, v, pool_k, pool_v, pos,
     within = pos % ps
     pool_k[pg, :, within] = k[:, :, 0].to(pool_k.dtype)
     pool_v[pg, :, within] = v[:, :, 0].to(pool_v.dtype)
+    # the pool's heads axis shards as the contiguous cache's
+    pool_k = shard(pool_k, None, "kv_heads", None, "heads")
+    pool_v = shard(pool_v, None, "kv_heads", None, "heads")
     if valid_mask is None:
         mask = torch.arange(sv, device=q.device)[None, :] <= pos[:, None]
     else:

@@ -47,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.transformer import (_ffn_block, embed_tokens,
@@ -99,6 +100,7 @@ def chunk_prefill_layer_end(
     while the host issues the dictionary update's small ops).  Returns
     ``(x, (k, v), sp_state, AttnStats)``, the ``layer_prefill`` contract."""
     layer = params["layers"][layer_idx]
+    out = shard(out, "batch", "heads")
     x = _ffn_block(layer, x + common.gqa_out(layer["attn"], out), cfg)
     sp_state, stats = attn.attention_prefill_end(
         stage, a_tilde, sp=sp, sp_state=sp_state,

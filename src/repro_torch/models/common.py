@@ -14,6 +14,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import shard
+
 
 def dense_init_(out: torch.Tensor, generator: torch.Generator
                 ) -> torch.Tensor:
@@ -94,19 +96,25 @@ def sinusoidal_positions(num: int, dim: int, *, device=None) -> torch.Tensor:
 def mlp(params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU."""
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
+    h = shard(h, "batch", None, "mlp")
     return h @ params["w_down"]
 
 
 def gqa_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) @ w (d, H, hd) → (B, H, S, hd), contiguous."""
     d, h, hd = w.shape
-    y = x @ w.reshape(d, h * hd)                           # (B, S, H·hd)
+    # the product's columns unsharded before they split into heads (a
+    # DTensor cannot split a columns axis sharded finer than the heads);
+    # gqa_qkv's sites place the heads
+    y = shard(x @ w.reshape(d, h * hd), "batch")           # (B, S, H·hd)
     return y.reshape(*x.shape[:-1], h, hd).transpose(1, 2).contiguous()
 
 
 def gqa_qkv(params, x: torch.Tensor):
     """x (B, S, d) → q (B, H, S, hd), k/v (B, Hkv, S, hd), contiguous."""
-    return tuple(gqa_proj(x, params[n]) for n in ("wq", "wk", "wv"))
+    q, k, v = (gqa_proj(x, params[n]) for n in ("wq", "wk", "wv"))
+    return (shard(q, "batch", "heads"), shard(k, "batch", "kv_heads"),
+            shard(v, "batch", "kv_heads"))
 
 
 def gqa_out(params, attn: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.chunked import chunked_attention
 from repro_torch.models import common
 from repro_torch.models.attention import (PREFILL_METHODS, AttnStats,
@@ -74,7 +75,8 @@ def _project_q(params, x: torch.Tensor, cfg: ModelConfig):
         q = _heads(cq, params["w_q_up"])
     else:
         q = _heads(x, params["w_q"])
-    return q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    return (shard(q[..., :m.qk_nope_head_dim], "batch", "heads"),
+            shard(q[..., m.qk_nope_head_dim:], "batch", "heads"))
 
 
 def _project_kv_latent(params, x: torch.Tensor, cfg: ModelConfig,
@@ -92,7 +94,8 @@ def _project_kv_latent(params, x: torch.Tensor, cfg: ModelConfig,
 
 def _decompress(params, c_kv: torch.Tensor):
     """c_kv (B, S, R) → k_nope (B, H, S, nope), v (B, H, S, dv)."""
-    return _heads(c_kv, params["w_uk"]), _heads(c_kv, params["w_uv"])
+    return (shard(_heads(c_kv, params["w_uk"]), "batch", "heads"),
+            shard(_heads(c_kv, params["w_uv"]), "batch", "heads"))
 
 
 def mla_qkv(params, x: torch.Tensor, cfg: ModelConfig,
@@ -120,6 +123,7 @@ def mla_train(params, x: torch.Tensor, cfg: ModelConfig,
     q, k, v, _, _ = mla_qkv(params, x, cfg, positions)
     out = chunked_attention(q, k, v, block_size=min(block_size, x.shape[1]),
                             causal=True)
+    out = shard(out, "batch", "heads")
     return common.gqa_out(params, out)
 
 
@@ -148,6 +152,7 @@ def mla_prefill(params, x: torch.Tensor, cfg: ModelConfig,
     else:
         out = chunked_attention(q, k, v, block_size=min(128, s), causal=True)
         stats = AttnStats.zero(x.device)
+    out = shard(out, "batch", "heads")
     return common.gqa_out(params, out), (c_kv, k_rope), sp_state, stats
 
 
@@ -167,6 +172,7 @@ def mla_decode(params, x: torch.Tensor, cfg: ModelConfig,
     c_new, k_rope_new = _project_kv_latent(params, x, cfg, positions)
     cache_ckv[:, pos] = c_new[:, 0]
     cache_krope[:, pos] = k_rope_new[:, 0, 0]
+    cache_ckv = shard(cache_ckv, "batch", "seq")
     q_lat = torch.einsum("bhqk,rhk->bhqr", q_nope, params["w_uk"])
     scale = 1.0 / ((m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5)
     logits = (torch.einsum("bhqr,bsr->bhqs", q_lat, cache_ckv)

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common
 
 
@@ -139,11 +140,15 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
     # token; each expert's SwiGLU in float32 between its two products
     expert_in = (dispatch.transpose(1, 2) @ xg).reshape(ng, e, cap, d)
     expert_in = expert_in.transpose(0, 1).reshape(e, ng * cap, d)
+    expert_in = shard(expert_in, "experts", "batch")
     expert_out = torch.empty_like(expert_in)
     for i in range(e):
         xi = expert_in[i]
         h = (F.silu((xi @ params["w_gate"][i]).float())
              * (xi @ params["w_up"][i]).float()).to(adt)
+        # the hidden on the FFN dim (the reference's (E, …) site: sharded
+        # on the experts where they divide, else here)
+        h = shard(h, "batch", "mlp")
         expert_out[i] = h @ params["w_down"][i]
     expert_out = expert_out.reshape(e, ng, cap, d).transpose(0, 1)
     y = (combine @ expert_out.reshape(ng, e * cap, d)).reshape(b, s, d)

@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common
 
 _C = 8.0
@@ -133,7 +134,7 @@ def recurrent_block_forward(params, x: torch.Tensor, cfg: ModelConfig,
     """Griffin recurrent block over the full sequence: (y (B, S, d),
     (conv_state (B, width − 1, W), h_last (B, W) float32))."""
     gate = F.gelu(x @ params["w_gate"], approximate="tanh")
-    u = x @ params["w_x"]
+    u = shard(x @ params["w_x"], "batch", None, "ssm_inner")
     u, new_conv = _causal_conv(params, u, conv_state)
     h, h_last = rglru_apply(params, u, params["lam"], h0)
     y = h.to(x.dtype) * gate

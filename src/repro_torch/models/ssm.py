@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import shard
 from repro_torch.models import common
 
 
@@ -168,7 +169,7 @@ def ssm_forward(params, x: torch.Tensor, cfg: ModelConfig
 
     dt = _softplus(dt.float() + params["dt_bias"])
     a = -torch.exp(params["a_log"].float())
-    xh = xs.reshape(b, s, nh, p)
+    xh = shard(xs.reshape(b, s, nh, p), "batch", None, "ssm_inner")
 
     chunk = min(cfg.ssm.chunk_size, s)
     if s % chunk:

@@ -28,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
+from repro_torch.distributed.sharding import shard
 from repro_torch.kernels.decode_attn import DecodePlan
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mla, moe
@@ -45,9 +46,9 @@ class PrefillResult(NamedTuple):
 def logits_from_hidden(params, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
     x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
-    if cfg.tie_embeddings:
-        return x @ params["embed"].T
-    return x @ params["lm_head"]
+    logits = (x @ params["embed"].T if cfg.tie_embeddings
+              else x @ params["lm_head"])
+    return shard(logits, "batch", None, "vocab")
 
 
 def num_prefix_layers(cfg: ModelConfig) -> int:
@@ -58,7 +59,7 @@ def num_prefix_layers(cfg: ModelConfig) -> int:
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    return params["embed"][tokens]
+    return shard(params["embed"][tokens], "batch")
 
 
 def _ffn_apply(layer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Decode-phase pattern sharing (port of
-``repro/serving/sparse_decode.py::decode_keep_blocks`` and
-``packed_decode_keep_blocks``).
+``repro/serving/sparse_decode.py``: ``decode_keep_blocks``,
+``packed_decode_keep_blocks``, ``keep_blocks_to_token_mask`` and
+``decode_traffic_fraction``).
 
 A head whose cluster has a pivot keeps, during decode, the pivot's last
 query-block row (a decode query is a "future last row") plus the final
@@ -54,3 +55,25 @@ def packed_decode_keep_blocks(sp: SharePrefill, sp_state: PivotalState,
     ok = sp_state.valid[:, safe] & (ids >= 0)               # (B, L, H)
     out = torch.where(ok[..., None], keep, True)
     return out.transpose(0, 1)                              # (L, B, H, NBseg)
+
+
+def keep_blocks_to_token_mask(keep: torch.Tensor, block_size: int,
+                              cache_len: int,
+                              prefill_len: int) -> torch.Tensor:
+    """(…, NB) block keep-set → (…, cache_len) token mask; positions written
+    after prefill are always visible."""
+    tok = torch.repeat_interleave(keep, block_size, dim=-1)    # (…, NB·bs)
+    pad = cache_len - tok.shape[-1]
+    if pad > 0:
+        tok = torch.cat([tok, tok.new_ones(tok.shape[:-1] + (pad,))], dim=-1)
+    post = torch.arange(cache_len, device=keep.device) >= prefill_len
+    return tok | post
+
+
+def decode_traffic_fraction(keep: torch.Tensor) -> float:
+    """Modeled KV-cache read fraction vs dense decode (the memory-term
+    lever: decode_32k roofline × this fraction): the kept count times the
+    float32 reciprocal of the size, the reference's float32 mean."""
+    inv = torch.tensor(1.0 / keep.numel(), dtype=torch.float32,
+                       device=keep.device)
+    return float(keep.float().sum() * inv)

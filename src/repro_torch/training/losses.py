@@ -5,13 +5,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import shard
+
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token-level CE in float32. logits (B, S, V), labels (B, S); ``mask``
     (B, S) weights the tokens (default all ones)."""
-    logits = logits.float()
+    # the vocabulary gathered before the gold logit's gather (a DTensor's
+    # gather over a vocab-sharded axis does not propagate)
+    logits = shard(logits.float(), "batch")
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
