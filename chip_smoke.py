@@ -4515,15 +4515,34 @@ def check_wide_kernels(label: str, model, q16, k16, v16, extra) -> dict:
             "block_sparse_attn_single":
                 lambda: K.block_sparse_attention_single_cuda(
                     q[0], k[0], v[0], s0idx, s0cnt, block_size=bs)}
+        # the strip's body by dtype (csrc/strip.cu::repro_strip): tensor
+        # cores in bf16 at D = 64 ... 256, CUDA cores in float32
+        body = ("strip_tc_kernel<" if dtype == torch.bfloat16
+                else "strip_f32_kernel<")
         for name, fn in calls.items():
             seen = bodies(fn)
             print(f"  {name} [{dn}]: the profiler saw " + ", ".join(
                 f"{nm} {ms:.4f} ms" for nm, ms in seen.items()), flush=True)
             if not seen:
                 raise AssertionError(f"{name}: no device kernel traced")
-        e = max_err(calls["strip"](), K.strip_scores(q, k, bs))
+            if name == "strip" and not all(nm.startswith(body)
+                                           for nm in seen):
+                raise AssertionError(f"strip [{dn}] ran {sorted(seen)}, "
+                                     f"expected {body}·>")
+        so = calls["strip"]()
+        e = max_err(so, K.strip_scores(q, k, bs))
         check(f"strip [D={d}, G={g}]", e, TOL[("strip", dn)])
         out["strip"]["max_abs_err"] = max(out["strip"]["max_abs_err"], e)
+        # the key split depends on N alone: sample 0 alone is bitwise the
+        # batch's first strip
+        if not torch.equal(K.strip_scores_cuda(q[:1].contiguous(),
+                                               k[:1].contiguous(), bs),
+                           so[:1]):
+            raise AssertionError(f"strip [D={d}, G={g}, {dn}]: sample 0 "
+                                 "alone differs from the batch's")
+        print(f"  strip [D={d}, G={g}, {dn}]: sample 0 alone bitwise the "
+              "batch's", flush=True)
+        del so
         o1, a1 = calls["block_sparse_attn"]()
         o2, a2 = K.block_sparse_attention_plain(q, k, v, sidx, scnt, **kw)
         e2 = max_err(o1, o2)
@@ -4616,11 +4635,14 @@ def phase19() -> dict:
     print("== phase 19: RecurrentGemma 9B (RG-LRU hybrid) at full width",
           flush=True)
     t = time.time()
-    for name, regs, spill in ptxas_lines(
-            "block_sparse_attn", r"Li256ELi256E") + ptxas_lines(
-            "strip", r"strip_f32"):
+    strip_regs = ptxas_lines("strip", r"strip_tc_kernelLi256E")
+    wide = ptxas_lines("block_sparse_attn", r"Li256ELi256E") + strip_regs
+    for name, regs, spill in wide:
         print(f"  ptxas: {name}: {regs} registers, {spill} bytes spilled",
               flush=True)
+    if len(strip_regs) != 2 or any(spill for _, _, spill in wide):
+        raise AssertionError(f"the D = 256 instances: expected both strip "
+                             f"passes and no spill, ptxas gave {wide}")
     torch.cuda.reset_peak_memory_stats()
     model, params = load_model(HYBRID, None)
     cfg, dev = model.cfg, model.device
@@ -4645,6 +4667,20 @@ def phase19() -> dict:
                                  f"{r.local_attn_window})", model, q, k, v,
                                  extra)
         del q, k, v
+        st = res["strip"]
+        st["registers"] = {name: regs for name, regs, _ in strip_regs}
+        regs = ", ".join(f"{n} {r} registers"
+                         for n, r in st["registers"].items())
+        print(f"  B.1 bf16 at D = {cfg.resolved_head_dim}, G = "
+              f"{cfg.num_heads // cfg.num_kv_heads} on its tensor-core body "
+              f"({regs}): "
+              f"{st['ms']:.4f} ms (device {st['device_ms']:.4f} ms), bound "
+              f"{st['bound_ms']:.4f} ms by {st['bound_by']}, frac "
+              f"{st['bound_ms'] / st['ms']:.4f}, plain {st['plain_ms']:.4f} ms"
+              f" ({nvidia_smi()})", flush=True)
+        if not st["ms"] < st["plain_ms"]:
+            raise AssertionError("B.1 at D = 256: the kernel is not faster "
+                                 "than its plain version")
         torch.cuda.empty_cache()
         model.prefill(params, tokens, model.default_share_prefill())
     print(f"RecurrentGemma batch serve: {PROMPT_LENS} prompt tokens, "

@@ -37,26 +37,35 @@
 //   * A ragged last chunk is masked and never read past N (the source row
 //     of a key >= N is clamped to N - 1; its logits are masked).
 //
-// bfloat16 body (strip_tc_kernel, D in {64, 96, 128, 192}), the serving path:
-// 4 warps of 32 rows each, as two 16-row mma.sync m16n8k16 A fragments
-// (bf16 in, float32 accumulate: a bf16 x bf16 product is exact in float32,
-// so only the summation order differs from the reference) loaded once per
-// CTA by ldmatrix; every K fragment serves both.  K streams through a
-// three-stage ring of 64-key bf16 sub-tiles by 16-byte cp.async, rows padded
-// by 16 bytes so ldmatrix is conflict-free.  Only a sub-tile reaching past
-// key N - bs runs the causal mask.  Pass 2 stages each warp's 32 x 64
-// probabilities in shared memory (where Q was) and writes them as 16-byte
-// streaming stores, two whole 256-byte rows per warp instruction: on an H100
-// pass 2 took ~15 % less time than with 8-byte stores straight from the
-// accumulator fragments (scripts/torch_strip_variants.py).
+// bfloat16 body (strip_tc_kernel, D in {64, 96, 128, 192, 256}), the
+// serving path: 4 warps of 32 rows each, as two 16-row mma.sync m16n8k16 A
+// fragments (bf16 in, float32 accumulate: a bf16 x bf16 product is exact in
+// float32, so only the summation order differs from the reference) loaded
+// once per CTA by ldmatrix (up to D = 192); every K fragment serves both.
+// K streams through a three-stage ring of 64-key bf16 sub-tiles by 16-byte
+// cp.async, rows padded by 16 bytes so ldmatrix is conflict-free.  Only a
+// sub-tile reaching past key N - bs runs the causal mask.  Pass 2 stages
+// each warp's 32 x 64 probabilities in shared memory (where Q was, up to
+// D = 192) and writes them as 16-byte streaming stores, two whole 256-byte
+// rows per warp instruction: on an H100 pass 2 took ~15 % less time than
+// with 8-byte stores straight from the accumulator fragments
+// (scripts/torch_strip_variants.py).
+// On an H100 at D = 256, G = 16 (B = 2, N = 8192) pass 1 runs its 17 GFLOP
+// at ~223 TFLOP/s, the rate mma.sync bodies reach on this card (PERF.md).
 // D = 192 (DeepSeek-V2's MLA: qk_nope 128 + qk_rope 64) takes this body
 // too: its 2 x 12 Q fragments a warp fit in 242 (pass 1) and 255 (pass 2)
 // registers with no spill (ptxas, sm_90a), and its Q tile and K ring take
 // 128000 bytes of shared memory, one CTA an SM.
+// D = 256 (RecurrentGemma, G = 16): 2 x 16 Q fragments (128 registers) and
+// the 64 float32 S accumulators do not fit in 255 registers, so the Q tile
+// stays resident in shared memory and each k-step reloads the warp's two A
+// fragments by ldmatrix (as csrc/block_sparse_attn.cu does at D = 256); pass
+// 2's staging then gets a region of its own after Q.  Q 67584 + staging
+// 36864 + K ring 101376 = 205824 bytes, one CTA an SM.
 // CUDA-core body (strip_f32_kernel): float32 inputs (TF32 would miss the
-// 1e-5 tolerance) and bf16 at other head dims, the same chunks, scratch and
-// merge; 64 rows per CTA, each thread a 4-row x 4-key tile with its query
-// values in registers per d.
+// 1e-5 tolerance) and bf16 at any other head dim, the same chunks, scratch
+// and merge; 64 rows per CTA, each thread a 4-row x 4-key tile with its
+// query values in registers per d.
 #include "common.cuh"
 
 namespace {
@@ -69,11 +78,18 @@ constexpr int F_ROWS = 64;       // strip rows per CTA, CUDA-core body
 constexpr int F_THREADS = 256;   // 16 row groups x 16 key lanes
 constexpr int SP = KN + 8;       // padded row of a warp's staged output
 
+// Whether the tensor-core body keeps Q's A fragments in registers (D up to
+// 192) or reloads them from the resident Q tile at each k-step (D = 256).
+__host__ __device__ constexpr bool tc_qreg(int D) { return D <= 192; }
+
 // Bytes before the K ring in the tensor-core body's shared memory: Q, then
-// pass 2's output staging in the same place.
+// pass 2's output staging, in the same place where Q's fragments live in
+// registers, after Q where they are reloaded.
 __host__ __device__ constexpr int tc_head_bytes(int D) {
-  return TC_ROWS * (D + 8) * 2 > TC_ROWS * SP * 4 ? TC_ROWS * (D + 8) * 2
-                                                  : TC_ROWS * SP * 4;
+  return tc_qreg(D) ? (TC_ROWS * (D + 8) * 2 > TC_ROWS * SP * 4
+                           ? TC_ROWS * (D + 8) * 2
+                           : TC_ROWS * SP * 4)
+                    : TC_ROWS * (D + 8) * 2 + TC_ROWS * SP * 4;
 }
 
 struct Dims {
@@ -214,9 +230,11 @@ strip_tc_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int DK = D / 16;       // k-steps of Q K^T
   constexpr int NN = KN / 8;       // n-tiles of S
   constexpr int CPR = D / 8;       // 16-byte chunks per row
+  constexpr bool QREG = tc_qreg(D);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // Q (TC_ROWS x DP bf16) until its fragments are loaded, then pass 2's
-  // output staging (TC_ROWS x SP floats, 32 rows a warp); then the K ring
+  // Q (TC_ROWS x DP bf16) and pass 2's output staging (TC_ROWS x SP floats,
+  // 32 rows a warp), the staging where Q was once QREG fragments are
+  // loaded, else after Q; then the K ring
   bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
   bf16* k_s = reinterpret_cast<bf16*>(smem_raw + tc_head_bytes(D));
   __shared__ float row_m[TC_ROWS], row_inv[TC_ROWS];
@@ -273,21 +291,27 @@ strip_tc_kernel(const __nv_bfloat16* __restrict__ q,
       l[f][rr] = 0.f;
     }
   }
-  uint32_t qf[2][DK][4];
-  float* st = reinterpret_cast<float*>(smem_raw) + warp * 32 * SP;
+  uint32_t qf[2][QREG ? DK : 1][4];
+  // the A fragment of fragment f's rows at QK^T's k-step kk, from the Q tile
+  auto load_q = [&](uint32_t (&r)[4], int f, int kk) {
+    repro::ldmatrix_x4(r, q_s + (32 * warp + 16 * f + (lane & 7) +
+                                 ((lane >> 3) & 1) * 8) * DP +
+                              kk * 16 + (lane >> 4) * 8);
+  };
+  float* st = reinterpret_cast<float*>(
+                  smem_raw + (QREG ? 0 : TC_ROWS * DP * 2)) +
+              warp * 32 * SP;
 
   for (int i = 0; i < nsub; ++i) {
     repro::cp_async_wait<NSTAGE - 2>();
     __syncthreads();            // sub-tile i landed; sub-tile i - 1 consumed
     if (i == 0) {
+      if constexpr (QREG) {
 #pragma unroll
-      for (int f = 0; f < 2; ++f)
+        for (int f = 0; f < 2; ++f)
 #pragma unroll
-        for (int kk = 0; kk < DK; ++kk)
-          repro::ldmatrix_x4(qf[f][kk],
-                             q_s + (32 * warp + 16 * f + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * DP +
-                                 kk * 16 + (lane >> 4) * 8);
+          for (int kk = 0; kk < DK; ++kk) load_q(qf[f][kk], f, kk);
+      }
       if constexpr (PASS == 2) {
 #pragma unroll
         for (int f = 0; f < 2; ++f)
@@ -296,7 +320,8 @@ strip_tc_kernel(const __nv_bfloat16* __restrict__ q,
             M[f][rr] = row_m[32 * warp + 16 * f + gq + 8 * rr];
             inv[f][rr] = row_inv[32 * warp + 16 * f + gq + 8 * rr];
           }
-        __syncthreads();        // every warp's Q read: q_s becomes st
+        if constexpr (QREG)
+          __syncthreads();      // every warp's Q read: q_s becomes st
       }
     }
     if (i + NSTAGE - 1 < nsub) prefetch(i + NSTAGE - 1);
@@ -313,6 +338,16 @@ strip_tc_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[f][nt][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
+      uint32_t qa[2][4];
+#pragma unroll
+      for (int f = 0; f < 2; ++f) {
+        if constexpr (QREG) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[f][e] = qf[f][QREG ? kk : 0][e];
+        } else {
+          load_q(qa[f], f, kk);
+        }
+      }
 #pragma unroll
       for (int np = 0; np < NN / 2; ++np) {
         uint32_t kf[4];
@@ -321,8 +356,8 @@ strip_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                    kk * 16 + ((lane >> 3) & 1) * 8);
 #pragma unroll
         for (int f = 0; f < 2; ++f) {
-          repro::mma_bf16(s[f][2 * np], qf[f][kk], kf[0], kf[1]);
-          repro::mma_bf16(s[f][2 * np + 1], qf[f][kk], kf[2], kf[3]);
+          repro::mma_bf16(s[f][2 * np], qa[f], kf[0], kf[1]);
+          repro::mma_bf16(s[f][2 * np + 1], qa[f], kf[2], kf[3]);
         }
       }
     }
@@ -550,6 +585,7 @@ extern "C" int repro_strip(const void* q, const void* k, void* out,
   const auto st = (cudaStream_t)stream;
   float* o = (float*)out;
   if (dtype == REPRO_BF16) {
+    if (D == 256) return launch_tc<256>(q, k, o, ml, a, sl2, st);
     if (D == 192) return launch_tc<192>(q, k, o, ml, a, sl2, st);
     if (D == 128) return launch_tc<128>(q, k, o, ml, a, sl2, st);
     if (D == 96) return launch_tc<96>(q, k, o, ml, a, sl2, st);

@@ -402,6 +402,36 @@ def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
     return _Constrain.apply(x, want)
 
 
+def empty_stack(entry: torch.Tensor, n: int) -> torch.Tensor:
+    """An uninitialised ``(n, *entry.shape)`` stack for ``n`` layers' cache
+    entries like ``entry`` (batch first): ``entry.new_empty`` on a plain
+    tensor, one allocation; on a ``DTensor`` inside a rules context, this
+    rank's shard alone, placed by the reference's ``cache_pspec(...,
+    stacked=True)`` (``new_empty`` on a ``DTensor`` replicates the whole
+    stack on every rank)."""
+    rules = current_rules()
+    shape = (n, *entry.shape)
+    if rules is None or type(entry) is torch.Tensor:
+        return entry.new_empty(shape)
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(entry, DTensor):
+        return entry.new_empty(shape)
+    from repro_torch.distributed.param_specs import cache_pspec, placements
+    place = placements(cache_pspec(shape, rules.mesh, batch=entry.shape[0],
+                                   stacked=True), rules.mesh)
+    mesh = entry.device_mesh
+    local = list(shape)
+    for axis, p in enumerate(place):
+        if isinstance(p, Shard):        # cache_pspec splits evenly
+            local[p.dim] //= mesh.size(axis)
+    stride = [1] * len(shape)           # the global tensor's, contiguous
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return DTensor.from_local(entry.to_local().new_empty(local), mesh,
+                              place, run_check=False, shape=shape,
+                              stride=tuple(stride))
+
+
 def unstack(x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """``x.unbind(0)``: a stacked leaf's layers.  A ``DTensor`` sharded on
     its stack axis (the reference's specs shard a dense FFN's layer stack

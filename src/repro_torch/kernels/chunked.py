@@ -55,7 +55,15 @@ def chunked_attention(
     over its valid entries, −inf where it has none.  Query row ``i`` is
     global position ``q_offset + i`` (default ``Nkv − N``: the suffix
     alignment of one-shot prefill).  A block mask or stats need ``N`` and
-    ``Nkv`` to be multiples of ``block_size``."""
+    ``Nkv`` to be multiples of ``block_size``.  On ``DTensor`` arguments
+    each rank computes only its own (batch, heads) shard
+    (:func:`_per_shard`)."""
+    if type(q) is not torch.Tensor:
+        from torch.distributed.tensor import DTensor
+        if isinstance(q, DTensor):
+            return _per_shard(q, k, v, block_mask, dict(
+                block_size=block_size, causal=causal, window=window,
+                sink=sink, collect_stats=collect_stats, q_offset=q_offset))
     b, h, n, d = q.shape
     nkv = k.shape[2]
     gridded = block_mask is not None or collect_stats
@@ -101,6 +109,45 @@ def chunked_attention(
     if collect_stats:
         return out, torch.stack(stats, dim=2)
     return out
+
+
+def _per_shard(q, k, v, block_mask, kw):
+    """:func:`chunked_attention` of ``DTensor`` arguments, run by each rank
+    on its own (batch, heads) shard: q, k, v and the block mask are placed
+    as q's batch and head axes are (any other split of q gathered; a
+    replicated argument is sliced in place, with no collective), the block
+    loop runs on the local shards (``local_map``), and its outputs come
+    back so placed.  Attention reduces nothing across (batch, head) pairs.
+    ``DTensor``'s own einsum flattens batch × heads into one product axis,
+    which cannot carry two mesh axes, and so computes every head on every
+    rank."""
+    from torch.distributed.tensor import (
+        DTensor,
+        Replicate,
+        Shard,
+        distribute_tensor,
+    )
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    # one tensor's placements: a list (local_map reads a tuple as one
+    # entry per output)
+    place = [p if isinstance(p, Shard) and p.dim in (0, 1) else Replicate()
+             for p in q.placements]
+
+    def placed(x):
+        if isinstance(x, DTensor):
+            return x.redistribute(mesh, place)
+        return distribute_tensor(x, mesh, place, src_data_rank=None)
+
+    masked = block_mask is not None
+    fn = local_map(
+        lambda q_, k_, v_, m_: chunked_attention(q_, k_, v_, block_mask=m_,
+                                                 **kw),
+        out_placements=(place, place) if kw["collect_stats"] else place,
+        in_placements=(place, place, place, place if masked else None),
+        device_mesh=mesh)
+    return fn(placed(q), placed(k), placed(v),
+              placed(block_mask) if masked else None)
 
 
 def chunked_attention_fn(*, block_size: int, causal: bool = True):

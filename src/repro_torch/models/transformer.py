@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
-from repro_torch.distributed.sharding import shard
+from repro_torch.distributed.sharding import empty_stack, shard
 from repro_torch.kernels.decode_attn import DecodePlan
 from repro_torch.models import attention as attn
 from repro_torch.models import common, mla, moe
@@ -46,9 +46,14 @@ class PrefillResult(NamedTuple):
 def logits_from_hidden(params, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
     x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
-    logits = (x @ params["embed"].T if cfg.tie_embeddings
-              else x @ params["lm_head"])
-    return shard(logits, "batch", None, "vocab")
+    # the product's operands placed first, the hidden over the batch and
+    # the table over the vocabulary: a DTensor product of a model-partial
+    # hidden and an FSDP-split table gathers both (every rank held the
+    # training step's global (B, S, V) logits)
+    x = shard(x, "batch")
+    w = (shard(params["embed"], "vocab").T if cfg.tie_embeddings
+         else shard(params["lm_head"], None, "vocab"))
+    return shard(x @ w, "batch", None, "vocab")
 
 
 def num_prefix_layers(cfg: ModelConfig) -> int:
@@ -59,7 +64,9 @@ def num_prefix_layers(cfg: ModelConfig) -> int:
 
 def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                  ) -> torch.Tensor:
-    return shard(params["embed"][tokens], "batch")
+    # the table over the vocabulary alone before the lookup (an FSDP-split
+    # table's lookup gathered the batch's whole (B, S, d) on every rank)
+    return shard(shard(params["embed"], "vocab")[tokens], "batch")
 
 
 def _ffn_apply(layer, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -171,7 +178,8 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     cluster_arr = sp.layer_cluster_ids(device=device) if sharing else None
 
     # prefix layers' entries as they are; the stack's copied into (L', …)
-    # tensors allocated at the first one, so each layer's own can go
+    # tensors allocated at the first one, so each layer's own can go (on
+    # DTensors, each rank's shard of the stack alone: empty_stack)
     n_prefix = num_prefix_layers(cfg)
     prefix, stack, stats = [], None, []
     for li, layer in enumerate(params["layers"]):
@@ -183,7 +191,7 @@ def prefill(params, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             prefix.append(entry)
             continue
         if stack is None:
-            stack = tuple(t.new_empty((cfg.num_layers - n_prefix, *t.shape))
+            stack = tuple(empty_stack(t, cfg.num_layers - n_prefix)
                           for t in entry)
         for dst, t in zip(stack, entry):
             dst[li - n_prefix] = t

@@ -67,7 +67,13 @@ def split_strip(q, k, bs: int, chunk: int):
     return p / torch.clamp(L, min=1e-30)[..., None], parts
 
 
-@pytest.mark.parametrize("h,hkv", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("h,hkv,d", [
+    pytest.param(4, 4, 64, id="4-4"),
+    pytest.param(8, 2, 64, id="8-2"),
+    # RecurrentGemma's head dim and group: the tensor-core body at D = 256
+    # reloads Q's fragments from shared memory, the same split and merge
+    pytest.param(16, 1, 256, id="16-1-256"),
+])
 @pytest.mark.parametrize("n,bs,chunk,nq", [
     (256, 64, 256, 256),     # one chunk
     (320, 64, 128, 352),     # a ragged last chunk (64 keys), Nq > bs rows
@@ -75,9 +81,9 @@ def split_strip(q, k, bs: int, chunk: int):
                              # no key
     (208, 16, 128, 224),     # N % 64 != 0: a ragged last sub-tile (16 keys)
 ])
-def test_split_strip_matches_pallas(h, hkv, n, bs, chunk, nq):
+def test_split_strip_matches_pallas(h, hkv, d, n, bs, chunk, nq):
     rng = np.random.default_rng(21)
-    b, d = 2, 64
+    b = 2
     bf = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).bfloat16().float()
     q, k = bf(b, h, nq, d), bf(b, hkv, n, d)
