@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch import checkpoint
+from repro_torch import checkpoint, tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
 from repro_torch.models import hybrid, ssm_stack, transformer, whisper
@@ -86,40 +86,42 @@ class Model:
                 method: str = "share", attn_impl: str = "auto",
                 attn_width: Optional[int] = None, prompt_lens=None,
                 positions=None, embeds=None):
-        if not self.transformer_family:
-            self._plain_only(attn_width=attn_width,
-                             prompt_lens=prompt_lens is not None)
-            return PLAIN_FAMILIES[self.cfg.family].prefill(
-                params, self.cfg, tokens, sp, method=method,
-                attn_impl=attn_impl, positions=positions, embeds=embeds)
-        return transformer.prefill(params, self.cfg, tokens, sp,
-                                   method=method, attn_impl=attn_impl,
-                                   attn_width=attn_width,
-                                   prompt_lens=prompt_lens,
-                                   positions=positions, embeds=embeds)
+        with tracing.span("model.prefill"):
+            if not self.transformer_family:
+                self._plain_only(attn_width=attn_width,
+                                 prompt_lens=prompt_lens is not None)
+                return PLAIN_FAMILIES[self.cfg.family].prefill(
+                    params, self.cfg, tokens, sp, method=method,
+                    attn_impl=attn_impl, positions=positions, embeds=embeds)
+            return transformer.prefill(params, self.cfg, tokens, sp,
+                                       method=method, attn_impl=attn_impl,
+                                       attn_width=attn_width,
+                                       prompt_lens=prompt_lens,
+                                       positions=positions, embeds=embeds)
 
     def decode(self, params, token, cache, pos, *, positions=None,
                embeds=None, plan=None, prompt_lens=None, prefill_len=0,
                decode_impl: str = "auto", page_table=None,
                collect_queries: bool = False, window: int = 0):
-        if not self.transformer_family:
-            self._plain_only(plan=plan is not None,
-                             prompt_lens=prompt_lens is not None,
-                             prefill_len=prefill_len,
-                             decode_impl=decode_impl != "auto",
-                             page_table=page_table is not None,
-                             collect_queries=collect_queries)
-            return PLAIN_FAMILIES[self.cfg.family].decode_step(
-                params, self.cfg, token, cache, pos, positions,
-                window=window, embeds=embeds)
-        return transformer.decode_step(params, self.cfg, token, cache, pos,
-                                       positions=positions, embeds=embeds,
-                                       plan=plan, prompt_lens=prompt_lens,
-                                       prefill_len=prefill_len,
-                                       decode_impl=decode_impl,
-                                       page_table=page_table,
-                                       collect_queries=collect_queries,
-                                       window=window)
+        with tracing.span("model.decode"):
+            if not self.transformer_family:
+                self._plain_only(plan=plan is not None,
+                                 prompt_lens=prompt_lens is not None,
+                                 prefill_len=prefill_len,
+                                 decode_impl=decode_impl != "auto",
+                                 page_table=page_table is not None,
+                                 collect_queries=collect_queries)
+                return PLAIN_FAMILIES[self.cfg.family].decode_step(
+                    params, self.cfg, token, cache, pos, positions,
+                    window=window, embeds=embeds)
+            return transformer.decode_step(params, self.cfg, token, cache, pos,
+                                           positions=positions, embeds=embeds,
+                                           plan=plan, prompt_lens=prompt_lens,
+                                           prefill_len=prefill_len,
+                                           decode_impl=decode_impl,
+                                           page_table=page_table,
+                                           collect_queries=collect_queries,
+                                           window=window)
 
     def init_cache(self, batch: int, cache_len: int, *, dtype=None):
         """Zeroed contiguous cache in ``dtype`` (default: the model's); the

@@ -41,6 +41,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import share_attention as sa
 from repro_torch.core.api import SharePrefill
@@ -180,8 +181,9 @@ def _qkv_rope(params, x, cfg: ModelConfig, positions, method: str):
     if method not in PREFILL_METHODS:
         raise ValueError(f"unknown prefill method {method!r}; expected one "
                          f"of {PREFILL_METHODS}")
-    q, k, v = common.gqa_qkv(params, x)
-    q, k = rope_qk(q, k, positions, cfg)
+    with tracing.span("attn.qkv"):
+        q, k, v = common.gqa_qkv(params, x)
+        q, k = rope_qk(q, k, positions, cfg)
     return q, k, v
 
 
@@ -217,17 +219,27 @@ def attention_prefill_begin(
     n = x.shape[1]
     if method == "dense" or not sp.applicable(n):
         return LayerStage(q, k, v, window=cfg.sliding_window)
+    with tracing.span("share.masks"):
+        return _stage_masks(q, k, v, cfg, method=method, sp=sp,
+                            sp_state=sp_state, cluster_ids=cluster_ids,
+                            attn_impl=attn_impl, seg_blocks=seg_blocks)
+
+
+def _stage_masks(q, k, v, cfg: ModelConfig, *, method: str,
+                 sp: SharePrefill, sp_state, cluster_ids, attn_impl: str,
+                 seg_blocks: Optional[int]) -> LayerStage:
+    """:func:`attention_prefill_begin`'s mask staging."""
+    n, dev = q.shape[2], q.device
     bs = prefill_block_size(sp, n)
     nb = n // bs
-    extra = extra_block_mask(cfg, nb, bs, seg_blocks, device=x.device)
+    extra = extra_block_mask(cfg, nb, bs, seg_blocks, device=dev)
     if method != "share":
         masks = baseline_block_masks(method, q, k, gamma=sp.cfg.gamma,
                                      block_size=bs)
-        masks = masks & causal_block_mask(nb, device=x.device)
+        masks = masks & causal_block_mask(nb, device=dev)
         if extra is not None:
             masks = masks & extra
-        gate = torch.zeros(masks.shape[:2], dtype=torch.int32,
-                           device=x.device)
+        gate = torch.zeros(masks.shape[:2], dtype=torch.int32, device=dev)
         return LayerStage(q, k, v, masks, gate=gate)
     masks, decision = sa.build_share_masks(q, k, sp_state, cluster_ids,
                                            sp.cfg, extra)
@@ -252,6 +264,14 @@ def attention_prefill_rows(
     the row's tables alone, so chunks assemble bitwise into the whole
     launch.  The whole launch (no chunk) is :func:`resolve_attention_fn`'s,
     per head shard under an active model mesh.  Returns ``(out (B, H, cn, Dv), Ã (B, H, cnb, NB) | None)``."""
+    with tracing.span("attn.rows"):
+        return _prefill_rows(sp, stage, attn_impl, attn_width, chunk_start,
+                             chunk_blocks)
+
+
+def _prefill_rows(sp: SharePrefill, stage: LayerStage, attn_impl: str,
+                  attn_width: Optional[int], chunk_start: int,
+                  chunk_blocks: Optional[int]):
     q, k, v = stage.q, stage.k, stage.v
     bs = prefill_block_size(sp, q.shape[2])
     off = chunk_start * bs
@@ -318,12 +338,13 @@ def attention_prefill_end(
     does."""
     if stage.masks is None:
         return sp_state, AttnStats.zero(stage.q.device)
-    if stage.decision is None:
-        return sp_state, baseline_stats(stage.masks)
-    sp_state = sa.update_share_state(a_tilde, sp_state, cluster_ids,
-                                     stage.decision, sp.cfg)
-    return sp_state, _attn_stats(
-        sa.layer_pattern_stats(stage.masks, stage.decision))
+    with tracing.span("share.update"):
+        if stage.decision is None:
+            return sp_state, baseline_stats(stage.masks)
+        sp_state = sa.update_share_state(a_tilde, sp_state, cluster_ids,
+                                         stage.decision, sp.cfg)
+        return sp_state, _attn_stats(
+            sa.layer_pattern_stats(stage.masks, stage.decision))
 
 
 def attention_prefill(
@@ -357,19 +378,19 @@ def attention_prefill(
         out, new_state, ls = sa.batched_share_prefill_attention_layer(
             q, k, v, sp_state, cluster_ids, sp.cfg, attention_fn,
             extra_block_mask(cfg, n // bs, bs, device=x.device))
-        out = shard(out, "batch", "heads")
-        return common.gqa_out(params, out), (k, v), new_state, \
-            _attn_stats(ls)
+        return (prefill_out_proj(params, out), (k, v), new_state,
+                _attn_stats(ls))
     stage = attention_prefill_begin(
         params, x, cfg, positions, method=method, sp=sp, sp_state=sp_state,
         cluster_ids=cluster_ids, attn_impl=attn_impl)
     if per_sample:
         attention_fn = resolve_attention_fn(
             attn_impl, prefill_block_size(sp, n), width=attn_width)
-        out = torch.stack([
-            attention_fn(stage.q[i], stage.k[i], stage.v[i],
-                         stage.masks[i])[0]
-            for i in range(x.shape[0])])
+        with tracing.span("attn.rows"):
+            out = torch.stack([
+                attention_fn(stage.q[i], stage.k[i], stage.v[i],
+                             stage.masks[i])[0]
+                for i in range(x.shape[0])])
         a_tilde = None
     else:
         out, a_tilde = attention_prefill_rows(sp, stage, attn_impl=attn_impl,
@@ -377,8 +398,13 @@ def attention_prefill(
     sp_state, stats = attention_prefill_end(stage, a_tilde, sp=sp,
                                             sp_state=sp_state,
                                             cluster_ids=cluster_ids)
-    out = shard(out, "batch", "heads")
-    return common.gqa_out(params, out), (stage.k, stage.v), sp_state, stats
+    return prefill_out_proj(params, out), (stage.k, stage.v), sp_state, stats
+
+
+def prefill_out_proj(params, out: torch.Tensor) -> torch.Tensor:
+    """The o-projection of a prefill's heads ``(B, H, S, Dv)``."""
+    with tracing.span("attn.out"):
+        return common.gqa_out(params, shard(out, "batch", "heads"))
 
 
 def row_positions(pos, b: int, device) -> torch.Tensor:
@@ -420,22 +446,26 @@ def attention_decode(
     ``page_table`` switches to the block-paged pool: ``cache_k``/``cache_v``
     are then one layer's ``(P, Hkv, page_size, hd)`` pool slice and ``pos``
     must be the per-slot vector (see :func:`_attention_decode_paged`)."""
-    q, k, v = common.gqa_qkv(params, x)
-    q, k = rope_qk(q, k, positions, cfg)
-    out = _attend_decode(params, q, k, v, cache_k, cache_v, pos,
-                         valid_mask=valid_mask, plan=plan,
-                         decode_impl=decode_impl, page_table=page_table)
+    with tracing.span("attn.qkv"):
+        q, k, v = common.gqa_qkv(params, x)
+        q, k = rope_qk(q, k, positions, cfg)
+    with tracing.span("attn.decode"):
+        out = _attend_decode(q, k, v, cache_k, cache_v, pos,
+                             valid_mask=valid_mask, plan=plan,
+                             decode_impl=decode_impl, page_table=page_table)
+    with tracing.span("attn.out"):
+        out = common.gqa_out(params, out)
     return (out, q[:, :, 0]) if return_q else out
 
 
-def _attend_decode(params, q, k, v, cache_k, cache_v, pos, *, valid_mask,
-                   plan, decode_impl, page_table) -> torch.Tensor:
+def _attend_decode(q, k, v, cache_k, cache_v, pos, *, valid_mask, plan,
+                   decode_impl, page_table) -> torch.Tensor:
     """:func:`attention_decode` after QKV and rope: the cache append and
-    the attention."""
+    the attention, ``(B, H, 1, hd)`` before the o-projection."""
     b = q.shape[0]
     if page_table is not None:
         return _attention_decode_paged(
-            params, q, k, v, cache_k, cache_v, pos, page_table,
+            q, k, v, cache_k, cache_v, pos, page_table,
             valid_mask=valid_mask, plan=plan, decode_impl=decode_impl)
     if isinstance(pos, torch.Tensor) and pos.dim():
         rows = torch.arange(b, device=q.device)    # per-row writes
@@ -466,12 +496,13 @@ def _attend_decode(params, q, k, v, cache_k, cache_v, pos, *, valid_mask,
             out = flash_decode_plan(q[:, :, 0].contiguous(), cache_k,
                                     cache_v, plan, mask.contiguous(),
                                     impl=decode_impl)
-        return common.gqa_out(params, out[:, :, None, :])
-    return _dense_decode(params, q, cache_k, cache_v, mask)
+        return out[:, :, None, :]
+    return _dense_decode(q, cache_k, cache_v, mask)
 
 
-def _dense_decode(params, q, cache_k, cache_v, mask) -> torch.Tensor:
-    """Grouped masked-softmax decode over a contiguous cache (plain)."""
+def _dense_decode(q, cache_k, cache_v, mask) -> torch.Tensor:
+    """Grouped masked-softmax decode over a contiguous cache (plain):
+    ``(B, H, 1, hd)``."""
     b, h, _, hd = q.shape
     hkv = cache_k.shape[1]
     g = h // hkv
@@ -485,12 +516,11 @@ def _dense_decode(params, q, cache_k, cache_v, mask) -> torch.Tensor:
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgs,bksd->bkgd", p.to(cache_v.dtype).float(),
                        cache_v.float())
-    out = out.to(q.dtype).reshape(b, h, 1, hd)
-    return common.gqa_out(params, out)
+    return out.to(q.dtype).reshape(b, h, 1, hd)
 
 
-def _attention_decode_paged(params, q, k, v, pool_k, pool_v, pos,
-                            page_table, *, valid_mask, plan, decode_impl):
+def _attention_decode_paged(q, k, v, pool_k, pool_v, pos, page_table, *,
+                            valid_mask, plan, decode_impl):
     """Block-paged half of :func:`attention_decode` (after QKV and rope).
 
     The append is a sliver scatter: row b's K/V land at ``pool[page_table[b,
@@ -525,6 +555,6 @@ def _attention_decode_paged(params, q, k, v, pool_k, pool_v, pos,
             out = flash_decode_plan_paged(
                 q[:, :, 0].contiguous(), pool_k, pool_v, page_table, plan,
                 mask.contiguous(), impl=decode_impl)
-        return common.gqa_out(params, out[:, :, None, :])
-    return _dense_decode(params, q, gather_pages(pool_k, page_table),
+        return out[:, :, None, :]
+    return _dense_decode(q, gather_pages(pool_k, page_table),
                          gather_pages(pool_v, page_table), mask)

@@ -45,9 +45,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
-from repro_torch.distributed.sharding import shard
 from repro_torch.models import attention as attn
 from repro_torch.models import common
 from repro_torch.models.transformer import (_ffn_block, embed_tokens,
@@ -79,7 +79,8 @@ def chunk_prefill_layer_begin(
     """ln1 and :func:`~repro_torch.models.attention.attention_prefill_begin`
     at full length: QKV, rope and the mask staging."""
     layer = params["layers"][layer_idx]
-    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+    with tracing.span("attn.qkv"):
+        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
     return attn.attention_prefill_begin(
         layer["attn"], h, cfg, positions, method=method, sp=sp,
         sp_state=sp_state,
@@ -100,8 +101,7 @@ def chunk_prefill_layer_end(
     while the host issues the dictionary update's small ops).  Returns
     ``(x, (k, v), sp_state, AttnStats)``, the ``layer_prefill`` contract."""
     layer = params["layers"][layer_idx]
-    out = shard(out, "batch", "heads")
-    x = _ffn_block(layer, x + common.gqa_out(layer["attn"], out), cfg)
+    x = _ffn_block(layer, x + attn.prefill_out_proj(layer["attn"], out), cfg)
     sp_state, stats = attn.attention_prefill_end(
         stage, a_tilde, sp=sp, sp_state=sp_state,
         cluster_ids=None if cluster_arr is None else cluster_arr[layer_idx])

@@ -26,6 +26,7 @@ from typing import Dict, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import shard
 from repro_torch.models import common
@@ -116,42 +117,49 @@ def moe_apply(params, x: torch.Tensor, cfg: ModelConfig
     ng = (b * s) // g
     cap = _capacity(g, cfg)
     xg = x.reshape(ng, g, d)
-    logits, probs, gate_vals, gate_idx = route(params, xg, cfg)
+    with tracing.span("moe.route"):
+        logits, probs, gate_vals, gate_idx = route(params, xg, cfg)
 
-    # each (token, choice) slot's position in its expert's queue, in token
-    # order and best choice first; past the capacity it is dropped
-    onehot = F.one_hot(gate_idx, e).float()                  # (NG, g, K, E)
-    flat = onehot.reshape(ng, g * k, e)
-    pos = ((torch.cumsum(flat, 1) - flat) * flat).sum(-1)    # (NG, g·K)
-    keep = pos < cap
-    slot_gate = gate_vals.reshape(ng, g * k) * keep
+    with tracing.span("moe.dispatch"):
+        # each (token, choice) slot's position in its expert's queue, in
+        # token order and best choice first; past the capacity it is dropped
+        onehot = F.one_hot(gate_idx, e).float()              # (NG, g, K, E)
+        flat = onehot.reshape(ng, g * k, e)
+        pos = ((torch.cumsum(flat, 1) - flat) * flat).sum(-1)  # (NG, g·K)
+        keep = pos < cap
+        slot_gate = gate_vals.reshape(ng, g * k) * keep
 
-    # dispatch / combine (NG, g, E·C): a token's k slots lie in distinct
-    # experts' columns, so each entry is one slot's keep bit / gate
-    adt = x.dtype
-    col = (gate_idx.reshape(ng, g * k) * cap
-           + pos.long().clamp(max=cap - 1)).reshape(ng, g, k)
-    dispatch = torch.zeros((ng, g, e * cap), dtype=adt, device=x.device)
-    combine = torch.zeros_like(dispatch)
-    dispatch.scatter_(2, col, keep.reshape(ng, g, k).to(adt))
-    combine.scatter_(2, col, slot_gate.reshape(ng, g, k).to(adt))
+        # dispatch / combine (NG, g, E·C): a token's k slots lie in distinct
+        # experts' columns, so each entry is one slot's keep bit / gate
+        adt = x.dtype
+        col = (gate_idx.reshape(ng, g * k) * cap
+               + pos.long().clamp(max=cap - 1)).reshape(ng, g, k)
+        dispatch = torch.zeros((ng, g, e * cap), dtype=adt, device=x.device)
+        combine = torch.zeros_like(dispatch)
+        dispatch.scatter_(2, col, keep.reshape(ng, g, k).to(adt))
+        combine.scatter_(2, col, slot_gate.reshape(ng, g, k).to(adt))
 
-    # expert inputs (E, NG·C, d): the dispatch product picks each slot's
-    # token; each expert's SwiGLU in float32 between its two products
-    expert_in = (dispatch.transpose(1, 2) @ xg).reshape(ng, e, cap, d)
-    expert_in = expert_in.transpose(0, 1).reshape(e, ng * cap, d)
-    expert_in = shard(expert_in, "experts", "batch")
-    expert_out = torch.empty_like(expert_in)
-    for i in range(e):
-        xi = expert_in[i]
-        h = (F.silu((xi @ params["w_gate"][i]).float())
-             * (xi @ params["w_up"][i]).float()).to(adt)
-        # the hidden on the FFN dim (the reference's (E, …) site: sharded
-        # on the experts where they divide, else here)
-        h = shard(h, "batch", "mlp")
-        expert_out[i] = h @ params["w_down"][i]
-    expert_out = expert_out.reshape(e, ng, cap, d).transpose(0, 1)
-    y = (combine @ expert_out.reshape(ng, e * cap, d)).reshape(b, s, d)
+        # expert inputs (E, NG·C, d): the dispatch product picks each
+        # slot's token
+        expert_in = (dispatch.transpose(1, 2) @ xg).reshape(ng, e, cap, d)
+        expert_in = expert_in.transpose(0, 1).reshape(e, ng * cap, d)
+        expert_in = shard(expert_in, "experts", "batch")
+
+    with tracing.span("moe.experts"):
+        # each expert's SwiGLU in float32 between its two products
+        expert_out = torch.empty_like(expert_in)
+        for i in range(e):
+            xi = expert_in[i]
+            h = (F.silu((xi @ params["w_gate"][i]).float())
+                 * (xi @ params["w_up"][i]).float()).to(adt)
+            # the hidden on the FFN dim (the reference's (E, …) site:
+            # sharded on the experts where they divide, else here)
+            h = shard(h, "batch", "mlp")
+            expert_out[i] = h @ params["w_down"][i]
+
+    with tracing.span("moe.combine"):
+        expert_out = expert_out.reshape(e, ng, cap, d).transpose(0, 1)
+        y = (combine @ expert_out.reshape(ng, e * cap, d)).reshape(b, s, d)
 
     if "shared" in params:
         y = y + common.mlp(params["shared"], x)

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.api import SharePrefill
 from repro_torch.distributed.sharding import empty_stack, shard
@@ -45,15 +46,16 @@ class PrefillResult(NamedTuple):
 
 def logits_from_hidden(params, cfg: ModelConfig,
                        x: torch.Tensor) -> torch.Tensor:
-    x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
-    # the product's operands placed first, the hidden over the batch and
-    # the table over the vocabulary: a DTensor product of a model-partial
-    # hidden and an FSDP-split table gathers both (every rank held the
-    # training step's global (B, S, V) logits)
-    x = shard(x, "batch")
-    w = (shard(params["embed"], "vocab").T if cfg.tie_embeddings
-         else shard(params["lm_head"], None, "vocab"))
-    return shard(x @ w, "batch", None, "vocab")
+    with tracing.span("model.head"):
+        x = common.rmsnorm(params["final_norm"], x, cfg.rms_norm_eps)
+        # the product's operands placed first, the hidden over the batch
+        # and the table over the vocabulary: a DTensor product of a
+        # model-partial hidden and an FSDP-split table gathers both (every
+        # rank held the training step's global (B, S, V) logits)
+        x = shard(x, "batch")
+        w = (shard(params["embed"], "vocab").T if cfg.tie_embeddings
+             else shard(params["lm_head"], None, "vocab"))
+        return shard(x @ w, "batch", None, "vocab")
 
 
 def num_prefix_layers(cfg: ModelConfig) -> int:
@@ -90,8 +92,9 @@ def _ffn_train(layer, h: torch.Tensor, cfg: ModelConfig):
 
 
 def _ffn_block(layer, x, cfg: ModelConfig) -> torch.Tensor:
-    h = common.rmsnorm(layer["ln2"], x, cfg.rms_norm_eps)
-    return x + _ffn_apply(layer, h, cfg)
+    with tracing.span("ffn"):
+        h = common.rmsnorm(layer["ln2"], x, cfg.rms_norm_eps)
+        return x + _ffn_apply(layer, h, cfg)
 
 
 def zero_aux(device) -> dict:
@@ -145,7 +148,8 @@ def layer_prefill(layer, x: torch.Tensor, cfg: ModelConfig,
                   attn_impl: str, attn_width: Optional[int] = None):
     """One layer of prefill: ``(x, cache entry, sp_state, stats)``; the
     entry is ``(k, v)``, or MLA's ``(c_kv, k_rope)``."""
-    h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+    with tracing.span("attn.qkv"):
+        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
     layer_fn = mla.mla_prefill if cfg.mla.enabled else attn.attention_prefill
     a, cache, sp_state, stats = layer_fn(
         layer["attn"], h, cfg, positions, method=method, sp=sp,
@@ -300,7 +304,8 @@ def decode_step(params, cfg: ModelConfig, token: Optional[torch.Tensor],
         valid = window_valid_mask(valid, s, pos, window, b, dev)
     qs = []
     for li, layer in enumerate(params["layers"]):
-        h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
+        with tracing.span("attn.qkv"):
+            h = common.rmsnorm(layer["ln1"], x, cfg.rms_norm_eps)
         a = attn.attention_decode(
             layer["attn"], h, cfg, cache_k[li], cache_v[li], pos, positions,
             valid_mask=valid, plan=None if plan is None else plan.layer(li),

@@ -63,12 +63,12 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.api import SharePrefill
 from repro_torch.distributed.sharding import active_model_mesh
 from repro_torch.models.api import TRANSFORMER_FAMILIES, Model
@@ -111,6 +111,10 @@ class Request:
     decode_tokens_per_s: float = 0.0    # (n_tokens − 1) / decode_s
     prefill_stall_s: float = 0.0        # decode wall time other slots lost
                                         # to this request's admission
+    prefill_positions: int = 0          # token positions its prefills
+                                        # computed (bucket, or packed
+                                        # segment; 0 on a prefix hit),
+                                        # summed over its admissions
     truncated: bool = False             # prompt clipped to the largest bucket
     finish_reason: str = ""             # "stop" | "length" | "timeout" |
                                         # "cancelled" | "failed" | "rejected"
@@ -312,11 +316,15 @@ class ServingEngine:
         requests at the scheduler's next step; ``faults`` (a
         :class:`~repro_torch.serving.faults.FaultInjector`, re-armed here)
         injects faults; the batch path ignores both."""
-        t0 = time.time()
+        t0 = tracing.now()
         self._reset_counters(handle, faults)
         if faults is not None:
             faults.reset()
-        live = self._validate_all(requests)
+        with tracing.span("serve"):
+            self._serve(self._validate_all(requests), seed, t0)
+        return requests
+
+    def _serve(self, live: List[Request], seed: int, t0: float) -> None:
         use_sched = ((self.ecfg.scheduler or self.ecfg.paged)
                      and self._supports_scheduler())
         if self.ecfg.paged and use_sched:
@@ -324,7 +332,7 @@ class ServingEngine:
                 seq = max(self._bucket(len(r.prompt)) for r in live)
                 SlotScheduler(self, live, seq, seed=seed, t0=t0,
                               paged=True).run()
-            return requests
+            return
         groups: Dict[int, List[Request]] = {}
         for r in live:
             groups.setdefault(self._bucket(len(r.prompt)), []).append(r)
@@ -335,7 +343,6 @@ class ServingEngine:
             for i in range(0, len(grp), self.ecfg.max_batch):
                 self._serve_batch(grp[i: i + self.ecfg.max_batch], seq,
                                   seed, t0=t0)
-        return requests
 
     def _transformer_family(self) -> bool:
         """Whether the model's prefill takes ``attn_width`` and
@@ -481,9 +488,11 @@ class ServingEngine:
         for i, r in enumerate(grp):
             by_cfg.setdefault(r.sampling, []).append(i)
         toks = np.zeros((len(grp),), np.int64)
-        for scfg, rows in sorted(by_cfg.items(), key=lambda kv: kv[1][0]):
-            t = sample_token(logits[rows], scfg, gen)
-            toks[rows] = t.cpu().numpy()
+        with tracing.span("sample"):
+            for scfg, rows in sorted(by_cfg.items(),
+                                     key=lambda kv: kv[1][0]):
+                t = sample_token(logits[rows], scfg, gen)
+                toks[rows] = t.cpu().numpy()
         return toks
 
     def _record_prefill_stats(self, result, width: Optional[int],
@@ -534,7 +543,12 @@ class ServingEngine:
 
     def _serve_batch(self, grp: List[Request], seq: int, seed: int,
                      t0: Optional[float] = None) -> None:
-        t0 = time.time() if t0 is None else t0
+        with tracing.span("batch"):
+            self._run_batch(grp, seq, seed, t0)
+
+    def _run_batch(self, grp: List[Request], seq: int, seed: int,
+                   t0: Optional[float]) -> None:
+        t0 = tracing.now() if t0 is None else t0
         b = len(grp)
         toks = np.zeros((b, seq), np.int64)
         plens_l = [self._pad_prompt(r, seq, toks[i])
@@ -542,16 +556,17 @@ class ServingEngine:
         plens = torch.tensor(plens_l, dtype=torch.int64, device=self.device)
         width = self._width_cap(seq)
 
-        tp = time.time()
+        tp = tracing.now()
         for r in grp:
             r.queue_s = max(tp - (t0 + r.arrival_s), 0.0)
+            r.prefill_positions += seq
         ragged = (dict(attn_width=width, prompt_lens=plens)
                   if self._transformer_family() else {})
         result = self.model.prefill(
             self.params, torch.as_tensor(toks, device=self.device), self.sp,
             method=self.ecfg.method, attn_impl=self.ecfg.attn_impl, **ragged)
         self._sync()
-        prefill_s = time.time() - tp
+        prefill_s = tracing.now() - tp
         stats = self._record_prefill_stats(result, width, seq)
 
         max_new = max(r.max_new_tokens for r in grp)
@@ -578,14 +593,14 @@ class ServingEngine:
         logits = result.last_logits
         outs: List[List[int]] = [[] for _ in range(b)]
         done = [False] * b
-        t1 = time.time()
+        t1 = tracing.now()
         finish = [t1] * b
         for i, r in enumerate(grp):
             if r.max_new_tokens <= 0:   # prefill-only: no token is emitted
                 done[i], r.finish_reason = True, "length"
         for t in range(max_new):
             tok = self._sample_batch(gen, logits, grp)
-            now = time.time()
+            now = tracing.now()
             if t == 0:
                 for r in grp:
                     if r.max_new_tokens > 0:

@@ -138,6 +138,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.serving import decode_plan as dplan
 from repro_torch.serving import paged_cache, prefix_cache, sparse_decode
 from repro_torch.serving import refresh as refresh_mod
@@ -181,6 +182,27 @@ class _Slot:
                                         # eviction progress guard)
 
 
+class _Phase:
+    """One timed stretch of the scheduler: on exit, raising or not, its
+    wall time (``s``) is added to ``phase_s[name]``; while tracing is on it
+    is also the span it was given."""
+    __slots__ = ("phase_s", "name", "span", "t", "s")
+
+    def __init__(self, phase_s: dict, name: str, span):
+        self.phase_s, self.name, self.span = phase_s, name, span
+        self.s = 0.0
+
+    def __enter__(self) -> "_Phase":
+        self.span.__enter__()
+        self.t = tracing.now()
+        return self
+
+    def __exit__(self, *exc):
+        self.s = tracing.now() - self.t
+        self.phase_s[self.name] += self.s
+        return self.span.__exit__(*exc)
+
+
 class SlotScheduler:
     """Continuous-batching serve of one bucket's requests (contiguous), or
     of every bucket's (``paged=True``)."""
@@ -191,7 +213,7 @@ class SlotScheduler:
         self.seq = seq
         self.seed = seed
         self.paged = bool(paged and engine.ecfg.paged)
-        self.t0 = time.time() if t0 is None else t0
+        self.t0 = tracing.now() if t0 is None else t0
         # FIFO in arrival order (stable for equal arrivals)
         self.queue = deque(sorted(requests, key=lambda r: r.arrival_s))
 
@@ -298,6 +320,21 @@ class SlotScheduler:
         self.run_: Optional[ChunkedPrefillRun] = None
         self._run_wall = 0.0
 
+    def _phase(self, name: str, span: str) -> _Phase:
+        """The stretch behind ``engine.phase_s[name]`` and the span
+        ``sched.<span>``: ``prefill`` is ``admit`` and ``quantum``,
+        ``decode`` is ``decode_step``, ``idle`` is ``wait`` and
+        ``refresh`` is ``refresh``."""
+        return _Phase(self.eng.phase_s, name,
+                      tracing.span("sched." + span))
+
+    def _wait_for(self, r) -> None:
+        """Fully idle: sleep until ``r`` arrives."""
+        wait = (self.t0 + r.arrival_s) - tracing.now()
+        if wait > 0:
+            with self._phase("idle", "wait"):
+                time.sleep(wait)
+
     # -- lifecycle ------------------------------------------------------
     def run(self) -> None:
         try:
@@ -328,7 +365,7 @@ class SlotScheduler:
             self._step_begin()
             self._prefill_step()
             if (self.run_ is not None and self.paged and self.queue
-                    and (self.t0 + self.queue[0].arrival_s) <= time.time()
+                    and (self.t0 + self.queue[0].arrival_s) <= tracing.now()
                     and self._prefix_entry(self.queue[0]) is None):
                 self._shed_index_for(self.queue[0])
                 if (self.alloc.free_pages
@@ -362,7 +399,7 @@ class SlotScheduler:
             cancelled |= self.handle.cancelled()
         if self.faults is not None:
             cancelled |= self.faults.cancelled()
-        now = time.time()
+        now = tracing.now()
 
         def doom_reason(r):
             if r.uid in cancelled:
@@ -404,7 +441,7 @@ class SlotScheduler:
         if error is not None and r.error is None:
             r.error = error
         self._finish(_Slot(req=r, gen=None, outs=list(r.resume_tokens),
-                           last_tok=0, t_first=time.time()), reason)
+                           last_tok=0, t_first=tracing.now()), reason)
 
     def _abort_run(self, run: ChunkedPrefillRun) -> None:
         """Abort the chunked run in flight between quanta: its pages
@@ -721,29 +758,28 @@ class SlotScheduler:
         alloc_blocks = len(self.slot_pages.get(slot, ()))
         if nblk <= 0 or not alloc_blocks:
             return
-        t0 = time.time()
-        horizon = max(min(self.horizon_blocks, alloc_blocks - nblk), 0)
-        row = dplan.build_refresh_plan_row(
-            st.window(), self.cache[0],
-            torch.as_tensor(self.page_table[slot], device=eng.device),
-            eng.model.cfg, block_size=bs, num_blocks=nblk,
-            table_blocks=self.table_blocks, horizon_blocks=horizon,
-            mass=ecfg.refresh_mass, min_width=ecfg.refresh_min_width)
-        self._slot_rows[slot] = row
-        self._splice_row(slot, row)
-        st.last_refresh_pos = pos
-        st.horizon_end = nblk + horizon
-        r = s.req
-        r.refreshes += 1
-        eng.refresh_stats["refreshes"] += 1
-        r.tail_fraction, r.plan_traffic_fraction = \
-            dplan.plan_row_tail_stats(
-                row, prefill_blocks=int(self.pflens[slot]) // bs,
-                num_blocks=alloc_blocks)
-        if r.pattern_stats is not None:
-            r.pattern_stats["decode_traffic_fraction"] = \
-                r.plan_traffic_fraction
-        eng.phase_s["refresh"] += time.time() - t0
+        with self._phase("refresh", "refresh"):
+            horizon = max(min(self.horizon_blocks, alloc_blocks - nblk), 0)
+            row = dplan.build_refresh_plan_row(
+                st.window(), self.cache[0],
+                torch.as_tensor(self.page_table[slot], device=eng.device),
+                eng.model.cfg, block_size=bs, num_blocks=nblk,
+                table_blocks=self.table_blocks, horizon_blocks=horizon,
+                mass=ecfg.refresh_mass, min_width=ecfg.refresh_min_width)
+            self._slot_rows[slot] = row
+            self._splice_row(slot, row)
+            st.last_refresh_pos = pos
+            st.horizon_end = nblk + horizon
+            r = s.req
+            r.refreshes += 1
+            eng.refresh_stats["refreshes"] += 1
+            r.tail_fraction, r.plan_traffic_fraction = \
+                dplan.plan_row_tail_stats(
+                    row, prefill_blocks=int(self.pflens[slot]) // bs,
+                    num_blocks=alloc_blocks)
+            if r.pattern_stats is not None:
+                r.pattern_stats["decode_traffic_fraction"] = \
+                    r.plan_traffic_fraction
 
     # -- admission --------------------------------------------------------
     def _admit(self) -> None:
@@ -761,12 +797,10 @@ class SlotScheduler:
                     # queue.  A prefix hit maps pages instead: no gate.
                     self._note_starved(r)
                     return
-            wait = (self.t0 + r.arrival_s) - time.time()
-            if wait > 0:
+            if (self.t0 + r.arrival_s) > tracing.now():
                 if any(s is not None for s in self.slots):
                     return              # keep decoding, admit it later
-                time.sleep(wait)        # fully idle: jump to next arrival
-                self.eng.phase_s["idle"] += wait
+                self._wait_for(r)       # fully idle: jump to next arrival
             self.queue.popleft()
             self._start(r, free[0])
 
@@ -778,7 +812,7 @@ class SlotScheduler:
         carry = list(r.resume_tokens)
         gen = self._request_generator(r.uid)
         tok0 = int(sample_token(logits, r.sampling, gen)[0])
-        t_first = time.time()
+        t_first = tracing.now()
         if carry:
             tok0 = carry[0]             # carried tokens are verbatim
         else:                           # TTFT is the first-ever token's
@@ -820,7 +854,11 @@ class SlotScheduler:
         """prefilling → decode: prefill one request alone, sample its first
         token, write its K/V and splice its plan row (or, on a prefix hit,
         :meth:`_start_from_prefix`); a prefill under prefix sharing is
-        published."""
+        published.  The whole admission is ``phase_s["prefill"]``."""
+        with self._phase("prefill", "admit"):
+            self._start_one(r, slot)
+
+    def _start_one(self, r, slot: int) -> None:
         eng, seq = self.eng, self._bucket_of(r)
         entry = self._prefix_entry(r)
         if entry is not None:
@@ -833,11 +871,12 @@ class SlotScheduler:
         toks = np.zeros((1, seq), np.int64)
         plen = eng._pad_prompt(r, seq, toks[0])
         width = eng._width_cap(seq)
-        tp = time.time()
+        tp = tracing.now()
         r.queue_s = max(tp - (self.t0 + r.arrival_s), 0.0)
         try:
             if self.faults is not None:
                 self.faults.check_prefill([r.uid])
+            r.prefill_positions += seq
             result = eng.model.prefill(
                 eng.params, torch.as_tensor(toks, device=eng.device), eng.sp,
                 method=eng.ecfg.method, attn_impl=eng.ecfg.attn_impl,
@@ -845,12 +884,10 @@ class SlotScheduler:
                 prompt_lens=torch.tensor([plen], device=eng.device))
             finite = bool(torch.isfinite(result.last_logits).all())
         except Exception as e:          # noqa: BLE001 — quarantine wall
-            r.prefill_s = time.time() - tp
-            eng.phase_s["prefill"] += r.prefill_s
+            r.prefill_s = tracing.now() - tp
             self._quarantine_prefill(r, e)
             return
-        r.prefill_s = time.time() - tp
-        eng.phase_s["prefill"] += r.prefill_s
+        r.prefill_s = tracing.now() - tp
         if any(s is not None for s in self.slots):
             # the whole prefill ran while other slots waited to decode
             r.prefill_stall_s = r.prefill_s
@@ -929,7 +966,7 @@ class SlotScheduler:
         r.state = "prefilling"
         # the hit never reaches _pad_prompt, so the clip is flagged here
         r.truncated = len(np.asarray(r.prompt)) > seq
-        tp = time.time()
+        tp = tracing.now()
         r.queue_s = max(tp - (self.t0 + r.arrival_s), 0.0)
         try:
             if self.faults is not None:
@@ -937,8 +974,7 @@ class SlotScheduler:
         except Exception as e:          # noqa: BLE001 — quarantine wall
             self._quarantine_prefill(r, e)
             return
-        r.prefill_s = time.time() - tp  # ≈ 0: no prefill runs
-        eng.phase_s["prefill"] += r.prefill_s
+        r.prefill_s = tracing.now() - tp  # ≈ 0: no prefill runs
         r.prefix_hit = True
         entry.hits += 1
         self.prefix.hits += 1
@@ -1005,12 +1041,10 @@ class SlotScheduler:
                 self.alloc.free_pages < self._pages_needed(self.queue[0])):
             self._note_starved(self.queue[0])
             return None
-        wait = (self.t0 + self.queue[0].arrival_s) - time.time()
-        if wait > 0:
+        if (self.t0 + self.queue[0].arrival_s) > tracing.now():
             if any(s is not None for s in self.slots):
                 return None             # keep decoding, admit it later
-            time.sleep(wait)            # fully idle: jump to next arrival
-            eng.phase_s["idle"] += wait
+            self._wait_for(self.queue[0])   # fully idle: next arrival
         if head_hit:
             self._start(self.queue.popleft(), free[0])
             return None
@@ -1022,7 +1056,7 @@ class SlotScheduler:
             self._start(self.queue.popleft(), free[0])
             return None
         limit = min(self._pack_limit(seq), len(free))
-        group, now = [], time.time()
+        group, now = [], tracing.now()
         reserve = self.alloc.free_pages if self.paged else 0
         while (self.queue and len(group) < limit
                and (self.t0 + self.queue[0].arrival_s) <= now):
@@ -1045,6 +1079,7 @@ class SlotScheduler:
         for r in group:
             r.queue_s = max(now - (self.t0 + r.arrival_s), 0.0)
             r.state = "prefilling"
+            r.prefill_positions += seq      # its segment of the run
         # a packed run prefills uncapped: a width is resolved for one
         # bucket geometry, not the packed grid
         width = eng._width_cap(seq) if len(group) == 1 else None
@@ -1072,24 +1107,23 @@ class SlotScheduler:
                 return
         run = self.run_
         occupied = any(s is not None for s in self.slots)
-        tq = time.time()
+        quantum = self._phase("prefill", "quantum")
         try:
-            if self.faults is not None:
-                # injected faults land between quanta: a PrefillError
-                # quarantines the run, a SlowQuantum stretches the quantum
-                uids = [r.uid for r in run.requests]
-                self.faults.check_prefill(uids)
-                d = self.faults.quantum_delay(uids)
-                if d > 0:
-                    time.sleep(d)
-            ev = run.step()
+            with quantum:
+                if self.faults is not None:
+                    # injected faults land between quanta: a PrefillError
+                    # quarantines the run, a SlowQuantum stretches it
+                    uids = [r.uid for r in run.requests]
+                    self.faults.check_prefill(uids)
+                    d = self.faults.quantum_delay(uids)
+                    if d > 0:
+                        time.sleep(d)
+                ev = run.step()
         except Exception as e:          # noqa: BLE001 — quarantine wall
-            self.eng.phase_s["prefill"] += time.time() - tq
             self._quarantine_run(run, e)
             return
-        dt = time.time() - tq
+        dt = quantum.s
         self._run_wall += dt
-        self.eng.phase_s["prefill"] += dt
         if occupied:
             # this quantum ran instead of a decode step: the stall is
             # charged to the admitting request(s), split across segments
@@ -1234,8 +1268,13 @@ class SlotScheduler:
         """One decode step over all slots (occupied or inert), then per-slot
         sampling, early exit and slot freeing; with refresh on, the query
         capture before and the refresh pass after."""
+        with self._phase("decode", "decode_step"):
+            self._decode_slots()
+        if self.refresh_on:
+            self._refresh_tick()
+
+    def _decode_slots(self) -> None:
         eng = self.eng
-        td = time.time()
         if self.prefix is not None:
             # copy-on-write before the append: no shared page is written
             # (a slot preempted for want of a page sits this step out)
@@ -1274,6 +1313,12 @@ class SlotScheduler:
                 eng.params, as_dev(toks)[:, None], self.cache,
                 as_dev(self.pos), **kw)
 
+        with tracing.span("sample"):
+            self._sample_slots(occ, logits)
+
+    def _sample_slots(self, occ: List[int], logits: torch.Tensor) -> None:
+        """Each occupied slot's token from the step's logits; a slot that
+        finishes is vacated."""
         # one device→host copy for the step; greedy rows take np.argmax on
         # it (the first maximum, as torch.argmax)
         logits_h = logits.float().cpu().numpy()
@@ -1309,9 +1354,6 @@ class SlotScheduler:
                 self._vacate(i, s, "stop")
             elif len(s.outs) >= s.req.max_new_tokens:
                 self._vacate(i, s, "length")
-        eng.phase_s["decode"] += time.time() - td
-        if self.refresh_on:
-            self._refresh_tick()
 
     def _vacate(self, slot: int, s: _Slot, reason: str) -> None:
         """Free a slot mid-decode: finish its request, return its pages,
@@ -1333,7 +1375,7 @@ class SlotScheduler:
     def _finish(self, s: _Slot, reason: str) -> None:
         """Finalize the request's output, metrics and terminal state."""
         r = s.req
-        now = time.time()
+        now = tracing.now()
         r.output_tokens = np.asarray(s.outs, np.int32)
         r.finish_reason = reason
         r.state = self._TERMINAL_STATE[reason]
