@@ -50,17 +50,23 @@ run on error:
      in bfloat16 and float32 at the main path's shapes: the single-sample
      block-sparse kernel on sample 0's real layer-0 tables (W = 64) and on
      edge rows, the paged block-sparse kernel on a 16-block chunk at q
-     block 48 over a shuffled pool (also bitwise against the batched
-     kernel on the gathered pages), and both single-sample decodes on a
+     block 48 over a shuffled pool (also against the batched kernel on the
+     gathered pages: bitwise where both run one body, within ``TOL`` in
+     bf16, where the batched one is the Hopper body), and both
+     single-sample decodes on a
      real plan's token mask over an 8320-token cache with one all-false
      head; time them; then call each public function that no serve
      reaches once, launch counts reset just before and read just after;
      then hold the four decode kernels against their plain versions at
      mistral-large's GQA group (G = 12: H = 96, Hkv = 8, D = 128);
   8. serve phase 4's requests through the per-sample path
-     (``attn_impl="kernel"``), launch counts reset just before and read
-     just after, and compare greedy tokens and first-step logits with
-     phase 4's; then profile it;
+     (``attn_impl="kernel"``) under phase 4's masks and pattern decisions
+     (B.6's Ã rounds otherwise than the Hopper body's, and the decisions
+     are thresholds on it), launch counts reset just before and read
+     just after; hold its first-step logits, greedy tokens and own
+     decisions to a twin of phase 4 under the same masks whose B.2 runs
+     B.6 sample by sample (rounding as the per-sample path does); then
+     profile it;
   9. serve phase 6's requests, pool and buckets through chunked admission
      (``prefill_chunk=1024``: 8 chunks at the 8192 bucket, 2 at 2048),
      launch counts reset just before and read just after: greedy tokens
@@ -240,11 +246,17 @@ run on error:
      predicted peak within 15 % of the rise of ``max_memory_allocated``,
      the step time beside the roofline's ``memory_s``; (c) the four
      examples (``python -m repro_torch.examples.<name>``) as subprocesses,
-     each exiting 0, ``serve_longcontext``'s request lines printed.
+     each exiting 0, ``serve_longcontext``'s request lines printed;
+ 24. B.2's Hopper body (``bsa_wgmma_kernel``: BATCHED, bf16, bs = 128,
+     D = 128) at Qwen2.5-7B's layer shape (H = 28, Hkv = 4, N = 16384)
+     against its plain version, with edge rows, half the heads ungated,
+     rows listed out of order and a chunk launch at a q_block_offset > 0;
+     its times at 16k, 32k and 64k beside the bound, the plain version and
+     SDPA (``phase24``).
 
 Every phase that times a kernel also reads its device time from
 ``torch.profiler``; a port kernel that ran with no device time traced
-fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 23) builds
+fails the run.  ``python3 chip_smoke.py --phase 12`` (13 to 24) builds
 the kernels and runs that phase alone, printing no result line.
 ``python3 chip_smoke.py --bitwise TREE`` holds the equal-width
 block-sparse and strip instances bitwise to another checkout's
@@ -333,10 +345,11 @@ BASELINES = ("vertical_slash", "flex")
 METHODS = ("share", "dense") + BASELINES
 
 
-# the instances of the two templated kernel bodies, by their MODE argument
-# (csrc/block_sparse_attn.cu: the bf16 tensor-core body bsa_tc_kernel and the
-# float32 body bsa_f32_kernel; csrc/decode_attn.cu: decode_kernel and its
-# split combine decode_combine_kernel)
+# the instances of the templated kernel bodies, by their MODE argument
+# (csrc/block_sparse_attn.cu: the bf16 tensor-core body bsa_tc_kernel, its
+# Hopper body bsa_wgmma_kernel and the float32 body bsa_f32_kernel;
+# csrc/decode_attn.cu: decode_kernel and its split combine
+# decode_combine_kernel)
 INSTANCES = {("bsa", "0"): "block_sparse_attn",
              ("bsa", "1"): "block_sparse_attn_paged",
              ("bsa", "2"): "block_sparse_attn_single",
@@ -345,9 +358,10 @@ INSTANCES = {("bsa", "0"): "block_sparse_attn",
              ("decode", "2"): "decode_attn_dense",
              ("decode", "3"): "decode_attn_sparse"}
 # bsa_*_kernel<BQ, DQK, DV, MODE> (<BQ, D, MODE> before the V width had
-# its own argument), decode_kernel<T, MODE, GP, CH>,
+# its own argument, and for the Hopper body bsa_wgmma_kernel<BQ, D, MODE>),
+# decode_kernel<T, MODE, GP, CH>,
 # decode_combine_kernel<T, MODE>
-_INSTANCE = re.compile(r"\b(?:(bsa)_(?:tc|f32)_kernel<\d+,\s*\d+,\s*"
+_INSTANCE = re.compile(r"\b(?:(bsa)_(?:tc|f32|wgmma)_kernel<\d+,\s*\d+,\s*"
                        r"(?:\d+,\s*)?(\d+)>"
                        r"|(decode)_(?:combine_)?kernel<[^,<>]+,\s*(\d+)[,>])")
 _PORT_KERNEL = re.compile(r"\b(?:bsa|decode|strip)_\w*kernel\b")
@@ -1780,12 +1794,20 @@ def check_kernel_api(model, params, tokens, prompt) -> dict:
         torch.cuda.synchronize()
         bitwise = max(max_err(o1, o3), a_tilde_err(a1, a3))
         zero = bool((o1[0, 3, 2 * bs:3 * bs] == 0).all())
+        # the batched launch at bs = 128, D = 128 in bf16 is the Hopper
+        # body, which rounds otherwise than the paged instance's body
+        hopper = (str(dtype), bs, d, d) == HOPPER_CASE
         print(f"  block_sparse_attn_paged: counts==0 row exact zeros {zero};"
-              f" max |paged - kernel 2 on gathered pages| {bitwise:.3e}",
-              flush=True)
+              f" max |paged - kernel 2 on gathered pages| {bitwise:.3e}"
+              f"{' (the Hopper body)' if hopper else ''}", flush=True)
         if not zero:
             raise AssertionError("paged counts == 0 row is not zeros")
-        if bitwise != 0.0:
+        if hopper:
+            check("  out against the Hopper body", max_err(o1, o3),
+                  TOL[("out", dn)])
+            check("  a_tilde against the Hopper body", a_tilde_err(a1, a3),
+                  TOL[("a_tilde", dn)])
+        elif bitwise != 0.0:
             raise AssertionError("paged block-sparse kernel differs from "
                                  "the contiguous kernel on gathered pages")
         e = max_err(o1, o2)
@@ -2046,12 +2068,119 @@ def check_group12(dev) -> dict:
 
 # ---------------------------------------------------------------- phase 8
 
-# first-step logits of the per-sample serve against phase 4's: at most this
-# share of the largest |logit| (2.5 bf16 ulps; both runs do the same
-# kernels' arithmetic per (head, row), and only the torch ops that build
-# masks run at batch 1 instead of 2), which is also the near-tie margin of
+# first-step logits of the per-sample serve against its batched twin's,
+# both under phase 4's masks and pattern decisions and both attending
+# through B.6: at most this share of the largest |logit| (2.5 bf16 ulps;
+# both round alike per (head, row)), which is also the near-tie margin of
 # the greedy comparison
 PER_SAMPLE_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def record_share_masks():
+    """Within it, each call of ``build_share_masks`` (one a layer on the
+    batched path) appends its ``(masks, decision)`` to the list it
+    yields."""
+    from repro_torch.core import share_attention as sa
+    calls, build = [], sa.build_share_masks
+
+    def recording(*args, **kwargs):
+        masks, decision = build(*args, **kwargs)
+        calls.append((masks.clone(),
+                      type(decision)(*(x.clone() for x in decision))))
+        return masks, decision
+
+    sa.build_share_masks = recording
+    try:
+        yield calls
+    finally:
+        sa.build_share_masks = build
+
+
+@contextlib.contextmanager
+def replay_share_masks(calls: list):
+    """Within it, ``build_share_masks`` runs as always (its strip launch
+    counts) and returns the recorded ``(masks, decision)`` of ``calls``
+    (:func:`record_share_masks`) in its place, layer by layer: a call of b
+    samples takes the next b of the layer's.  Yields a ``(layers,
+    samples)`` count of the heads whose own decision differs from the
+    recorded one."""
+    import torch
+    from repro_torch.core import share_attention as sa
+    build = sa.build_share_masks
+    flips = torch.zeros((len(calls), calls[0][0].shape[0]), dtype=torch.int64)
+    cursor = [0, 0]                 # layer, first sample of the next call
+
+    def replaying(*args, **kwargs):
+        masks, mine = build(*args, **kwargs)
+        layer, s0 = cursor
+        rec_masks, rec = calls[layer]
+        part = slice(s0, s0 + masks.shape[0])
+        if rec_masks[part].shape != masks.shape:
+            raise AssertionError(f"layer {layer}: masks {tuple(masks.shape)}"
+                                 f" against recorded {tuple(rec_masks.shape)}")
+        other = ((mine.use_shared != rec.use_shared[part])
+                 | (mine.use_dense != rec.use_dense[part])
+                 | (mine.use_vs != rec.use_vs[part]))
+        flips[layer, part] += other.sum(-1).cpu()
+        cursor[:] = ((layer + 1, 0) if part.stop == rec_masks.shape[0]
+                     else (layer, part.stop))
+        return rec_masks[part], type(rec)(*(x[part] for x in rec))
+
+    sa.build_share_masks = replaying
+    try:
+        yield flips
+    finally:
+        sa.build_share_masks = build
+    if cursor != [len(calls), 0]:
+        raise AssertionError(f"replayed up to {cursor} of {len(calls)} "
+                             "layers")
+
+
+@contextlib.contextmanager
+def batched_through_single():
+    """Within it, B.2's dispatcher on CUDA tensors runs B.6 sample by sample
+    and scatters its compact Ã into B.2's layout (−inf off the visited
+    blocks and the gated heads): a batch serve that rounds as the
+    per-sample path does, head by head and row by row."""
+    import torch
+    from repro_torch.kernels import block_sparse_attn as bsa
+    saved = bsa.block_sparse_attention_cuda
+
+    def through_single(q, k, v, indices, counts, *, block_size: int,
+                       causal: bool = True, stats_gate=None,
+                       q_block_offset=None):
+        b, h, n, _ = q.shape
+        nb = n // block_size
+        if k.shape[2] != n or q_block_offset not in (None, 0):
+            raise ValueError("B.6 takes square one-shot launches only")
+        outs = []
+        a_tilde = torch.full((b, h, nb, nb), float("-inf"),
+                             dtype=torch.float32, device=q.device)
+        for i in range(b):
+            out, st = bsa.block_sparse_attention_kernel(
+                q[i], k[i], v[i], indices[i].contiguous(),
+                counts[i].contiguous(), block_size=block_size,
+                causal=causal)
+            outs.append(out)
+            # slots past a row's count read −inf, so amax keeps each
+            # visited block's Ã
+            a_tilde[i].scatter_reduce_(-1, indices[i].long(), st, "amax")
+        if stats_gate is not None:
+            a_tilde[stats_gate == 0] = float("-inf")
+        return torch.stack(outs), a_tilde
+
+    bsa.block_sparse_attention_cuda = through_single
+    try:
+        yield
+    finally:
+        bsa.block_sparse_attention_cuda = saved
+
+
+def first_logit_errs(run: dict, ref: dict) -> list:
+    """Max |difference| of two serves' first-step logits, per request."""
+    return (run["logits"][0].float() - ref["logits"][0].float()
+            ).abs().amax(-1).tolist()
 
 
 def serve_per_sample(model, params, prompts, layers: int, batch: dict
@@ -2059,11 +2188,24 @@ def serve_per_sample(model, params, prompts, layers: int, batch: dict
     """Phase 8: phase 4's requests served through the per-sample path
     (``attn_impl="kernel"``): the single-sample kernel and the strip once
     per sample and layer, the batched block-sparse kernel never, decode as
-    in phase 4; greedy tokens and first-step logits against phase 4's."""
+    in phase 4.  At bs = 128, D = 128 in bf16 phase 4's B.2 is the Hopper
+    body, whose output and Ã round otherwise than B.6's, and SharePrefill's
+    decisions (pivotal patterns, d_sim < τ) are thresholds on Ã, so on its
+    own masks the per-sample serve may take a near tie the other way and
+    change every later layer's masks.  So it replays phase 4's masks and
+    pattern decisions (``batch["share_masks"]``), and so does its batched
+    twin: phase 4's batch path with B.2 run by B.6
+    (:func:`batched_through_single`), which rounds as the per-sample path
+    does.  Held against the twin: first-step logits within
+    ``PER_SAMPLE_RTOL``, greedy tokens near-tie aware, and the decisions
+    each serve would take on its own Ã, layer by layer and request by
+    request; phase 4 itself is compared in print only (its body is held
+    to the plain version in phases 2 and 24)."""
     import torch
-    run = serve_full(model, params, prompts,
-                     {"block_sparse_attn_single": 2 * layers},
-                     attn_impl="kernel")
+    with replay_share_masks(batch["share_masks"]) as flips:
+        run = serve_full(model, params, prompts,
+                         {"block_sparse_attn_single": 2 * layers},
+                         attn_impl="kernel")
     counts, ref_counts = run["counts"], batch["counts"]
     want = dict(ref_counts, block_sparse_attn=0,
                 block_sparse_attn_single=len(prompts) * layers,
@@ -2071,15 +2213,26 @@ def serve_per_sample(model, params, prompts, layers: int, batch: dict
     if counts != want:
         raise AssertionError(f"per-sample serve launched {counts}, "
                              f"expected {want}")
-    first, ref_first = run["logits"][0], batch["logits"][0]
-    err = max_err(first, ref_first)
-    tol = PER_SAMPLE_RTOL * float(ref_first.abs().max())
-    print(f"  first-step logits max_abs_err against phase 4 {err:.3e} "
-          f"(tol {tol:.3e})", flush=True)
-    if err > tol:
-        raise AssertionError(f"per-sample logits differ by {err} > {tol}")
-    for i, (a, c) in enumerate(zip(batch["reqs"], run["reqs"])):
-        logits = torch.stack([x[i] for x in batch["logits"]]).cpu().numpy()
+    with batched_through_single(), \
+            replay_share_masks(batch["share_masks"]) as twin_flips:
+        twin = serve_full(model, params, prompts, {})
+    print(f"  own decisions the other way from phase 4's, per request: "
+          f"per-sample {flips.sum(0).tolist()}, twin "
+          f"{twin_flips.sum(0).tolist()}", flush=True)
+    if not torch.equal(flips, twin_flips):
+        raise AssertionError("the per-sample serve and its twin decide "
+                             "otherwise on their own Ã")
+    print("  first-step logits, max_abs_err per request: per-sample against"
+          f" phase 4 {first_logit_errs(run, batch)} (not held)", flush=True)
+    errs = first_logit_errs(run, twin)
+    tol = PER_SAMPLE_RTOL * float(twin["logits"][0].abs().max())
+    print(f"  first-step logits, max_abs_err per request: per-sample "
+          f"against its twin {errs} (tol {tol:.3e})", flush=True)
+    if max(errs) > tol:
+        raise AssertionError(f"per-sample: first-step logits differ from "
+                             f"the twin's by {max(errs)} > {tol}")
+    for i, (a, c) in enumerate(zip(twin["reqs"], run["reqs"])):
+        logits = torch.stack([x[i] for x in twin["logits"]]).cpu().numpy()
         verdict = greedy_agree(a.output_tokens, logits, c.output_tokens, tol)
         print(f"  request {a.uid}: {verdict}", flush=True)
     return counts
@@ -5734,17 +5887,20 @@ def c_fn(lib, name: str, n_ptr: int, n_int: int):
 
 
 def bitwise_instances(tree: str) -> int:
-    """``--bitwise TREE``: hold this checkout's equal-width instances
-    bitwise to another checkout's (``git archive PARENT | tar -x -C
-    build/parent``, then ``--bitwise build/parent``).  Both run on the same
-    seeded inputs: B.2, B.6 and B.5 (BATCHED, SINGLE, PAGED) at bs in {64,
-    128} and D in {64, 96, 128}, random causal tables, a random stats gate,
-    W capped and not, and B.1 at the same head dims; float32 and bfloat16.
-    Every output and Ã must be ``torch.equal``; one line per case, and a
-    non-zero exit on any difference.  The other checkout's C functions take
-    the same arguments as this one's (the V width included).  Then
-    B.2 in bf16 at phase 2's shape is timed in both, other, this, this,
-    other."""
+    """``--bitwise TREE``: hold this checkout's block-sparse and strip
+    instances bitwise to another checkout's (``git archive PARENT | tar -x
+    -C build/parent``, then ``--bitwise build/parent``).  Both run on the
+    same seeded inputs: B.2, B.6 and B.5 (BATCHED, SINGLE, PAGED) at bs in
+    {64, 128} and D in {64, 96, 128}, B.2 and B.6 also at D = 256 and
+    (Dqk, Dv) = (192, 128), random causal tables, a random stats gate, W
+    capped and not, and B.1 at the equal head dims; float32 and bfloat16.
+    Every output and Ã must be ``torch.equal``, but for ``HOPPER_CASE``
+    (B.2 in bf16 at bs = 128, D = 128), whose body this checkout may have
+    replaced: there both checkouts are held to the plain version within
+    ``TOL``.  One line per case, and a non-zero exit on any difference.
+    The other checkout's C functions take the same arguments as this
+    one's (the V width included).  Then B.2 in bf16 at phase 2's shape is
+    timed in both, other, this, this, other."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels import block_sparse_attn as bsa
@@ -5762,6 +5918,7 @@ def bitwise_instances(tree: str) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     b, h, hkv, n = 2, 8, 2, 1024
     bad = 0
+    widths = ((64, 64), (96, 96), (128, 128), (256, 256), (192, 128))
     for dtype in (torch.float32, torch.bfloat16):
         code = _build.dtype_code(torch.empty(0, dtype=dtype))
         for bs in (64, 128):
@@ -5772,10 +5929,11 @@ def bitwise_instances(tree: str) -> int:
             masks |= torch.eye(nb, dtype=torch.bool, device=dev)
             gate = (torch.rand((b, h), generator=gen, device=dev)
                     < 0.5).int()
-            for d in (64, 96, 128):
+            for d, dv in widths:
                 q, k, v = (torch.randn(shape, generator=gen, device=dev)
                            .to(dtype) for shape in
-                           ((b, h, n, d), (b, hkv, n, d), (b, hkv, n, d)))
+                           ((b, h, n, d), (b, hkv, n, d), (b, hkv, n, dv)))
+                equal = d == dv and d != 256
                 results = []
                 for width in (None, nb // 2):
                     idx, cnt = (x.contiguous() for x in
@@ -5783,23 +5941,28 @@ def bitwise_instances(tree: str) -> int:
                     w = idx.shape[-1]
                     mine = bsa.block_sparse_attention_cuda(
                         q, k, v, idx, cnt, block_size=bs, stats_gate=gate)
-                    out = torch.empty_like(q)
+                    out = q.new_empty((b, h, n, dv))
                     at = torch.full_like(mine[1], float("-inf"))
                     _build.check(other_b(
                         P(q), P(k), P(v), P(idx), P(cnt), P(gate), P(out),
-                        P(at), code, b, h, hkv, n, n, d, d, bs, w, 0, 1,
+                        P(at), code, b, h, hkv, n, n, d, dv, bs, w, 0, 1,
                         stream(q)), "other batched")
-                    results.append(("BATCHED", mine, (out, at)))
+                    plain = (bsa.block_sparse_attention_plain(
+                        q, k, v, idx, cnt, block_size=bs, stats_gate=gate)
+                        if (str(dtype), bs, d, dv) == HOPPER_CASE else None)
+                    results.append(("BATCHED", mine, (out, at), plain))
                     i0, c0 = idx[0].contiguous(), cnt[0].contiguous()
                     mine = bsa.block_sparse_attention_single_cuda(
                         q[0], k[0], v[0], i0, c0, block_size=bs)
-                    out = torch.empty_like(q[0])
+                    out = q.new_empty((h, n, dv))
                     st = torch.full_like(mine[1], float("-inf"))
                     _build.check(other_s(
                         P(q[0]), P(k[0]), P(v[0]), P(i0), P(c0), P(out),
-                        P(st), code, h, hkv, n, d, d, bs, w, 1, stream(q)),
+                        P(st), code, h, hkv, n, d, dv, bs, w, 1, stream(q)),
                         "other single")
-                    results.append(("SINGLE", mine, (out, st)))
+                    results.append(("SINGLE", mine, (out, st), None))
+                    if not equal:
+                        continue
                     pages = (1 + torch.randperm(b * nb + 2, generator=gen,
                                                 device=dev)[:b * nb]).int()
                     table = pages.reshape(b, nb).contiguous()
@@ -5820,7 +5983,10 @@ def bitwise_instances(tree: str) -> int:
                         P(cnt), P(gate), P(out), P(at), code, b, h, hkv, n,
                         nb, d, bs, w, 0, 1, b * nb + 3, stream(q)),
                         "other paged")
-                    results.append(("PAGED", mine, (out, at)))
+                    results.append(("PAGED", mine, (out, at), None))
+                if not equal:
+                    bad += report_cases(dtype, bs, (d, dv), results)
+                    continue
                 mine = sk.strip_scores_cuda(q, k, bs)
                 out = torch.empty_like(mine)
                 chunk = sk.strip_chunk(n)
@@ -5829,13 +5995,8 @@ def bitwise_instances(tree: str) -> int:
                 _build.check(other_strip(P(q), P(k), P(out), P(ml), code, b,
                                          h, hkv, n, n, d, bs, chunk,
                                          stream(q)), "other strip")
-                results.append(("STRIP", (mine,), (out,)))
-                torch.cuda.synchronize()
-                for mode, a, c in results:
-                    same = all(torch.equal(x, y) for x, y in zip(a, c))
-                    bad += not same
-                    print(f"{str(dtype)[6:]} bs={bs} D={d} {mode}: bitwise "
-                          f"{same}", flush=True)
+                results.append(("STRIP", (mine,), (out,), None))
+                bad += report_cases(dtype, bs, (d, dv), results)
     print(f"bitwise_instances: {bad} cases differ", flush=True)
     # B.2 in bf16 at phase 2's shape, the other checkout's body beside this
     # one's in the order other, this, this, other
@@ -5863,6 +6024,37 @@ def bitwise_instances(tree: str) -> int:
     print("B.2 bf16 at B=2 H=32 Hkv=8 N=8192 D=128 bs=128, ms: "
           + ", ".join(f"{who} {ms:.4f}" for who, ms in times), flush=True)
     return 1 if bad else 0
+
+
+# the one case of bitwise_instances whose body this checkout replaced
+HOPPER_CASE = ("torch.bfloat16", 128, 128, 128)
+
+
+def report_cases(dtype, bs: int, widths: tuple, results) -> int:
+    """Print one line per (mode, this, other, plain) case of
+    ``bitwise_instances``; the number that differ.  A case with a plain
+    version (``HOPPER_CASE``) holds both sides to it within ``TOL``
+    instead of to each other."""
+    import torch
+    torch.cuda.synchronize()
+    dn = str(dtype)[6:]
+    bad = 0
+    for mode, a, c, plain in results:
+        if plain is None:
+            ok = all(torch.equal(x, y) for x, y in zip(a, c))
+            what = f"bitwise {ok}"
+        else:
+            errs = [(max_err(side[0], plain[0]),
+                     a_tilde_err(side[1], plain[1])) for side in (a, c)]
+            ok = all(e <= TOL[("out", dn)] and ea <= TOL[("a_tilde", dn)]
+                     for e, ea in errs)
+            what = (f"within TOL of the plain version {ok} (this out "
+                    f"{errs[0][0]:.3e} Ã {errs[0][1]:.3e}, other out "
+                    f"{errs[1][0]:.3e} Ã {errs[1][1]:.3e})")
+        bad += not ok
+        print(f"{dn} bs={bs} D={widths[0]}/{widths[1]} {mode}: {what}",
+              flush=True)
+    return bad
 
 
 
@@ -6111,6 +6303,155 @@ def phase23() -> dict:
     return res
 
 
+# ---------------------------------------------------------------- phase 24
+
+# Qwen2.5-7B's attention layer (the prefill cell's): 28 query heads over 4
+# kv heads (G = 7), head dim 128, block 128; its buckets
+QWEN_HEADS, QWEN_KV_HEADS = 28, 4
+QWEN_LENS = (16384, 32768, 65536)
+HOPPER_BODY = "bsa_wgmma_kernel"
+
+
+def shuffled_tables(masks, gen):
+    """``compact_block_mask(masks)`` with each row's listed blocks in a
+    random order (the kernel takes them in any order)."""
+    import torch
+    from repro_torch.kernels import compact_block_mask
+    idx, cnt = compact_block_mask(masks)
+    live = torch.arange(idx.shape[-1], device=idx.device) < cnt[..., None]
+    key = torch.where(live, torch.rand(idx.shape, generator=gen,
+                                       device=idx.device), 2.0)
+    idx = torch.gather(idx, -1, key.argsort(-1))
+    return idx.int().contiguous(), cnt.int().contiguous()
+
+
+def device_names(fn) -> set:
+    """The names of the device kernels one call of ``fn`` launches."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with traced([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    return {e.key for e in prof.key_averages() if _device_us(e) > 0}
+
+
+def phase24() -> dict:
+    """Phase 24: B.2's Hopper body (``bsa_wgmma_kernel``, BATCHED bf16 at
+    bs = 128, D = 128) against its plain version at Qwen2.5-7B's layer
+    shape (H = 28, Hkv = 4, N = 16384), with a counts == 0 row, a row
+    whose only block is the diagonal, half the heads ungated (their Ã all
+    −inf), every row's blocks in a random order, and a 16-block chunk at
+    a q_block_offset > 0 (bitwise the full launch's rows); the profiler
+    shows which body ran.  Then its times at G = 7 on every causal block
+    (the prefill cell's density is 0.99) at 16k, 32k and 64k, every head
+    emitting Ã, beside the bound, the plain version (16k: it holds a dense
+    (N, N) float32 logit matrix per head) and SDPA's causal kernel on K/V
+    expanded to 28 heads (the same work, no Ã)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import block_sparse_attn as bsa
+    from repro_torch.kernels import (
+        compact_block_mask, expand_kv, table_block_mask)
+    print("== phase 24: B.2's Hopper body at Qwen2.5-7B's layer shape",
+          flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    h, hkv, d, bs, n = QWEN_HEADS, QWEN_KV_HEADS, 128, 128, QWEN_LENS[0]
+    nb = n // bs
+
+    def qkv(length):
+        return (torch.randn((1, x, length, d), generator=gen, device=dev)
+                .bfloat16() for x in (h, hkv, hkv))
+
+    q, k, v = qkv(n)
+    causal = torch.ones(nb, nb, dtype=torch.bool, device=dev).tril()
+    masks = ((torch.rand((1, h, nb, nb), generator=gen, device=dev) < 0.9)
+             & causal) | torch.eye(nb, dtype=torch.bool, device=dev)
+    masks[0, 3, nb // 2] = False                 # a counts == 0 row
+    masks[0, 5, nb - 1] = False                  # only the diagonal
+    masks[0, 5, nb - 1, nb - 1] = True
+    idx, cnt = shuffled_tables(masks, gen)
+    gate = (torch.arange(h, device=dev) % 2 == 0)[None]   # half ungated
+    run = lambda: bsa.block_sparse_attention_cuda(
+        q, k, v, idx, cnt, block_size=bs, stats_gate=gate)
+    o1, a1 = run()
+    o2, a2 = bsa.block_sparse_attention_plain(q, k, v, idx, cnt,
+                                              block_size=bs, stats_gate=gate)
+    zero_row = bool((o1[0, 3, (nb // 2) * bs:(nb // 2 + 1) * bs] == 0).all())
+    ungated = bool(torch.isinf(a1[:, 1::2]).all())
+    names = device_names(run)
+    body = sorted(x for x in names if HOPPER_BODY in x)
+    print(f"  B.2 [H={h} Hkv={hkv} N={n}, shuffled rows]: counts==0 row "
+          f"zeros {zero_row}, ungated heads' Ã all -inf {ungated}, device "
+          f"kernels {sorted(names)}", flush=True)
+    if not (zero_row and ungated and body):
+        raise AssertionError("the Hopper body's edge rows, gate or launch "
+                             "failed")
+    err = {"out": max_err(o1, o2), "a_tilde": a_tilde_err(a1, a2)}
+    for what, e in err.items():
+        check(f"  {what}", e, TOL[(what, "bfloat16")])
+    # a 16-block chunk at q block off (chunked prefill's rectangular launch)
+    off = nb - 24
+    rows = slice(off * bs, (off + 16) * bs)
+    qc = q[:, :, rows].contiguous()
+    cidx, ccnt = (x[:, :, off:off + 16].contiguous() for x in (idx, cnt))
+    oc, ac = bsa.block_sparse_attention_cuda(
+        qc, k, v, cidx, ccnt, block_size=bs, stats_gate=gate,
+        q_block_offset=off)
+    op, ap = bsa.block_sparse_attention_plain(
+        qc, k, v, cidx, ccnt, block_size=bs, stats_gate=gate,
+        q_block_offset=off)
+    same = (torch.equal(oc, o1[:, :, rows])
+            and torch.equal(ac, a1[:, :, off:off + 16]))
+    print(f"  B.2 [16-block chunk at q block {off}]: bitwise the full "
+          f"launch's rows {same}", flush=True)
+    if not same:
+        raise AssertionError("the chunk launch differs from the full "
+                             "launch's rows")
+    check("  out", max_err(oc, op), TOL[("out", "bfloat16")])
+    check("  a_tilde", a_tilde_err(ac, ap), TOL[("a_tilde", "bfloat16")])
+    res = {"max_abs_err": max(err["out"], max_err(oc, op))}
+    del q, k, v, o1, o2, a1, a2, oc, op, ac, ap
+    torch.cuda.empty_cache()
+
+    # times at every causal block, every head emitting Ã
+    for n in QWEN_LENS:
+        nb = n // bs
+        q, k, v = qkv(n)
+        full = torch.ones(nb, nb, dtype=torch.bool, device=dev).tril()
+        idx, cnt = (x.int().contiguous() for x in
+                    compact_block_mask(full.expand(1, h, nb, nb)))
+        gate = torch.ones((1, h), dtype=torch.bool, device=dev)
+        vis = table_block_mask(idx, cnt, nb)
+        entries, tiles = bsa_work(vis, h // hkv, bs, 0)
+        b24 = bound(2 * h * n * d * 2 + 2 * tiles * bs * d * 2
+                    + idx.numel() * 4 + cnt.numel() * 4 + h * nb * nb * 4,
+                    4.0 * d * entries, torch.bfloat16)
+        run = lambda: bsa.block_sparse_attention_cuda(
+            q, k, v, idx, cnt, block_size=bs, stats_gate=gate)
+        kx, vx = expand_kv(k, v, h)
+        lib = library_ms(lambda: F.scaled_dot_product_attention(
+            q, kx, vx, is_causal=True), 3)
+        del kx, vx
+        plain = (cuda_ms(lambda: bsa.block_sparse_attention_plain(
+            q, k, v, idx, cnt, block_size=bs, stats_gate=gate), 1)
+            if n == QWEN_LENS[0] else None)
+        r = dict(ms=cuda_ms(run, 10), device_ms=device_ms(run, 5),
+                 bound_ms=b24[0], bound_by=b24[1], plain_ms=plain,
+                 library_ms=lib)
+        r["bound_frac"] = r["bound_ms"] / r["ms"]
+        res[f"n{n}"] = r
+        print(f"  B.2 bf16 G=7 N={n}: {r['ms']:.3f} ms (device "
+              f"{r['device_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+              f"{r['bound_by']}, bound_frac {r['bound_frac']:.4f}, plain "
+              f"{plain}, library {lib})", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    print(f"phase 24 ({nvidia_smi()})", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6144,10 +6485,10 @@ def main() -> int:
         return bitwise_instances(only[1])  # no result line
     alone = {"14": phase14, "15": phase15, "16": phase16, "18": phase18,
              "19": phase19, "20": phase20, "21": phase21, "22": phase22,
-             "23": phase23}
+             "23": phase23, "24": phase24}
     if len(only) == 2 and only[0] == "--phase" and only[1] in alone:
-        # a check of phase 14, 15, 16, 18, 19, 20, 21, 22 or 23 alone; it
-        # prints no result line
+        # a check of phase 14, 15, 16 or 18 to 24 alone; it prints no
+        # result line
         alone[only[1]]()
         return 0
 
@@ -6182,7 +6523,7 @@ def main() -> int:
         phase17(model, params, prompts, tokens)     # alone; no result line
         return 0
     if only:
-        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 23, "
+        raise SystemExit(f"unknown arguments {only}; use --phase 12 to 24, "
                          "--bitwise TREE, --profiler-probe, or none")
 
     print("== phase 2: kernels against their plain versions", flush=True)
@@ -6192,9 +6533,11 @@ def main() -> int:
     small_serve_agreement()
     print("== phase 4: full-width serve", flush=True)
     torch.cuda.reset_peak_memory_stats()
-    batch = serve_full(model, params, prompts, {
-        "strip": layers, "block_sparse_attn": layers,
-        "decode_attn": layers * (NEW_TOKENS - 1)})
+    with record_share_masks() as share_masks:
+        batch = serve_full(model, params, prompts, {
+            "strip": layers, "block_sparse_attn": layers,
+            "decode_attn": layers * (NEW_TOKENS - 1)})
+    batch["share_masks"] = share_masks
     counts = dict(batch["counts"])
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
           " GiB", flush=True)
@@ -6297,6 +6640,8 @@ def main() -> int:
     phase21()
     phase22()
     phase23()
+    res["block_sparse_attn"]["max_abs_err"] = max(
+        res["block_sparse_attn"]["max_abs_err"], phase24()["max_abs_err"])
 
     rows = []
     for name, (source, replaces) in KERNELS.items():

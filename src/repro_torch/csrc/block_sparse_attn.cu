@@ -1,5 +1,6 @@
 // Block-sparse prefill attention with fused block-mean QK stats: one kernel
-// body per dtype, three instances each.
+// body per dtype, three instances each, and a Hopper body for the BATCHED
+// bf16 instance at bs = 128, D = 128.
 //
 // Replaces the TPU kernels of repro/kernels/block_sparse_attn.py:
 //   BATCHED  block_sparse_attention_batched (_kernel_batched)
@@ -27,8 +28,10 @@
 // the tile of block j starts at pool + ((page_table[b * NBkv + j] * Hkv + hk)
 // * bs) * D, in size_t (a whole pool comes near 2^31 elements).  That address
 // is the only difference: tables, causal bounds and Ã stay logical, so it is
-// bitwise the BATCHED instance run on the gathered pages.  A page id outside
-// [0, P) is never read: its block is skipped.
+// bitwise the BATCHED instance of its body run on the gathered pages (in
+// bf16 at bs = 128, D = 128 the BATCHED launch takes the Hopper body, which
+// rounds otherwise).  A page id outside [0, P) is never read: its block is
+// skipped.
 // SINGLE is the reference's single-sample oracle kernel: B = 1, offset 0,
 // a uniform n = min(counts, W) steps per row with no causal bound, no stats
 // gate, and compact stats: step w of the row writes stats[h, row, w] (the
@@ -49,9 +52,7 @@
 //     of 2 * bs threads: warp w owns query rows [16w, 16w + 16), and the Q
 //     tile stays in registers as A fragments for the whole row (up to
 //     Dqk = 192; at 256 they are reloaded from shared memory at each
-//     k-step, by_dim).  wgmma (a
-//     64-row warpgroup tile fed from shared-memory descriptors) is the next
-//     step for this body.
+//     k-step, by_dim).
 //   * K/V stream through a two-stage shared-memory ring of 64-key bf16
 //     sub-tiles, filled by 16-byte cp.async while the previous sub-tile is
 //     computed; rows are padded by 16 bytes so ldmatrix is conflict-free
@@ -69,10 +70,59 @@
 //     one kv head (their K/V tiles meet in the 50 MB L2), then kv head and
 //     batch, with the query block rows reversed so that the causal rows
 //     with the most blocks start first.
+// It runs PAGED and SINGLE, bs = 64, and the widths other than 128; the
+// BATCHED instance at bs = 128, Dqk = Dv = 128 in bf16 is the Hopper body's.
+// Every mma.sync instance stops near 225 TFLOP/s (23-25 % of the bf16 peak),
+// whatever the width.
+//
+// Hopper body (bsa_wgmma_kernel<128, 128, BATCHED>), bf16 only, the prefill
+// main path of every GQA model at head dim 128: replaces the TPU kernel
+// block_sparse_attention_batched (_kernel_batched) at that shape, with the
+// same semantics and per-row arithmetic as above, on sm_90a's own path.
+// Bound by the products as above; FlashAttention-3's design:
+//   * One CTA of 384 threads per (row, h, b): a producer warpgroup
+//     (setmaxnreg 40) whose thread 0 issues every TMA load, and two
+//     consumer warpgroups (setmaxnreg 232), each owning 64 of the 128 query
+//     rows.  __launch_bounds__(384, 1), 165 KB of shared memory.
+//   * Loads by TMA, 128-byte swizzle, each 128 x 128 tile as two 128 x 64
+//     boxes: Q once, then K and V as whole 128-key blocks in two rings of
+//     two stages each (32 KB a stage), full and empty mbarriers per stage.
+//     The producer reads block j from indices itself and loads row
+//     kv0 + j * 128 of 2-D tensor maps over (B * Hkv * NBkv * 128, 128) K
+//     and V (built on the host at each launch; cuTensorMapEncodeTiled
+//     comes through the runtime's driver entry point).  K runs one block
+//     ahead of V, since QK^T of block i + 1 comes before PV of block i.
+//   * Products on wgmma.m64n128k16: S = Q K^T with both operands from
+//     shared-memory descriptors (8 k-steps), O += P V with P from
+//     registers (the float32 S fragments rounded to bf16 in place of the
+//     A fragments) and V as the transposed B operand.
+//   * Overlap: intra-warpgroup pipelining, QK^T of block i issued together
+//     with PV of block i - 1, and the softmax of block i run while PV
+//     executes.  FlashAttention-3's two-warpgroup ping-pong on named
+//     barriers measured within the noise of none here (PERF.md), so the
+//     warpgroups run unsynchronised.  The softmax only reads the
+//     accumulator registers and writes P straight into the other of two
+//     register arrays: a write to a register that a wgmma in flight reads
+//     or writes makes ptxas wait for it, which put the exponentials after
+//     PV.  2^x is ex2.approx.ftz (one SFU op; exp2f's denormal handling
+//     cost a sixth of the body's time).
+//   * The causal mask only on the block that crosses the diagonal (block
+//     index against q_block_offset + row); interior blocks skip the
+//     predicate.  The online softmax rescales O once per 128-key block.
+//   * Ã: on interior blocks the count is 128^2 and is not counted (the
+//     diagonal's is 128 * 129 / 2).  Each consumer warp shuffles its sum to
+//     one value; the last of the 8 warps to arrive (an acquire-release
+//     counter per slot, 4 slots) sums the 8 in warp order and writes the
+//     mean, so the result does not depend on timing.  A named barrier over
+//     the 256 consumer threads measured 3-10 % slower with half the heads
+//     emitting; the producer never waits on either.
+//   * Grid order as above; not persistent.
 // float32 body (bsa_f32_kernel): products as FMAs on CUDA cores, one CTA per
 // (row, h, b) of 2 * bs threads, Q, K, V and P in shared memory in float32,
 // each thread owning 4 query rows x 4 keys of S and 4 rows x Dv/8 columns
 // of the output.
+#include <cuda.h>   // CUtensorMap and its enums (no driver library linked)
+
 #include "common.cuh"
 
 namespace {
@@ -553,6 +603,343 @@ bsa_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                 o[dn][2 * rr + 1] * inv[rr]);
 }
 
+// The Hopper body (header comment): shared memory from a 1024-byte aligned
+// base.  Every tile is two 16 KB halves of 128 rows x 64 bf16 columns in
+// the TMA's 128-byte swizzle (one box each).
+namespace wg {
+constexpr int THREADS = 384;          // producer warpgroup + 2 consumers
+constexpr int HALF = 128 * 64 * 2;    // bytes of one 128 x 64 box
+constexpr int TILE = 2 * HALF;        // a 128 x 128 bf16 tile
+constexpr int Q_OFF = 0;
+constexpr int K_OFF = TILE;           // 2 stages
+constexpr int V_OFF = 3 * TILE;       // 2 stages
+constexpr int BAR_OFF = 5 * TILE;     // 9 mbarriers
+constexpr int RED_OFF = BAR_OFF + 128;  // float [4][8]: Ã per warp
+constexpr int CNT_OFF = RED_OFF + 128;  // int [4]: warps arrived
+constexpr int SMEM = CNT_OFF + 16 + 1024;  // + slack for the alignment
+}  // namespace wg
+
+// One 128-key block of a consumer thread's two query rows (rl and rl + 8
+// of the tile): s holds its 64 raw logits, which are only read (a write to
+// an accumulator register waits for every wgmma in flight, the PV of the
+// previous block among them).  Applies the causal mask where MASK (the
+// block crosses the diagonal: valid iff key column <= query row; none if
+// dead, above it), steps the online softmax (m, l in base 2; alpha the
+// rescale of O) and writes P, rounded to bf16, into p as PV's A fragments
+// (p[4kk..4kk+3] for keys 16kk..16kk+15).  Returns the sum of the raw
+// valid logits for Ã (0 unless EMIT).  The sums and maxima run over 4
+// and 2 partial accumulators to shorten their dependency chains.
+template <bool EMIT, bool MASK>
+__device__ __forceinline__ float softmax_block(
+    const float (&s)[64], uint32_t (&p)[32], float (&m)[2], float (&l)[2],
+    float (&alpha)[2], float sl2, bool dead, int rl, int tq) {
+  auto valid = [&](int i) {
+    return !MASK || (!dead && 8 * (i >> 2) + 2 * tq + (i & 1) <=
+                                  rl + 8 * ((i >> 1) & 1));
+  };
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  float mx[2][2] = {{-CUDART_INF_F, -CUDART_INF_F},
+                    {-CUDART_INF_F, -CUDART_INF_F}};
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const bool ok = valid(i);
+    if constexpr (EMIT) part[i & 3] += ok ? s[i] : 0.f;
+    mx[(i >> 1) & 1][i >> 5] =
+        fmaxf(mx[(i >> 1) & 1][i >> 5], ok ? s[i] : -CUDART_INF_F);
+  }
+  float m_use[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float x = fmaxf(mx[rr][0], mx[rr][1]);
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+    x *= sl2;                  // max(s) * c == max(s * c): rounding is monotone
+    const float m_new = fmaxf(m[rr], x);
+    alpha[rr] = m[rr] == -CUDART_INF_F ? 0.f : exp2f(m[rr] - m_new);
+    m_use[rr] = m_new == -CUDART_INF_F ? 0.f : m_new;
+    m[rr] = m_new;
+  }
+  float ls[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {      // entries 2k, 2k + 1: one row
+    const int rr = k & 1;
+    const float p0 = valid(2 * k)
+        ? repro::ex2_ftz(fmaf(s[2 * k], sl2, -m_use[rr])) : 0.f;
+    const float p1 = valid(2 * k + 1)
+        ? repro::ex2_ftz(fmaf(s[2 * k + 1], sl2, -m_use[rr])) : 0.f;
+    ls[rr][k >> 4] += p0 + p1;
+    p[k] = repro::pack_bf16(p0, p1);
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr)
+    l[rr] = l[rr] * alpha[rr] + (ls[rr][0] + ls[rr][1]);
+  return EMIT ? (part[0] + part[1]) + (part[2] + part[3]) : 0.f;
+}
+
+template <int BQ, int D, int MODE>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+bsa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const int* __restrict__ indices,
+                 const int* __restrict__ counts,
+                 const int* __restrict__ gate,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ stats,
+                 Dims a, float scale) {
+  static_assert(BQ == 128 && D == 128 && MODE == BATCHED,
+                "the Hopper body has one instance");
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  unsigned char* sm =
+      wg_smem + ((1024 - (repro::smem_addr(wg_smem) & 1023)) & 1023);
+  unsigned char* q_s = sm + wg::Q_OFF;
+  unsigned char* k_s = sm + wg::K_OFF;
+  unsigned char* v_s = sm + wg::V_OFF;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + wg::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;        // [2]
+  uint64_t* k_empty = bars + 3;       // [2]
+  uint64_t* v_full = bars + 5;        // [2]
+  uint64_t* v_empty = bars + 7;       // [2]
+  float* red = reinterpret_cast<float*>(sm + wg::RED_OFF);   // [4][8]
+  int* arrived = reinterpret_cast<int*>(sm + wg::CNT_OFF);    // [4]
+
+  const int H = a.H, G = H / a.Hkv, W = a.W, NBkv = a.NBkv;
+  const int NBq = a.N / BQ;
+  // launch order: g fastest, then kv head, batch, and the rows reversed
+  int t = blockIdx.x;
+  const int g = t % G;
+  t /= G;
+  const int hk = t % a.Hkv;
+  t /= a.Hkv;
+  const int b = t % a.B;
+  const int row = NBq - 1 - t / a.B;
+  const int h = hk * G + g;
+  const int tid = threadIdx.x;
+  const size_t bh = (size_t)b * H + h;
+  const size_t trow = bh * NBq + row;        // table row
+  const int n = visited<MODE>(a, counts[trow], row);
+  __nv_bfloat16* ob = out + (bh * a.N + (size_t)row * BQ) * D;
+
+  if (n == 0) {                    // nothing visited: zeros (uniform)
+    for (int c = tid; c < BQ * D / 8; c += wg::THREADS)
+      reinterpret_cast<uint4*>(ob)[c] = make_uint4(0, 0, 0, 0);
+    return;
+  }
+  if (tid == 0) {
+    repro::mbar_init(q_full, 1);
+    for (int s = 0; s < 2; ++s) {
+      repro::mbar_init(k_full + s, 1);
+      repro::mbar_init(v_full + s, 1);
+      repro::mbar_init(k_empty + s, 8);   // lane 0 of each consumer warp
+      repro::mbar_init(v_empty + s, 8);
+    }
+    for (int e = 0; e < 4; ++e) arrived[e] = 0;
+    repro::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- producer: one thread issues every TMA load
+    repro::regs_dealloc<40>();
+    if (tid != 0) return;
+    const int kv0 = (b * a.Hkv + hk) * NBkv * BQ;   // first K/V row
+    const int* tab = indices + trow * W;
+    const int q_row = (int)(bh * a.N) + row * BQ;
+    repro::mbar_expect_tx(q_full, wg::TILE);
+    repro::tma_load_2d(q_s, &tq, q_full, 0, q_row);
+    repro::tma_load_2d(q_s + wg::HALF, &tq, q_full, 64, q_row);
+    auto load = [&](const CUtensorMap* map, unsigned char* ring,
+                    uint64_t* full, uint64_t* empty, int i, int r) {
+      const int s = i & 1, use = i >> 1;
+      if (use > 0) repro::mbar_wait(empty + s, (use - 1) & 1);
+      unsigned char* dst = ring + s * wg::TILE;
+      repro::mbar_expect_tx(full + s, wg::TILE);
+      repro::tma_load_2d(dst, map, full + s, 0, r);
+      repro::tma_load_2d(dst + wg::HALF, map, full + s, 64, r);
+    };
+    // K runs one block ahead of V: K_{i+1} is needed (QK^T of block i+1)
+    // before V_i (PV of block i)
+    int r_next = kv0 + tab[0] * BQ;
+    load(&tk, k_s, k_full, k_empty, 0, r_next);
+    for (int i = 0; i < n; ++i) {
+      const int r = r_next;
+      if (i + 1 < n) {
+        r_next = kv0 + tab[i + 1] * BQ;
+        load(&tk, k_s, k_full, k_empty, i + 1, r_next);
+      }
+      load(&tv, v_s, v_full, v_empty, i, r);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw owns the tile's query rows [64cw, 64cw+64)
+  repro::regs_alloc<232>();
+  const int ct = tid - 128;                  // 0..255
+  const int cw = ct >> 7, warp = (ct >> 5) & 3, lane = tid & 31;
+  const int gq = lane >> 2, tq4 = lane & 3;  // fragment row / column group
+  const int rl = 64 * cw + 16 * warp + gq;   // rows rl, rl + 8 of the tile
+  const int* tab = indices + trow * W;
+  const bool emit = gate[bh] != 0;
+  const int qb = a.q_block_offset + row;     // the row's block position
+  const float sl2 = scale * 1.4426950408889634f;   // logits in base 2
+  const uint32_t q_addr = repro::smem_addr(q_s) + cw * 64 * 128;
+  const uint32_t k_addr = repro::smem_addr(k_s);
+  const uint32_t v_addr = repro::smem_addr(v_s);
+
+  float o[64], s[64];
+  uint32_t pa[32], pb[32];   // P of alternate blocks (see step)
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  int emitted = 0;                           // Ã reductions so far
+
+  // S = Q K^T of the block in K stage ks: 8 k-steps of 16 columns, each a
+  // 32-byte step inside a 128-byte swizzled row, the second four in the
+  // tile's second half
+  auto issue_qk = [&](int ks) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * wg::HALF + (kk & 3) * 32;
+      repro::wgmma_m64n128k16_ss(
+          s, repro::sw128_desc(q_addr + off, 16, 1024),
+          repro::sw128_desc(k_addr + ks * wg::TILE + off, 16, 1024), kk > 0);
+    }
+    repro::wgmma_commit();
+  };
+  // O += P V of the block in V stage vs: 8 k-steps of 16 keys (2 KB of
+  // rows each); V's 128 columns are the tile's two halves (LBO 16 KB),
+  // its 8-key groups 1 KB apart (SBO)
+  auto issue_pv = [&](int vs, const uint32_t (&p)[32]) {
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      repro::wgmma_m64n128k16_rs(
+          o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+          repro::sw128_desc(v_addr + vs * wg::TILE + kk * 2048, wg::HALF,
+                            1024));
+    repro::wgmma_commit();
+  };
+  // block j's softmax into p (softmax_block); returns its Ã sum
+  auto softmax = [&](int j, uint32_t (&p)[32], float (&alpha)[2]) {
+    const bool full = !a.causal || j < qb;
+    const bool dead = a.causal && j > qb;
+    if (emit)
+      return full ? softmax_block<true, false>(s, p, m, l, alpha, sl2, dead,
+                                               rl, tq4)
+                  : softmax_block<true, true>(s, p, m, l, alpha, sl2, dead,
+                                              rl, tq4);
+    return full ? softmax_block<false, false>(s, p, m, l, alpha, sl2, dead,
+                                              rl, tq4)
+                : softmax_block<false, true>(s, p, m, l, alpha, sl2, dead,
+                                             rl, tq4);
+  };
+  // Ã of block j (uniform)
+  auto stat = [&](int j, float sum) {
+    const bool full = !a.causal || j < qb;
+    if (!emit || (a.causal && j > qb)) return;
+    sum = repro::group_sum<32>(sum);
+    const int cnt = full ? BQ * BQ : BQ * (BQ + 1) / 2;
+    // the last of the 8 consumer warps to arrive sums their slots in warp
+    // order; 4 slots: a warp at block i waited for the K stage that every
+    // warp freed after its QK^T of block i - 2, so every warp has finished
+    // the Ã of block i - 3 and at most 3 slots are in use
+    const int e = emitted++ & 3;
+    if (lane == 0) {
+      volatile float* slot = red + e * 8;
+      slot[ct >> 5] = sum;
+      // release: the slot's store before the count; acquire: the other
+      // warps' slots after it
+      if (repro::atomic_add_acq_rel(arrived + e, 1) == 7) {
+        float tot = 0.f;
+#pragma unroll
+        for (int x = 0; x < 8; ++x) tot += slot[x];
+        arrived[e] = 0;
+        stats[trow * NBkv + j] = tot * scale / (float)cnt;
+      }
+    }
+  };
+  repro::mbar_wait(q_full, 0);
+  // block 0: QK^T, then its softmax (O is still zero)
+  int j = tab[0];
+  repro::mbar_wait(k_full, 0);
+  repro::wgmma_fence();
+  issue_qk(0);
+  repro::wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 64; ++i) repro::keep(s[i]);
+  if (lane == 0) repro::mbar_arrive(k_empty);
+  {
+    float alpha[2];
+    const float sum = softmax(j, pa, alpha);
+    stat(j, sum);
+  }
+  // block i: QK^T of block i and PV of block i - 1 (P in pin) in flight
+  // together; block i's softmax runs while the tensor cores do PV.  Its P
+  // goes to the other array, pout: a write to pin's registers would wait
+  // for the PV that reads them (ptxas serialises the two), so P alternates
+  // between pa and pb and the loop is unrolled by two
+  auto step = [&](int i, const uint32_t (&pin)[32], uint32_t (&pout)[32]) {
+    const int jb = tab[i];
+    const int ks = i & 1, vs = (i - 1) & 1;
+    repro::mbar_wait(k_full + ks, (i >> 1) & 1);
+    repro::mbar_wait(v_full + vs, ((i - 1) >> 1) & 1);
+    repro::wgmma_fence();
+    issue_qk(ks);
+    issue_pv(vs, pin);
+    repro::wgmma_wait<1>();                 // S of block i is done
+#pragma unroll
+    for (int x = 0; x < 64; ++x) repro::keep(s[x]);
+    if (lane == 0) repro::mbar_arrive(k_empty + ks);
+    float alpha[2];
+    const float sum = softmax(jb, pout, alpha);
+    stat(jb, sum);                          // also in the shadow of PV
+    repro::wgmma_wait<0>();                 // PV of block i - 1 is done
+#pragma unroll
+    for (int x = 0; x < 64; ++x) repro::keep(o[x]);
+    if (lane == 0) repro::mbar_arrive(v_empty + vs);
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
+  };
+  // PV of the last block
+  auto last_pv = [&](const uint32_t (&p)[32]) {
+    const int vs = (n - 1) & 1;
+    repro::mbar_wait(v_full + vs, ((n - 1) >> 1) & 1);
+    repro::wgmma_fence();
+    issue_pv(vs, p);
+    repro::wgmma_wait<0>();
+#pragma unroll
+    for (int x = 0; x < 64; ++x) repro::keep(o[x]);
+  };
+  int i = 1;
+  for (; i + 1 < n; i += 2) {
+    step(i, pa, pb);
+    step(i + 1, pb, pa);
+  }
+  if (i < n) {
+    step(i, pa, pb);
+    last_pv(pb);
+  } else {
+    last_pv(pa);
+  }
+
+  // out = O / max(l, 1e-30)
+  float inv[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    inv[rr] = 1.f / fmaxf(l[rr], 1e-30f);
+  }
+  __nv_bfloat16* orow = ob + (size_t)rl * D;
+#pragma unroll
+  for (int jj = 0; jj < D / 8; ++jj)
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+      *reinterpret_cast<__nv_bfloat162*>(orow + (size_t)rr * 8 * D +
+                                         jj * 8 + 2 * tq4) =
+          __floats2bfloat162_rn(o[4 * jj + 2 * rr] * inv[rr],
+                                o[4 * jj + 2 * rr + 1] * inv[rr]);
+}
+
 template <int BQ, int DQK, int DV, int MODE>
 int launch_f32(const Args& a, void* stream) {
   constexpr int QS = DQK + 1;
@@ -590,13 +977,81 @@ int launch_tc(const Args& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime's entry
+// point (no -lcuda at build time); nullptr where the driver has none.
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (rows, 128) bf16 matrix as 128 x 64 boxes in the 128-byte swizzle.
+bool tile_map(CUtensorMap* map, const void* base, long long rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {128, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {128 * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, 128};
+  const cuuint32_t unit[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The Hopper body at bs = 128, Dqk = Dv = 128, BATCHED, bf16.  The tensor
+// maps are built at each launch (the pointers change from layer to layer);
+// TMA coordinates are 32-bit, so q's and K/V's rows must stay below 2^31.
+int launch_wgmma(const Args& a, void* stream) {
+  const Dims& d = a.d;
+  const long long q_rows = (long long)d.B * d.H * d.N;
+  const long long kv_rows = (long long)d.B * d.Hkv * d.NBkv * 128;
+  if (q_rows >= (1ll << 31) || kv_rows >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  if (!tile_map(&tq, a.q, q_rows) || !tile_map(&tk, a.k, kv_rows) ||
+      !tile_map(&tv, a.v, kv_rows))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t e = cudaFuncSetAttribute(
+      bsa_wgmma_kernel<128, 128, BATCHED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned ctas = (unsigned)(d.N / 128) * d.H * d.B;
+  bsa_wgmma_kernel<128, 128, BATCHED>
+      <<<ctas, wg::THREADS, wg::SMEM, (cudaStream_t)stream>>>(
+          tq, tk, tv, a.indices, a.counts, a.gate, (__nv_bfloat16*)a.out,
+          a.stats, d, 1.0f / sqrtf(128.f));
+  return (int)cudaGetLastError();
+}
+
 template <int BQ, int DQK, int DV, int MODE>
 int launch(bool tc, const Args& a, void* stream) {
   return tc ? launch_tc<BQ, DQK, DV, MODE>(a, stream)
             : launch_f32<BQ, DQK, DV, MODE>(a, stream);
 }
 
-// bfloat16 takes the tensor-core body, float32 the CUDA-core one; bs in
+// bfloat16 takes the tensor-core body (the Hopper body for BATCHED at bs =
+// 128 and D = 128: the shape and dtype alone choose), float32 the
+// CUDA-core one; bs in
 // {64, 128} and equal Q/K and V widths D in {64, 96, 128}, or, for BATCHED
 // and SINGLE, D = 256 or (Dqk, Dv) = (192, 128) (DeepSeek-V2's MLA
 // prefill: qk_nope 128 + qk_rope 64 against v 128); anything else is
@@ -621,6 +1076,11 @@ int launch(bool tc, const Args& a, void* stream) {
 template <int BQ, int MODE>
 int by_dim(bool tc, int D, int Dv, const Args& a, void* stream) {
   if (D == Dv) {
+    if constexpr (BQ == 128 && MODE == BATCHED) {
+      if (D == 128)       // bf16 takes the Hopper body (header comment)
+        return tc ? launch_wgmma(a, stream)
+                  : launch_f32<128, 128, 128, BATCHED>(a, stream);
+    }
     if (D == 128) return launch<BQ, 128, 128, MODE>(tc, a, stream);
     if (D == 96) return launch<BQ, 96, 96, MODE>(tc, a, stream);
     if (D == 64) return launch<BQ, 64, 64, MODE>(tc, a, stream);

@@ -20,7 +20,9 @@ so the semantics equal the TPU kernel's exactly.
   * :func:`block_sparse_attention_cuda` — the hand-written kernel
     ``csrc/block_sparse_attn.cu`` (replaces the TPU kernel
     ``repro/kernels/block_sparse_attn.py::block_sparse_attention_batched``):
-    bfloat16 runs its products on the tensor cores, float32 on CUDA cores;
+    bfloat16 runs its products on the tensor cores (at bs = 128 and
+    D = 128 in the Hopper body, ``wgmma`` fed by TMA; the C function picks
+    it from the shape and dtype), float32 on CUDA cores;
   * :func:`block_sparse_attention_batched` — the dispatcher.
 
 All return ``(out (B, H, N, Dv) in q's dtype, Ã (B, H, NBq, NBkv) f32)``:
@@ -34,7 +36,8 @@ dispatcher:
     ``(P, Hkv, bs, D)`` read through ``page_table (B, NBkv)``; tables,
     causal bounds and Ã stay logical, so the result is bitwise the
     contiguous path on :func:`~repro_torch.kernels.decode_attn.gather_pages`
-    (replaces ``block_sparse_attention_batched_paged``);
+    where both run one kernel body (not against the Hopper body, in bf16
+    at bs = 128, D = 128) (replaces ``block_sparse_attention_batched_paged``);
   * :func:`block_sparse_attention_kernel` — the single-sample oracle kernel
     the reference reaches through ``attn_impl="kernel"``: q ``(H, N, D)``,
     uniform ``min(counts, W)`` steps per row (no causal bound), offset 0,

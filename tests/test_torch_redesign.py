@@ -8,8 +8,9 @@ their arithmetic against the JAX package's Pallas kernels (interpret mode):
     a partial ``(m, l, acc)`` per chunk, merged in split order under the
     −inf-safe rule, at float32 tolerance (1e-5, the one the port's decode
     tests use), with exact zeros where the contract asks for them;
-  * the bf16 tensor-core block-sparse body (``csrc/block_sparse_attn.cu``):
-    64-key sub-tiles, base-2 online softmax, P rounded to bf16 only as the
+  * the bf16 tensor-core block-sparse bodies (``csrc/block_sparse_attn.cu``):
+    64-key sub-tiles (the ``mma.sync`` body) or whole 128-key blocks (the
+    Hopper body), base-2 online softmax, P rounded to bf16 only as the
     operand of PV, float32 ``l`` and accumulators, Ã from the raw logits,
     within ``chip_smoke.TOL`` for bf16 (the tolerance the card's check uses);
 
@@ -352,10 +353,14 @@ def _bf16(x):
 
 
 def tc_body(q, k, v, idx, cnt, *, bs, off, gate, causal=True, kn=64):
-    """Mirror of bsa_tc_kernel's arithmetic in float32 on bf16 inputs:
-    kn-key sub-tiles, base-2 online softmax with the −inf guards, P rounded
-    to bf16 as PV's operand, l and acc in float32, Ã as the raw logits'
-    sum times scale over the valid count; (out in bf16, Ã)."""
+    """Mirror of the bf16 block-sparse bodies' arithmetic in float32 on bf16
+    inputs: kn-key sub-tiles (64 for bsa_tc_kernel; 128, one whole block a
+    step, for the Hopper body bsa_wgmma_kernel), base-2 online softmax with
+    the −inf guards, P rounded to bf16 as PV's operand, l and acc in
+    float32, Ã as the raw logits' sum times scale over the valid count;
+    (out in bf16, Ã).  The Hopper body takes 2^x of the logit times scale
+    · log2 e less the row maximum as one fused multiply-add, a float32
+    rounding apart from this product-then-difference."""
     b, h, n, d = q.shape
     hkv, nkv = k.shape[1], k.shape[2]
     g, nbq, nbkv = h // hkv, n // bs, nkv // bs
@@ -403,26 +408,43 @@ def tc_body(q, k, v, idx, cnt, *, bs, off, gate, causal=True, kn=64):
     return out, a_tilde
 
 
-@pytest.mark.parametrize("bs,width", [(64, None), (128, None), (64, 2)])
-def test_tensor_core_body_fits_the_bf16_tolerance(bs, width):
+@pytest.mark.parametrize("bs,width,kn", [
+    pytest.param(64, None, 64, id="64-None"),
+    pytest.param(128, None, 64, id="128-None"),
+    pytest.param(64, 2, 64, id="64-2"),
+    pytest.param(128, None, 128, id="hopper-128-chunk"),
+])
+def test_tensor_core_body_fits_the_bf16_tolerance(bs, width, kn):
     """bf16 P before PV keeps the output within the card's bf16 tolerance
     of the float32 reference on the same (bf16-valued) inputs, and Ã within
-    its tolerance; a counts == 0 row writes zeros."""
+    its tolerance; a counts == 0 row writes zeros.  The Hopper body's case
+    (whole 128-key blocks, bs = 128, D = 128, G = 2) runs a chunk of the
+    last two q blocks at q_block_offset 2, one of whose rows lists only
+    its diagonal block."""
     tol = _chip_smoke().TOL
     rng = np.random.default_rng(13)
-    b, h, hkv, n, d = 2, 4, 2, 4 * bs, 64
+    chunk = kn == 128
+    b, h, hkv, n, d = 2, 4, 2, 4 * bs, 128 if chunk else 64
     q, k, v = (_bf16(rng.standard_normal(s).astype(np.float32)).numpy()
                for s in ((b, h, n, d), (b, hkv, n, d), (b, hkv, n, d)))
     nb = n // bs
     mask = rng.random((b, h, nb, nb)) < 0.7
     mask &= np.tril(np.ones((nb, nb), bool))
-    mask[0, 1, 2] = False                        # counts == 0 row
+    off = 2 if chunk else 0
+    if chunk:
+        q, mask = q[:, :, off * bs:], mask[:, :, off:]
+        mask[1, 3, 0] = False                    # only the diagonal block
+        mask[1, 3, 0, off] = True
+    zero = 1 if chunk else 2
+    mask[0, 1, zero] = False                     # counts == 0 row
     gate = rng.random((b, h)) < 0.5
     jo, ja = j_bbsa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                     jnp.asarray(mask), block_size=bs, width=width,
-                    stats_gate=jnp.asarray(gate))
+                    stats_gate=jnp.asarray(gate),
+                    q_block_offset=off if chunk else None)
     idx, cnt = compact_block_mask(T(mask), width=width)
-    to, ta = tc_body(T(q), T(k), T(v), idx, cnt, bs=bs, off=0, gate=gate)
+    to, ta = tc_body(T(q), T(k), T(v), idx, cnt, bs=bs, off=off, gate=gate,
+                     kn=kn)
     err = float(np.abs(to.numpy() - np.asarray(jo)).max())
     assert 0 < err <= tol[("out", "bfloat16")]
     ja = np.asarray(ja)
@@ -430,13 +452,16 @@ def test_tensor_core_body_fits_the_bf16_tolerance(bs, width):
     fin = np.isfinite(ja)
     np.testing.assert_allclose(ta.numpy()[fin], ja[fin],
                                atol=tol[("a_tilde", "bfloat16")], rtol=0)
-    assert (to.numpy()[0, 1, 2 * bs:3 * bs] == 0).all()
+    assert (to.numpy()[0, 1, zero * bs:(zero + 1) * bs] == 0).all()
 
 
 # ------------------------------------------------------------ profiles
 
 @pytest.mark.parametrize("name,group", [
     ("void (anonymous namespace)::bsa_tc_kernel<128, 128, 0>(x)",
+     "block_sparse_attn"),
+    ("void (anonymous namespace)::bsa_wgmma_kernel<128, 128, 0>"
+     "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, int const*)",
      "block_sparse_attn"),
     ("void (anonymous namespace)::bsa_tc_kernel<64, 128, 1>(x)",
      "block_sparse_attn_paged"),
@@ -477,7 +502,7 @@ def test_profile_groups_every_device_function(name, group):
 def test_profile_refuses_an_unattributed_port_kernel():
     with pytest.raises(AssertionError, match="no instance"):
         _chip_smoke().kernel_group(
-            "void (anonymous namespace)::bsa_wgmma_kernel<128, 128, 0>(x)")
+            "void (anonymous namespace)::bsa_tma_kernel<128, 128, 0>(x)")
 
 
 # ------------------------------------- repairs: head dim 96 and G up to 16
